@@ -1,0 +1,201 @@
+"""Model builder: parfile -> components -> TimingModel (counterpart of
+``pint_tpu/models/builder.py``, restricted to the components ported so far:
+AstrometryEquatorial, SolarSystemShapiro, DispersionDM, Spindown, AbsPhase).
+
+A parfile that selects any other component raises NotImplementedError
+naming the ROADMAP item that ports it. Parameter values become float64
+tensors on the model's device; epochs and F0/F1 become exact DD pairs.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from pint_tpu_torch.device import resolve_device
+from pint_tpu_torch.io.par import ParFile, parse_fit_flag, parse_parfile
+from pint_tpu_torch.io.tim import mjd_string_to_day_frac
+from pint_tpu_torch.models.astrometry import AstrometryEquatorial
+from pint_tpu_torch.models.base import Component
+from pint_tpu_torch.models.dispersion import DispersionDM
+from pint_tpu_torch.models.parameter import ParamSpec, ParamValueMeta
+from pint_tpu_torch.models.phase_misc import AbsPhase
+from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
+from pint_tpu_torch.models.spindown import Spindown
+from pint_tpu_torch.models.timing_model import TimingModel
+from pint_tpu_torch.ops.dd import DD
+
+log = logging.getLogger("pint_tpu_torch.builder")
+
+# top-level configuration keys that land in model.meta (not parameters)
+META_KEYS = {"PSR", "PSRJ", "PSRB", "EPHEM", "CLK", "CLOCK", "UNITS", "TIMEEPH",
+             "T2CMETHOD", "ECL", "DILATEFREQ", "TRACK", "INFO"}
+
+# recognized-but-inert bookkeeping keys (fit summary data etc.)
+IGNORED_KEYS = {"START", "FINISH", "NTOA", "TRES", "CHI2", "CHI2R", "NITS", "MODE",
+                "IBOOT", "EPHVER", "DMDATA", "BADTOA"}
+
+
+def _unported(pf: ParFile) -> list[tuple[str, str]]:
+    """(parfile key, ROADMAP item) for every component this parfile selects
+    that the port does not have yet."""
+    names = list(pf.names())
+    checks = [
+        ("BINARY", "BINARY" in pf, "A5 (ELL1) / A8 (other binaries)"),
+        ("ELONG", "ELONG" in pf or "LAMBDA" in pf, "A9 (AstrometryEcliptic)"),
+        ("DMX_", any(n.startswith("DMX_") for n in names), "A9 (DMX)"),
+        ("DMJUMP", "DMJUMP" in pf, "A9 (DMJUMP)"),
+        ("PHOFF", "PHOFF" in pf, "A9 (PhaseOffset)"),
+        ("JUMP", "JUMP" in pf, "A9 (PhaseJump)"),
+        ("DJUMP", "DJUMP" in pf, "A9 (DelayJump)"),
+        ("GLEP_", any(n.startswith("GLEP_") for n in names), "A9 (Glitch)"),
+        ("WAVE_OM", "WAVE_OM" in pf, "A9 (Wave)"),
+        ("FD", any(n.startswith("FD") and n[2:].isdigit() for n in names), "A9 (FD)"),
+        ("NE_SW", any(k in pf for k in ("NE_SW", "NE1AU", "SOLARN0")), "A9 (solar wind)"),
+        ("SWXDM_", any(n.startswith("SWXDM_") for n in names), "A9 (SWX)"),
+        ("SIFUNC", "SIFUNC" in pf, "A9 (IFunc)"),
+        ("PWEP_", any(n.startswith("PWEP_") for n in names), "A9 (piecewise spindown)"),
+        ("CORRECT_TROPOSPHERE", _parse_bool(pf.get("CORRECT_TROPOSPHERE", "N")),
+         "A9 (troposphere)"),
+        ("EFAC/EQUAD", any(k in pf for k in ("EFAC", "T2EFAC", "EQUAD", "T2EQUAD")),
+         "A5 (ScaleToaError)"),
+        ("ECORR", any(k in pf for k in ("ECORR", "TNECORR")), "A5 (EcorrNoise)"),
+        ("RNAMP/TNREDAMP", ("RNAMP" in pf and "RNIDX" in pf) or "TNREDAMP" in pf,
+         "A9 (PLRedNoise)"),
+        ("TNDMAMP", "TNDMAMP" in pf, "A9 (PLDMNoise)"),
+        ("TNGWAMP", "TNGWAMP" in pf, "A12 (PLGWBNoise)"),
+        ("DMEFAC/DMEQUAD", "DMEFAC" in pf or "DMEQUAD" in pf, "A10 (ScaleDmError)"),
+        ("PLANET_SHAPIRO", _parse_bool(pf.get("PLANET_SHAPIRO", "N")),
+         "A18 (planet positions from the TOA prepare)"),
+    ]
+    return [(key, item) for key, hit, item in checks if hit]
+
+
+def get_model(parfile: str, from_text: bool = False, device=None) -> TimingModel:
+    """Parfile path (or text with from_text=True) -> TimingModel on `device`
+    (CUDA unless 'cpu' is asked for)."""
+    return build_model(parse_parfile(parfile, from_text=from_text), device=device)
+
+
+def build_model(pf: ParFile, device=None) -> TimingModel:
+    dev = resolve_device(device)
+    missing = _unported(pf)
+    if missing:
+        raise NotImplementedError(
+            "pint_tpu_torch does not port these components yet: "
+            + "; ".join(f"{k} -> ROADMAP {item}" for k, item in missing))
+    consumed: set[str] = set(META_KEYS) | set(IGNORED_KEYS)
+    meta = _collect_meta(pf)
+
+    components: list[Component] = []
+    if "F0" in pf or "F" in pf:
+        components.append(Spindown())
+    if "RAJ" in pf or "RA" in pf:
+        components.append(AstrometryEquatorial())
+    if "DM" in pf or any(n.startswith("DM1") for n in pf.names()):
+        components.append(DispersionDM())
+    if any(isinstance(c, AstrometryEquatorial) for c in components):
+        components.append(SolarSystemShapiro())
+        meta["PLANET_SHAPIRO"] = False
+        consumed.add("PLANET_SHAPIRO")
+    if "TZRMJD" in pf:
+        components.append(AbsPhase())
+        day, hi, lo = mjd_string_to_day_frac(pf.get("TZRMJD"))
+        meta["TZR_DAY"], meta["TZR_HI"], meta["TZR_LO"] = day, hi, lo
+        meta["TZRMJD_STR"] = pf.get("TZRMJD")
+        meta["TZRSITE"] = pf.get("TZRSITE", "ssb")
+        frq = pf.get("TZRFRQ")
+        meta["TZRFRQ"] = float(frq) if frq not in (None, "0", "0.0") else float("inf")
+        consumed |= {"TZRMJD", "TZRSITE", "TZRFRQ"}
+
+    model = TimingModel(components, meta, device=dev)
+    for comp in model.components:
+        _collect_component_params(comp, pf, model, consumed)
+    for name in pf.names():
+        if name not in consumed:
+            log.warning(f"unrecognized parfile key {name}; ignored")
+    model.validate()
+    return model
+
+
+def _parse_bool(tok: str) -> bool:
+    return str(tok).upper() in ("1", "Y", "YES", "T", "TRUE")
+
+
+def _collect_meta(pf: ParFile) -> dict:
+    meta: dict = {}
+    psr = pf.get("PSR") or pf.get("PSRJ") or pf.get("PSRB")
+    if psr:
+        meta["PSR"] = psr
+    for k in ("EPHEM", "UNITS", "TIMEEPH", "T2CMETHOD", "ECL", "TRACK", "INFO"):
+        v = pf.get(k)
+        if v is not None:
+            meta[k] = v
+    clk = pf.get("CLK") or pf.get("CLOCK")
+    if clk:
+        meta["CLOCK"] = clk
+    units = meta.get("UNITS", "TDB")
+    if units.upper() not in ("TDB", "SI"):
+        raise NotImplementedError(
+            f"UNITS {units}: TCB conversion is not ported yet (ROADMAP A9)")
+    return meta
+
+
+def _find_entry(pf: ParFile, spec: ParamSpec):
+    for key in (spec.name, *spec.aliases):
+        if key in pf:
+            return pf.get_all(key)[0], key
+    return None, None
+
+
+def value_to_tensor(spec: ParamSpec, value, device):
+    """Host parse result -> float64 tensor leaf (DD for dd/epoch kinds)."""
+    if spec.is_dd:
+        hi, lo = value
+        return DD(torch.tensor(float(hi), dtype=torch.float64, device=device),
+                  torch.tensor(float(lo), dtype=torch.float64, device=device))
+    return torch.tensor(float(value), dtype=torch.float64, device=device)
+
+
+def _collect_component_params(comp: Component, pf: ParFile, model: TimingModel, consumed: set):
+    for spec in list(comp.specs.values()):
+        if spec.name in consumed:
+            continue
+        line, key = _find_entry(pf, spec)
+        if line is None:
+            if spec.default is not None:
+                if spec.is_fittable:
+                    model.params[spec.name] = value_to_tensor(
+                        spec, spec.parse(str(spec.default)), model.device)
+                    model.param_meta[spec.name] = ParamValueMeta(spec=spec)
+                else:
+                    model.meta.setdefault(spec.name, spec.parse(str(spec.default)))
+            continue
+        consumed.add(key)
+        _store_param(model, spec, line, from_alias=key if key != spec.name else None)
+
+    for pspec in comp.prefix_specs():
+        for name in list(pf.names()):
+            if name in consumed:
+                continue
+            k = pspec.matches(name)
+            if k is None:
+                continue
+            spec = pspec.make(k)
+            comp.add_prefix_param(spec)
+            consumed.add(name)
+            _store_param(model, spec, pf.get_all(name)[0])
+
+
+def _store_param(model: TimingModel, spec: ParamSpec, line, from_alias=None):
+    value = spec.parse(line.value)
+    if spec.is_fittable:
+        model.params[spec.name] = value_to_tensor(spec, value, model.device)
+        frozen, unc_tok = parse_fit_flag(line.tokens)
+        pm = ParamValueMeta(spec=spec, frozen=frozen, from_alias=from_alias)
+        if unc_tok is not None:
+            pm.uncertainty = spec.parse_uncertainty(unc_tok)
+        model.param_meta[spec.name] = pm
+    else:
+        model.meta[spec.name] = value

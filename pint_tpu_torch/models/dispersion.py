@@ -1,0 +1,100 @@
+"""Dispersion delay DMconst * DM(t) / f_bary^2 (counterpart of
+``DispersionDM`` in ``pint_tpu/models/dispersion.py``).
+
+The frequency is Doppler-corrected to the SSB frame, f_bary = f (1 - v.n/c);
+DM is a Taylor polynomial about DMEPOCH. The delay is exactly linear in
+every DM coefficient, so the fitters build those design columns in closed
+form (`linear_resid_columns`, used by ``fitting/design.py``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pint_tpu_torch import DMCONST
+from pint_tpu_torch.models.astrometry import dot3
+from pint_tpu_torch.models.base import DelayComponent, dt_since_epoch_f64, leaf_to_f64
+from pint_tpu_torch.models.parameter import PER_YEAR_TO_PER_SEC, ParamSpec, PrefixSpec
+from pint_tpu_torch.ops.taylor import taylor_horner
+
+
+def dispersion_time_delay(dm: torch.Tensor, freq_mhz: torch.Tensor) -> torch.Tensor:
+    """DMconst * DM / f^2, zero at infinite frequency."""
+    fsq = freq_mhz * freq_mhz
+    return torch.where(torch.isfinite(freq_mhz), DMCONST * dm / fsq, 0.0)
+
+
+def barycentric_radio_freq(tensor: dict) -> torch.Tensor:
+    """Observed frequency Doppler-shifted to the SSB frame."""
+    if "_psr_dir" not in tensor:
+        return tensor["freq_mhz"]
+    beta = dot3(tensor["ssb_obs_vel_ls"], tensor["_psr_dir"])
+    return tensor["freq_mhz"] * (1.0 - beta)
+
+
+def _dm_spec(k: int) -> ParamSpec:
+    return ParamSpec(
+        name=f"DM{k}" if k else "DM",
+        scale=PER_YEAR_TO_PER_SEC**k,
+        unit=f"pc cm^-3 / yr^{k}" if k else "pc cm^-3",
+        description=f"DM Taylor coefficient {k}",
+        default=0.0 if k else None,
+    )
+
+
+class DispersionDM(DelayComponent):
+    category = "dispersion_constant"
+    register = True
+
+    @classmethod
+    def param_specs(cls):
+        return [_dm_spec(0), ParamSpec("DMEPOCH", kind="epoch", unit="MJD")]
+
+    @classmethod
+    def prefix_specs(cls):
+        return [PrefixSpec("DM", _dm_spec, start=1)]
+
+    def __init__(self):
+        super().__init__()
+        self.num_terms = 1
+
+    def add_prefix_param(self, spec):
+        super().add_prefix_param(spec)
+        k = int(spec.name[2:])
+        self.num_terms = max(self.num_terms, k + 1)
+
+    def validate(self, params, meta):
+        if "DM" not in params:
+            raise ValueError("DispersionDM requires DM")
+        if self.num_terms > 1 and "DMEPOCH" not in params:
+            raise ValueError("DM derivatives need DMEPOCH")
+
+    def coeff_names(self) -> list[str]:
+        return [f"DM{k}" if k else "DM" for k in range(self.num_terms)]
+
+    def base_dm(self, params: dict, tensor: dict) -> torch.Tensor:
+        coeffs = [leaf_to_f64(params[n]) for n in self.coeff_names()]
+        if self.num_terms == 1:
+            return coeffs[0] * torch.ones_like(tensor["t_hi"])
+        dt = dt_since_epoch_f64(tensor, params["DMEPOCH"])
+        return taylor_horner(dt, coeffs)
+
+    def delay(self, params: dict, tensor: dict, delay_so_far, xp):
+        return dispersion_time_delay(self.base_dm(params, tensor), barycentric_radio_freq(tensor))
+
+    def linear_param_names(self):
+        return self.coeff_names()
+
+    def linear_resid_columns(self, params, tensor, f, sl):
+        fb = barycentric_radio_freq(tensor)[..., sl]
+        base = torch.where(torch.isfinite(fb), -DMCONST / (fb * fb), 0.0)
+        out = {"DM": base}
+        if self.num_terms > 1:
+            dt = dt_since_epoch_f64(tensor, params["DMEPOCH"])[..., sl]
+            pw = torch.ones_like(dt)
+            for k in range(1, self.num_terms):
+                pw = pw * dt
+                out[f"DM{k}"] = base * pw / math.factorial(k)
+        return out

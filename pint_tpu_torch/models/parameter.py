@@ -1,0 +1,149 @@
+"""Parameter declarations and exact parfile value conversion (the subset of
+``pint_tpu/models/parameter.py`` that the ported components use).
+
+A `ParamSpec` is a static declaration owned by a component class; values
+live in a flat ``{name: tensor | DD}`` dict of float64 tensors on the
+model's device. Precision-critical values (spin frequencies, epochs) parse
+EXACTLY from their decimal strings into (hi, lo) pairs.
+
+Internal units: epochs are DD seconds since ``TENSOR_EPOCH_MJD`` (TDB);
+F_k in Hz / s^k (F0/F1 as DD); angles in radians; proper motions in rad/s;
+parallax in rad; DM_k in pc cm^-3 / s^k.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+from typing import Callable
+
+import numpy as np
+
+from pint_tpu_torch import SECS_PER_DAY, SECS_PER_JULIAN_YEAR
+
+MAS_TO_RAD = np.pi / (180.0 * 3600.0 * 1000.0)
+DEG_TO_RAD = np.pi / 180.0
+MAS_PER_YR_TO_RAD_PER_S = MAS_TO_RAD / SECS_PER_JULIAN_YEAR
+PER_YEAR_TO_PER_SEC = 1.0 / SECS_PER_JULIAN_YEAR
+
+
+def normalize_number(s: str) -> str:
+    """Accept Fortran 'D' exponents (tempo heritage, e.g. '-1.181D-15')."""
+    return s.replace("D", "e").replace("d", "e")
+
+
+def str_to_dd(s: str, scale: float = 1.0) -> tuple[float, float]:
+    """Exact decimal string (x scale) -> (hi, lo) float64 pair, through
+    rational arithmetic: hi+lo equals the written value to the last digit."""
+    f = Fraction(normalize_number(s)) * Fraction(scale)
+    hi = float(f)
+    lo = float(f - Fraction(hi))
+    return hi, lo
+
+
+def parse_hms(s: str) -> float:
+    """'hh:mm:ss.s...' (hours) -> radians."""
+    sgn = -1.0 if s.strip().startswith("-") else 1.0
+    parts = s.strip().lstrip("+-").split(":")
+    h = float(parts[0])
+    m = float(parts[1]) if len(parts) > 1 else 0.0
+    sec = float(parts[2]) if len(parts) > 2 else 0.0
+    return sgn * (h + m / 60.0 + sec / 3600.0) * (np.pi / 12.0)
+
+
+def parse_dms(s: str) -> float:
+    """'[+-]dd:mm:ss.s...' (degrees) -> radians."""
+    sgn = -1.0 if s.strip().startswith("-") else 1.0
+    parts = s.strip().lstrip("+-").split(":")
+    d = float(parts[0])
+    m = float(parts[1]) if len(parts) > 1 else 0.0
+    sec = float(parts[2]) if len(parts) > 2 else 0.0
+    return sgn * (d + m / 60.0 + sec / 3600.0) * DEG_TO_RAD
+
+
+# kinds: "float" (f64, scaled), "dd" (exact pair), "epoch" (dd seconds since
+# the tensor epoch), "hms"/"dms" (angles -> rad), "bool"/"str" (static config)
+KINDS = ("float", "dd", "epoch", "hms", "dms", "bool", "str")
+
+
+@dataclass
+class ParamSpec:
+    name: str
+    kind: str = "float"
+    scale: float = 1.0  # parfile-unit -> internal-unit multiplier (float/dd)
+    description: str = ""
+    aliases: tuple[str, ...] = ()
+    default: object = None
+    unit: str = ""
+
+    def parse(self, token: str):
+        """Parfile token -> host value: float, or an exact (hi, lo) pair of
+        numpy float64 for dd and epoch kinds."""
+        if self.kind == "float":
+            return float(normalize_number(token)) * self.scale
+        if self.kind == "dd":
+            from pint_tpu_torch.ops.dd import device_split
+
+            hi, lo = device_split(*str_to_dd(token, self.scale))
+            return np.float64(hi), np.float64(lo)
+        if self.kind == "epoch":
+            from pint_tpu_torch.models.base import epoch_dd_from_mjd_string
+
+            return epoch_dd_from_mjd_string(token)
+        if self.kind == "hms":
+            return parse_hms(token)
+        if self.kind == "dms":
+            return parse_dms(token)
+        if self.kind == "bool":
+            return token.upper() in ("1", "Y", "YES", "T", "TRUE")
+        return token
+
+    def parse_uncertainty(self, token: str) -> float:
+        """Parfile uncertainty token -> internal units (always f64)."""
+        token = normalize_number(token)
+        if self.kind in ("float", "dd"):
+            return float(token) * self.scale
+        if self.kind == "epoch":
+            return float(token) * SECS_PER_DAY
+        if self.kind == "hms":
+            return float(token) * (np.pi / 12.0) / 3600.0
+        if self.kind == "dms":
+            return float(token) * DEG_TO_RAD / 3600.0
+        return float(token)
+
+    @property
+    def is_fittable(self) -> bool:
+        return self.kind in ("float", "dd", "epoch", "hms", "dms")
+
+    @property
+    def is_dd(self) -> bool:
+        return self.kind in ("dd", "epoch")
+
+
+@dataclass
+class PrefixSpec:
+    """A family of numbered parameters (F0..Fn, DM1..); `make` builds the
+    concrete spec for index k."""
+
+    prefix: str
+    make: Callable[[int], ParamSpec]
+    start: int = 0
+    aliases: tuple[str, ...] = ()
+
+    def matches(self, name: str) -> int | None:
+        for pfx in (self.prefix, *self.aliases):
+            if name.startswith(pfx):
+                tail = name[len(pfx):]
+                if tail.isdigit():
+                    return int(tail)
+        return None
+
+
+@dataclass
+class ParamValueMeta:
+    """Host-side bookkeeping for one parameter."""
+
+    spec: ParamSpec
+    frozen: bool = True
+    uncertainty: float | None = None  # internal units
+    from_alias: str | None = None

@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels (``pint_tpu_torch/csrc``).
+
+Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library with
+a plain C interface, loaded with ctypes: no PyTorch headers, so a build
+takes seconds. The libraries go under ``build/pint_tpu_torch/<key>/`` beside
+the package, where ``<key>`` hashes the sources, the headers and the flags:
+an edited source builds anew, an unchanged one is reused. All sources build
+in parallel, one nvcc process each, at the first use of any kernel
+(``build_all`` does it up front and reports the seconds).
+
+Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that no multiply and add are
+contracted into an FMA behind the double-double library's back (the header
+also spells every such operation with an explicit ``__d*_rn`` intrinsic),
+and ``-Xptxas -v`` so that the build log records registers and spills.
+
+A C function returns ``cudaGetLastError()`` after its launch; `check`
+raises on anything but success, since a refused launch never runs and
+``torch.cuda.synchronize()`` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("dd_elementwise", "resid_tangent", "normal_eq")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and /usr/local/cuda/bin): "
+                           "the port's CUDA kernels cannot be built")
+    return path
+
+
+def build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return CSRC.parent.parent / "build" / "pint_tpu_torch" / build_key()
+
+
+def _lib_path(name: str) -> Path:
+    return build_dir() / f"lib{name}.so"
+
+
+def build_all() -> float:
+    """Compile every missing library in parallel; returns wall seconds.
+    Raises with nvcc's output if any build fails."""
+    t0 = time.perf_counter()
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return time.perf_counter() - t0
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = out / f"lib{n}.so.{os.getpid()}.tmp"
+        log = open(out / f"{n}.log", "w")
+        procs[n] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    failed = []
+    for n, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, _lib_path(n))
+        else:
+            failed.append(n)
+    if failed:
+        logs = "\n".join(f"--- {n} ---\n{(out / f'{n}.log').read_text()}" for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.perf_counter() - t0
+
+
+def ptxas_summary(name: str) -> str:
+    """One line from the ptxas report of library `name`: its kernels, their
+    most registers and their most spill bytes."""
+    p = build_dir() / f"{name}.log"
+    log = p.read_text() if p.exists() else ""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, at most {max(regs)} registers, "
+            f"at most {max(spills, default=0)} bytes of spill stores")
+
+
+def library(name: str, declare) -> ctypes.CDLL:
+    """The loaded library `name`, built if needed; `declare(lib)` sets the
+    argtypes/restype of its functions once."""
+    lib = _loaded.get(name)
+    if lib is None:
+        if not _lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.pint_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pint_cuda_error_string.restype = ctypes.c_char_p
+        declare(lib)
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch failed: {lib.pint_cuda_error_string(rc).decode()} ({rc})")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on the tensor's device, as a handle."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

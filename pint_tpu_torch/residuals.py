@@ -1,0 +1,309 @@
+"""Residuals: phase and time residuals, pulse numbers, chi^2 (counterpart of
+``pint_tpu/residuals.py``), and kernel K1.
+
+K1 (`resid_tangent`, csrc/resid_tangent.cu) evaluates the whole forward
+chain per TOA: pulse number, fractional phase and spin frequency, plus
+forward-mode tangents of the fractional phase and the frequency for up to
+eight nonlinear parameters. It replaces the TPU's `resid` program and the
+jax.linearize design columns of the fit and grid steps. Its plain-torch twin
+`resid_tangent_plain` runs ``TimingModel.phase_and_freq`` and takes the
+tangents with torch.func.jvp, as the JAX package does with jax.linearize.
+
+`resid_tangent` launches the kernel for CUDA tensors and takes the twin only
+for CPU tensors. Fitters and grids reach it through `phase_resid_tangents`
+in this module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from pint_tpu_torch import AU_LS, DMCONST, TSUN_S
+from pint_tpu_torch.device import require_f64
+from pint_tpu_torch.models.base import leaf_to_f64
+from pint_tpu_torch.models.timing_model import TimingModel
+from pint_tpu_torch.ops.dd import DD, dd_add_fp, dd_rint, dd_to_float
+
+#: tangent lane codes of csrc/resid_tangent.cu; F<k> is 16 + k
+LANE_CODES = {"RAJ": 0, "DECJ": 1, "PMRA": 2, "PMDEC": 3, "PX": 4}
+MAX_LANES = 8
+
+
+def lane_code(name: str) -> int:
+    if name in LANE_CODES:
+        return LANE_CODES[name]
+    if name.startswith("F") and name[1:].isdigit():
+        return 16 + int(name[1:])
+    raise NotImplementedError(
+        f"{name} as a nonlinear fit parameter has no tangent lane in kernel K1 "
+        "(csrc/resid_tangent.cu); lanes exist for RAJ, DECJ, PMRA, PMDEC, PX, F<k>")
+
+
+class ResidTangent(NamedTuple):
+    """K1 outputs over B parameter sets, N data rows and k lanes."""
+
+    pn: torch.Tensor     # (B, N) pulse numbers
+    frac: torch.Tensor   # (B, N) fractional phase, turns
+    f: torch.Tensor      # (B, N) spin frequency, Hz
+    dfrac: torch.Tensor  # (B, k, N) d frac / d lane
+    df: torch.Tensor     # (B, k, N) d f / d lane
+
+
+def batch_size(params: dict) -> int:
+    """B of a parameter dict whose leaves are scalars (B = 1) or (B,)."""
+    shapes = {tuple((v.hi if isinstance(v, DD) else v).shape) for v in params.values()}
+    sizes = {s[0] for s in shapes if len(s) == 1}
+    if len(sizes) > 1 or any(len(s) > 1 for s in shapes):
+        raise ValueError(f"parameter leaves must be scalars or one (B,) shape; got {shapes}")
+    return sizes.pop() if sizes else 1
+
+
+def take(params: dict, b: int) -> dict:
+    """The b-th parameter set of a batched dict (scalars pass through)."""
+    def one(v):
+        return v[b] if v.dim() else v
+    return {k: DD(one(v.hi), one(v.lo)) if isinstance(v, DD) else one(v)
+            for k, v in params.items()}
+
+
+def _apply_lanes(params: dict, lanes: tuple, delta: torch.Tensor) -> dict:
+    new = dict(params)
+    for i, n in enumerate(lanes):
+        v = params[n]
+        new[n] = dd_add_fp(v, delta[i]) if isinstance(v, DD) else v + delta[i]
+    return new
+
+
+def resid_tangent_plain(model: TimingModel, params: dict, tensor: dict,
+                        lanes: tuple = ()) -> ResidTangent:
+    """Twin of K1: the model's forward chain in plain torch, tangents by
+    torch.func.jvp over the lane parameters (one jvp per lane, vmapped)."""
+    k = len(lanes)
+    outs = []
+    for b in range(batch_size(params)):
+        pb = take(params, b)
+
+        def fwd(delta):
+            ph, f = model.phase_and_freq(_apply_lanes(pb, lanes, delta), tensor)
+            pn, rem = dd_rint(ph)
+            return dd_to_float(rem), f, pn
+
+        dev = tensor["t_hi"].device
+        z = torch.zeros(k, dtype=torch.float64, device=dev)
+        frac, f, pn = fwd(z)
+        if k:
+            def tangent(v):
+                return torch.func.jvp(lambda d: fwd(d)[:2], (z,), (v,))[1]
+
+            dfrac, df = torch.func.vmap(tangent)(torch.eye(k, dtype=torch.float64, device=dev))
+        else:
+            dfrac = df = frac.new_zeros((0, frac.shape[-1]))
+        outs.append((pn, frac, f, dfrac, df))
+    return ResidTangent(*(torch.stack(x) for x in zip(*outs)))
+
+
+# --- K1 on the card ------------------------------------------------------------
+
+_ROW_KEYS = ("t_hi", "t_lo", "freq_mhz", "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls")
+_P_FIXED = 9  # RAJ DECJ PMRA PMDEC PX POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo
+
+
+def _structure(model: TimingModel):
+    """(has_ast, nd, nf): the kernel's view of the model's components."""
+    allowed = {"AstrometryEquatorial", "SolarSystemShapiro", "DispersionDM",
+               "Spindown", "AbsPhase"}
+    extra = set(model.component_names) - allowed
+    if extra:
+        raise NotImplementedError(f"kernel K1 does not evaluate {sorted(extra)}")
+    if "Spindown" not in model:
+        raise NotImplementedError("kernel K1 needs a Spindown component")
+    nd = model["DispersionDM"].num_terms if "DispersionDM" in model else 0
+    return model.astrometry is not None, nd, model["Spindown"].num_terms
+
+
+def _pack_params(model: TimingModel, params: dict, B: int, nd: int, nf: int,
+                 device) -> torch.Tensor:
+    """(B, n_par) float64 parameter rows in the layout of resid_tangent.cu."""
+    def col(v):
+        v = torch.as_tensor(v, dtype=torch.float64, device=device)
+        return torch.broadcast_to(v, (B,))
+
+    zero = col(0.0)
+    posep = params.get("POSEPOCH", params.get("PEPOCH"))
+    cols = [
+        col(params["RAJ"]) if "RAJ" in params else zero,
+        col(params["DECJ"]) if "DECJ" in params else zero,
+        col(params["PMRA"]) if "PMRA" in params else zero,
+        col(params["PMDEC"]) if "PMDEC" in params else zero,
+        col(params["PX"]) if "PX" in params else zero,
+        col(leaf_to_f64(posep)) if posep is not None else zero,
+        col(leaf_to_f64(params["DMEPOCH"])) if "DMEPOCH" in params else zero,
+        col(params["PEPOCH"].hi), col(params["PEPOCH"].lo),
+    ]
+    for k in range(nd):
+        cols.append(col(leaf_to_f64(params[f"DM{k}" if k else "DM"])))
+    for k in range(nf):
+        v = params[f"F{k}"]
+        if isinstance(v, DD):
+            cols += [col(v.hi), col(v.lo)]
+        else:
+            cols += [col(v), zero]
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def _lane_width(k: int) -> int:
+    """Lanes the kernel is instantiated for (resid_tangent.cu launch<K>)."""
+    return 0 if k == 0 else 2 if k <= 2 else 4 if k <= 4 else 8
+
+
+def resid_tangent(model: TimingModel, params: dict, tensor: dict,
+                  lanes: tuple = ()) -> ResidTangent:
+    """K1: forward chain + tangents for every parameter set in `params`
+    (leaves scalar, or (B,) for B sets). CUDA tensors launch the kernel;
+    CPU tensors take `resid_tangent_plain`."""
+    require_f64("resid_tangent", params=params, tensor=tensor)
+    dev = tensor["t_hi"].device
+    if dev.type == "cpu":
+        return resid_tangent_plain(model, params, tensor, lanes)
+    k = len(lanes)
+    if k > MAX_LANES:
+        raise ValueError(f"kernel K1 carries at most {MAX_LANES} tangent lanes; got {k}")
+    codes = [lane_code(n) for n in lanes]
+    has_ast, nd, nf = _structure(model)
+    rows = [tensor[key].contiguous() for key in _ROW_KEYS]
+    n_rows = rows[0].shape[0]
+    for t, key in zip(rows, _ROW_KEYS):
+        if t.dtype != torch.float64 or t.device != dev or t.shape[0] != n_rows:
+            raise ValueError(f"tensor[{key!r}] must be float64 on {dev} with {n_rows} rows")
+    has_tzr = model.has_abs_phase
+    n_out = n_rows - int(has_tzr)
+    B = batch_size(params)
+    P = _pack_params(model, params, B, nd, nf, dev)
+    kw = _lane_width(k)
+    out = [torch.empty((B, n_out), dtype=torch.float64, device=dev) for _ in range(3)]
+    tan = [torch.empty((B, kw, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
+    ints = (ctypes.c_int * (8 + MAX_LANES))(
+        n_rows, n_out, int(has_tzr), int(has_ast), nd, nf, P.shape[1], k,
+        *(codes + [-1] * (MAX_LANES - k)))
+    consts = (ctypes.c_double * 3)(AU_LS, DMCONST, TSUN_S)
+    from pint_tpu_torch.ops import build
+
+    lib = build.library("resid_tangent", _declare_k1)
+    build.check(lib, lib.resid_tangent(
+        *[t.data_ptr() for t in rows], P.data_ptr(), B, ints, consts,
+        *[o.data_ptr() for o in out], *[t.data_ptr() for t in tan],
+        build.stream_of(P)))
+    resid_tangent.launches += 1
+    return ResidTangent(*out, tan[0][:, :k], tan[1][:, :k])
+
+
+resid_tangent.launches = 0
+
+
+def _declare_k1(lib) -> None:
+    p = ctypes.c_void_p
+    lib.resid_tangent.argtypes = [p, p, p, p, p, p, p, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_double), p, p, p, p, p, p]
+    lib.resid_tangent.restype = ctypes.c_int
+
+
+# --- residuals -----------------------------------------------------------------
+
+
+def weighted_mean(x: torch.Tensor, weights: torch.Tensor | None) -> torch.Tensor:
+    """Mean over the row (last) axis, 1/sigma^2-weighted when given."""
+    if weights is None:
+        return torch.mean(x, dim=-1, keepdim=True)
+    return torch.sum(x * weights, dim=-1, keepdim=True) / torch.sum(weights)
+
+
+def phase_resid_tangents(model: TimingModel, params: dict, tensor: dict,
+                         lanes: tuple = ()) -> ResidTangent:
+    """The forward chain through kernel K1 (looked up here at call time, so
+    a reference run can substitute the twin)."""
+    return resid_tangent(model, params, tensor, lanes)
+
+
+def phase_residual_frac(model: TimingModel, params: dict, tensor: dict,
+                        subtract_mean: bool = True, weights=None):
+    """-> (pulse_number, fractional phase residual in turns, spin frequency),
+    each (B, N). The weighted mean is subtracted in TURNS (pint_tpu order)."""
+    out = phase_resid_tangents(model, params, tensor)
+    r = out.frac
+    if subtract_mean and not model.has_phase_offset:
+        r = r - weighted_mean(r, weights)
+    return out.pn, r, out.f
+
+
+def data_errors(model: TimingModel, tensor: dict) -> torch.Tensor:
+    """Per-TOA sigma (seconds) over the data rows (the TZR row dropped)."""
+    err = tensor["error_s"]
+    return err[:-1] if model.has_abs_phase else err
+
+
+class Residuals:
+    """Residuals of a model against a prepared TOA tensor (the port's stand-in
+    for pint_tpu's TOAs object, ``prepared.load_prepared``)."""
+
+    def __init__(self, toas: dict, model: TimingModel, subtract_mean: bool = True):
+        dev = toas["t_hi"].device
+        if model.device is not None and torch.device(model.device) != dev:
+            raise ValueError(f"model on {model.device} but TOAs on {dev}")
+        self.toas = toas
+        self.tensor = toas
+        self.model = model
+        self.subtract_mean = subtract_mean
+        self.errors_s = data_errors(model, toas)
+        if bool(torch.all(self.errors_s == 0)):
+            self.weights = torch.ones_like(self.errors_s)
+        else:
+            safe = torch.where(self.errors_s > 0, self.errors_s, 1.0)
+            self.weights = torch.where(self.errors_s > 0, 1.0 / safe**2, 0.0)
+        self._cache = None
+
+    def _compute(self):
+        if self._cache is None:
+            pn, r, f = phase_residual_frac(self.model, self.model.params, self.tensor,
+                                           self.subtract_mean, self.weights)
+            self._cache = (pn[0], r[0], r[0] / f[0])
+        return self._cache
+
+    def update(self):
+        self._cache = None
+
+    @property
+    def pulse_numbers(self) -> torch.Tensor:
+        return self._compute()[0]
+
+    @property
+    def phase_resids(self) -> torch.Tensor:
+        return self._compute()[1]
+
+    @property
+    def time_resids(self) -> torch.Tensor:
+        return self._compute()[2]
+
+    def rms_weighted(self) -> float:
+        r = self.time_resids
+        w = 1.0 / self.errors_s**2
+        mean = torch.sum(r * w) / torch.sum(w)
+        return float(torch.sqrt(torch.sum(w * (r - mean) ** 2) / torch.sum(w)))
+
+    def calc_chi2(self) -> float:
+        return float(torch.sum((self.time_resids / self.errors_s) ** 2))
+
+    @property
+    def dof(self) -> int:
+        n = self.errors_s.shape[0] - len(self.model.free_params)
+        if self.subtract_mean and not self.model.has_phase_offset:
+            n -= 1
+        return n
+
+    @property
+    def reduced_chi2(self) -> float:
+        return self.calc_chi2() / self.dof
+

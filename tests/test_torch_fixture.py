@@ -1,0 +1,188 @@
+"""The port's input fixture: the prepared-TOA archive, the bridge from
+pint_tpu, the import boundary and the device rule.
+
+``pint_tpu_torch/data/smoke_n16384.npz`` holds ``TimingModel.build_tensor``
+of ``profiles.SMOKE_PAR`` over fake TOAs made by pint_tpu (the TZR row last).
+Write it anew with
+
+    PINT_TPU_NBODY=0 JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write
+
+The helpers here (`smoke_dataset`, `port_pair`) also feed the other
+``tests/test_torch_*.py`` files.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+if __name__ == "__main__":  # the exporter runs without the test conftest
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    os.environ.setdefault("PINT_TPU_NBODY", "0")
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+
+#: how the archive is made (recorded in its meta entry)
+ARCHIVE_RECIPE = {"par": "profiles.SMOKE_PAR", "start_mjd": 54500.0, "end_mjd": 55500.0,
+                  "freq_mhz": [1400.0, 2300.0], "error_us": 1.0, "obs": "gbt",
+                  "noise": True, "nbody": 0}
+ARCHIVE_N = 16384
+ARCHIVE_SEED = 11
+
+
+def smoke_dataset(n: int, seed: int):
+    """(pint_tpu model, toas, build_tensor dict) for SMOKE_PAR over `n` fake
+    TOAs, alternating 1400/2300 MHz, 1 us errors, white noise from `seed`."""
+    from pint_tpu.io.par import parse_parfile
+    from pint_tpu.models.builder import build_model
+    from pint_tpu.profiles import SMOKE_PAR
+    from pint_tpu.simulation import make_fake_toas_uniform
+
+    r = ARCHIVE_RECIPE
+    model = build_model(parse_parfile(SMOKE_PAR, from_text=True))
+    freqs = np.where(np.arange(n) % 2 == 0, *r["freq_mhz"])
+    toas = make_fake_toas_uniform(r["start_mjd"], r["end_mjd"], n, model, obs=r["obs"],
+                                  freq_mhz=freqs, error_us=r["error_us"], add_noise=True,
+                                  rng=np.random.default_rng(seed))
+    return model, toas, model.build_tensor(toas)
+
+
+def export(n: int = ARCHIVE_N, seed: int = ARCHIVE_SEED):
+    """(numpy columns, meta) of a fresh export."""
+    from pint_tpu_torch.prepared import COLUMNS
+
+    _, _, tens = smoke_dataset(n, seed)
+    cols = {k: np.asarray(tens[k], np.float64) for k in COLUMNS}
+    return cols, {"n": n, "seed": seed, "rows": n + 1, **ARCHIVE_RECIPE}
+
+
+def params_numpy(params: dict) -> dict:
+    """pint_tpu parameters as numpy: floats, dd leaves as (hi, lo)."""
+    return {k: (float(v.hi), float(v.lo)) if hasattr(v, "hi") else float(v)
+            for k, v in params.items()}
+
+
+def port_pair(n: int = 1024, seed: int = ARCHIVE_SEED):
+    """(pint_tpu model, toas, tensor, port model, port tensor) on the CPU:
+    the same fake TOAs in both packages, the port's model parsed from its
+    own copy of SMOKE_PAR."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import tensor_from_numpy
+    from pint_tpu_torch.profiles import SMOKE_PAR
+
+    model, toas, tens = smoke_dataset(n, seed)
+    tm = get_model(SMOKE_PAR, from_text=True, device="cpu")
+    tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
+    return model, toas, tens, tm, tt
+
+
+# --- the archive ---------------------------------------------------------------
+
+
+def test_archive_matches_fresh_export():
+    from pint_tpu_torch.prepared import COLUMNS, SMOKE_ARCHIVE, archive_meta, load_prepared
+
+    cols, meta = export()
+    assert archive_meta(SMOKE_ARCHIVE) == meta
+    got = load_prepared(SMOKE_ARCHIVE, device="cpu")
+    assert set(got) == set(COLUMNS)
+    for k in ("error_s", "freq_mhz"):
+        np.testing.assert_array_equal(got[k].numpy(), cols[k], err_msg=k)
+    for k in ("t_hi", "t_lo", "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls"):
+        want = cols[k]
+        scale = np.abs(cols["t_hi"]) if k == "t_lo" else np.abs(want)
+        err = np.abs(got[k].numpy() - want)
+        assert np.all(err <= 1e-12 * np.maximum(scale, np.finfo(float).tiny)), k
+    assert got["t_hi"].shape[0] == meta["rows"]
+
+
+def test_bridge_round_trips_tensor_and_params():
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.prepared import COLUMNS, params_from_numpy, tensor_from_numpy
+
+    model, _, tens, tm, _ = port_pair(n=64)
+    tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
+    for k in COLUMNS:
+        assert tt[k].dtype == torch.float64
+        np.testing.assert_array_equal(tt[k].numpy(), np.asarray(tens[k]), err_msg=k)
+    pnp = params_numpy(model.params)
+    pp = params_from_numpy(pnp, device="cpu")
+    assert set(pp) == set(model.params) == set(tm.params)
+    for k, v in pnp.items():
+        for name, got in (("bridge", pp[k]), ("parsed", tm.params[k])):
+            if isinstance(v, tuple):
+                assert isinstance(got, DD), (name, k)
+                assert (float(got.hi), float(got.lo)) == v, (name, k)
+            else:
+                assert float(got) == v, (name, k)
+    assert set(tm.free_params) == set(model.free_params)
+
+
+def test_tensor_bridge_rejects_unported_columns():
+    from pint_tpu_torch.prepared import tensor_from_numpy
+
+    cols = {k: np.zeros(3) for k in ("t_hi", "t_lo", "error_s", "freq_mhz")}
+    cols["obs_jupiter_pos_ls"] = np.zeros((3, 3))
+    with pytest.raises(NotImplementedError, match="obs_jupiter_pos_ls"):
+        tensor_from_numpy(cols, device="cpu")
+
+
+# --- the import boundary and the device rule ------------------------------------
+
+
+def test_port_imports_no_jax_and_nothing_of_pint_tpu():
+    code = (
+        "import sys\n"
+        "import pint_tpu_torch, pint_tpu_torch.fitting, pint_tpu_torch.gridutils\n"
+        "import pint_tpu_torch.prepared, pint_tpu_torch.ops.build, pint_tpu_torch.profiles\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'pint_tpu' or m.startswith('pint_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import load_prepared, params_from_numpy
+    from pint_tpu_torch.profiles import SMOKE_PAR
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(SMOKE_PAR, from_text=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_prepared()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({"F0": 1.0})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(SMOKE_PAR, from_text=True, device="cuda")
+    assert get_model(SMOKE_PAR, from_text=True, device="cpu").device.type == "cpu"
+
+
+def _write_archive() -> None:
+    from pint_tpu_torch.prepared import SMOKE_ARCHIVE, save_prepared
+
+    cols, meta = export()
+    SMOKE_ARCHIVE.parent.mkdir(parents=True, exist_ok=True)
+    save_prepared(SMOKE_ARCHIVE, cols, meta)
+    print(f"wrote {SMOKE_ARCHIVE} ({SMOKE_ARCHIVE.stat().st_size} bytes, {meta['rows']} rows)")
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--write"]:
+        sys.exit("usage: python tests/test_torch_fixture.py --write")
+    sys.path.insert(0, str(REPO))
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    _write_archive()
