@@ -29,12 +29,32 @@ Phases, in order (any failed check raises and the exit code is non-zero):
    profiler, then a torch.profiler pass over one more: device time by
    kernel and the device's busy share of the unprofiled wall.
 
-The launch counters are zeroed just before ``fit_toas`` and read just after
-it, then zeroed and read again around ``grid_chisq`` (the fitter and its
-start shift are built outside both windows; the twin runs do not count).
-The fit must launch K0 and K1, the grid K1 and K2. K2's count is of calls;
-each runs 2 or 3 kernel passes, counted apart. At the shapes of the main
-path, ``ms`` is a kernel's
+Then the flagship path, on ``pint_tpu_torch/data/flagship_n16384.npz``
+(``profiles.FLAGSHIP_SMOKE_PAR``: PM/PX astrometry, DM + DM1, ELL1,
+EFAC/EQUAD/ECORR; 16,384 TOAs in 2,048 ECORR epochs, 14 free parameters):
+
+9. K1 with the ELL1 term against its twin at the GLS fit's shape (1 set,
+   14 lanes) and the grid's (9 (M2, SINI) sets, 12 lanes): time residuals
+   within 1 ps, pulse numbers equal, tangents within 1e-12 relative;
+10. K3 ``ecorr_normal_eq`` against its twin (the ``fitting/woodbury.py``
+   algebra) on the GLS step's inputs (B = 1, p = 14) and the grid's first
+   step (B = 9, p = 12): G, c, chi^2 and ahat within 1e-12 relative (the
+   sums run in another order), and bitwise equal across two runs;
+11. ``DownhillGLSFitter.fit_toas`` from the flagship par moved by F0
+   +2e-10 Hz, DM +1e-3 and EPS1 +1e-7, gated as in phase 6 against the
+   same fit through the twins on the card;
+12. the 3x3 (M2, SINI) ``grid_chisq`` with the GLS statistic, every point
+   finite and within 1e-10 relative of the twin path;
+13. kernel times at the flagship shapes, and the warm wall and busy share
+   of one flagship fit + grid, as in phase 8.
+
+The launch counters are zeroed just before each ``fit_toas`` and read just
+after it, then zeroed and read again around each ``grid_chisq`` (the
+fitter and its start shift are built outside the windows; the twin runs do
+not count). The SMOKE fit must launch K0 and K1, its grid K1 and K2; the
+flagship fit K0, K1 and K3, its grid K0, K1 and K3. K2's and K3's counts
+are of calls; each runs 2 or 3 kernel passes, counted apart for K2. At the
+shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs), and ``call_ms`` the
 CUDA-event time per call, which includes the host's time to enqueue it.
@@ -58,6 +78,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 START_SHIFT = {"F0": 2e-10, "DM": 1e-3}
+FLAGSHIP_SHIFT = {"F0": 2e-10, "DM": 1e-3, "EPS1": 1e-7}
 
 
 class SmokeFailure(RuntimeError):
@@ -138,17 +159,20 @@ def rel_err(got, want) -> float:
 def twins():
     """Route the main path through the plain-torch twins, on the card."""
     from pint_tpu_torch import gridutils, residuals
-    from pint_tpu_torch.fitting import wls
+    from pint_tpu_torch.fitting import gls, wls, woodbury
     from pint_tpu_torch.ops import dd
 
-    saved = (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq)
+    saved = (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
+             gls.ecorr_normal_eq, gridutils.ecorr_normal_eq)
     residuals.resid_tangent = residuals.resid_tangent_plain
     wls.dd_elementwise = dd.dd_elementwise_plain
     gridutils.normal_eq = gridutils.normal_eq_plain
+    gls.ecorr_normal_eq = gridutils.ecorr_normal_eq = woodbury.ecorr_normal_eq_plain
     try:
         yield
     finally:
-        residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq = saved
+        (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
+         gls.ecorr_normal_eq, gridutils.ecorr_normal_eq) = saved
 
 
 def device_line() -> str:
@@ -217,14 +241,15 @@ def phase_k0(device, n: int = 1 << 20) -> None:
 
 
 def grid_params(model, ftr):
-    """The batched parameter dict of the 3x3 spin grid around `model`."""
+    """The batched parameter dict of the model's 3x3 grid (``grid_for``: the
+    spin grid for SMOKE_PAR, (M2, SINI) for the flagship)."""
     import numpy as np
     import torch
 
     from pint_tpu_torch.ops.dd import DD
-    from pint_tpu_torch.profiles import spin_grid
+    from pint_tpu_torch.profiles import grid_for
 
-    names, vals = spin_grid(model, ftr)
+    names, vals = grid_for(model, ftr)
     pts = np.stack([g.ravel() for g in np.meshgrid(*vals)], axis=1)
     B = pts.shape[0]
     params = {k: (DD(v.hi.expand(B).clone(), v.lo.expand(B).clone()) if isinstance(v, DD)
@@ -232,29 +257,31 @@ def grid_params(model, ftr):
     dev = model.params["F0"].hi.device
     for i, n in enumerate(names):
         col = torch.as_tensor(pts[:, i], dtype=torch.float64, device=dev)
-        params[n] = DD(col, torch.zeros_like(col))
+        params[n] = DD(col, torch.zeros_like(col)) if isinstance(params[n], DD) else col
     return names, vals, params
 
 
-def phase_k1(model, tensor, params_b, fit_lanes, grid_lanes, device) -> dict:
+def phase_k1(model, tensor, params_b, fit_lanes, grid_lanes, device, tan_tol: float,
+             label: str = "") -> dict:
+    import torch
+
     from pint_tpu_torch.residuals import resid_tangent, resid_tangent_plain
 
     stats = {}
-    for label, params, lanes in (("fit", model.params, fit_lanes),
+    for shape, params, lanes in (("fit", model.params, fit_lanes),
                                  ("grid", params_b, grid_lanes)):
         got = resid_tangent(model, params, tensor, lanes)
         want = resid_tangent_plain(model, params, tensor, lanes)
         sync(device)
-        import torch
-
+        tag = f"K1 {label}{shape} ({len(lanes)} lanes)"
         dt = float(torch.max(torch.abs(got.frac / got.f - want.frac / want.f)))
-        check(dt <= 1e-12, f"K1 {label}: time residuals within 1 ps of the twin ({dt:.3g} s)")
-        check(torch.equal(got.pn, want.pn), f"K1 {label}: pulse numbers equal")
-        check(rel_err(got.f, want.f) <= 1e-15, f"K1 {label}: f within 1e-15 relative")
+        check(dt <= 1e-12, f"{tag}: time residuals within 1 ps of the twin ({dt:.3g} s)")
+        check(torch.equal(got.pn, want.pn), f"{tag}: pulse numbers equal")
+        check(rel_err(got.f, want.f) <= 1e-15, f"{tag}: f within 1e-15 relative")
         worst = max(max(rel_err(got.dfrac[:, j], want.dfrac[:, j]),
                         rel_err(got.df[:, j], want.df[:, j])) for j in range(len(lanes)))
-        check(worst <= 1e-10, f"K1 {label}: tangents within 1e-10 relative ({worst:.3g})")
-        stats[label] = {"max_abs_err": dt, "tangent_rel_err": worst}
+        check(worst <= tan_tol, f"{tag}: tangents within {tan_tol:g} relative ({worst:.3g})")
+        stats[shape] = {"max_abs_err": dt, "tangent_rel_err": worst}
     return stats
 
 
@@ -278,29 +305,35 @@ def phase_k2(model, tensor, params_b, free, w, device):
 # --- phases 6-7: the main path -------------------------------------------------------
 
 
-def fresh_fitter(tensor, device):
+def fresh_fitter(tensor, device, flagship: bool = False):
+    """A fitter on `tensor`, its model moved off the solution by the start
+    shift: DownhillWLSFitter on SMOKE_PAR, or DownhillGLSFitter on the
+    flagship par."""
     import torch
 
-    from pint_tpu_torch.fitting import DownhillWLSFitter
+    from pint_tpu_torch.fitting import DownhillGLSFitter, DownhillWLSFitter
     from pint_tpu_torch.fitting.wls import apply_delta
     from pint_tpu_torch.models import get_model
-    from pint_tpu_torch.profiles import SMOKE_PAR
+    from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR, SMOKE_PAR
 
-    model = get_model(SMOKE_PAR, from_text=True, device=device)
+    par, cls, shift = ((FLAGSHIP_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT) if flagship
+                       else (SMOKE_PAR, DownhillWLSFitter, START_SHIFT))
+    model = get_model(par, from_text=True, device=device)
     free = tuple(model.free_params)
-    delta = torch.tensor([START_SHIFT.get(n, 0.0) for n in free], dtype=torch.float64,
+    delta = torch.tensor([shift.get(n, 0.0) for n in free], dtype=torch.float64,
                          device=device)
     model.params = apply_delta(model.params, free, delta)
-    return DownhillWLSFitter(tensor, model)
+    return cls(tensor, model)
 
 
 def counters():
+    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq
     from pint_tpu_torch.gridutils import normal_eq
     from pint_tpu_torch.ops.dd import dd_elementwise
     from pint_tpu_torch.residuals import resid_tangent
 
     return {"dd_elementwise": dd_elementwise, "resid_tangent": resid_tangent,
-            "normal_eq": normal_eq}
+            "normal_eq": normal_eq, "ecorr_normal_eq": ecorr_normal_eq}
 
 
 @contextlib.contextmanager
@@ -318,11 +351,12 @@ def counted(into: dict):
 
 
 def run_main_path(ftr, device) -> dict:
-    """Fit `ftr` (a fitter built beforehand), then the 3x3 grid around the
-    fit. Each of the two is timed on the host clock, ending in a
-    synchronize, and its launch counts are read from a window of its own."""
+    """Fit `ftr` (a fitter built beforehand), then the model's 3x3 grid
+    around the fit (``grid_for``). Each of the two is timed on the host
+    clock, ending in a synchronize, and its launch counts are read from a
+    window of its own."""
     from pint_tpu_torch.gridutils import grid_chisq
-    from pint_tpu_torch.profiles import spin_grid
+    from pint_tpu_torch.profiles import grid_for
 
     out = {"fitter": ftr, "fit_launches": {}, "grid_launches": {}}
     with counted(out["fit_launches"]):
@@ -330,7 +364,7 @@ def run_main_path(ftr, device) -> dict:
         ftr.fit_toas()
         sync(device)
         out["fit_s"] = time.perf_counter() - t0
-    names, vals = spin_grid(ftr.model, ftr)
+    names, vals = grid_for(ftr.model, ftr)
     with counted(out["grid_launches"]):
         t0 = time.perf_counter()
         out["chi2"] = grid_chisq(ftr, names, vals)
@@ -339,16 +373,47 @@ def run_main_path(ftr, device) -> dict:
     return out
 
 
-def profile_main_path(tensor, device) -> dict:
+def check_fit(main: dict, twin: dict, label: str) -> None:
+    """The fit gates: converged, chi^2/dof in [0.8, 1.2], params within
+    1e-10 relative and 1e-6 of their uncertainty of the twin path's fit,
+    uncertainties within 1e-10 relative."""
+    ftr, ref = main["fitter"], twin["fitter"]
+    res = ftr.result
+    check(res.converged, f"{label} fit converged in {res.iterations} iterations")
+    check(0.8 <= res.reduced_chi2 <= 1.2, f"{label} chi2/dof = {res.reduced_chi2:.6f} in [0.8, 1.2]")
+    vals, ref_vals = ftr.values(), ref.values()
+    ref_unc = ref.result.uncertainties
+    worst_p = max(abs(vals[n] - ref_vals[n]) / abs(ref_vals[n]) for n in vals)
+    worst_s = max(abs(vals[n] - ref_vals[n]) / ref_unc[n] for n in vals)
+    worst_u = max(abs(res.uncertainties[n] - ref_unc[n]) / ref_unc[n] for n in vals)
+    check(worst_p <= 1e-10, f"{label} fit params within 1e-10 relative of the twin fit "
+                            f"({worst_p:.3g})")
+    check(worst_s <= 1e-6, f"{label} fit params within 1e-6 of their uncertainty of the twin "
+                           f"fit ({worst_s:.3g} sigma)")
+    check(worst_u <= 1e-10, f"{label} uncertainties within 1e-10 relative ({worst_u:.3g})")
+
+
+def check_grid(main: dict, twin: dict, label: str) -> float:
+    import numpy as np
+
+    chi2, ref_chi2 = main["chi2"], twin["chi2"]
+    check(chi2.shape == (3, 3) and bool(np.all(np.isfinite(chi2))), f"{label} grid chi2 finite, 3x3")
+    worst_g = float(np.max(np.abs(chi2 - ref_chi2) / np.abs(ref_chi2)))
+    check(worst_g <= 1e-10, f"{label} grid chi2 within 1e-10 relative of the twin path "
+                            f"({worst_g:.3g})")
+    return worst_g
+
+
+def profile_main_path(tensor, device, flagship: bool = False) -> dict:
     """The wall of one warm fit + grid without the profiler, then device time
     by kernel over one more under torch.profiler (CUDA activity only).
     `busy_share` is that summed kernel time over the unprofiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plain = run_main_path(fresh_fitter(tensor, device), device)
+    plain = run_main_path(fresh_fitter(tensor, device, flagship), device)
     wall = plain["fit_s"] + plain["grid_s"]
-    ftr = fresh_fitter(tensor, device)
+    ftr = fresh_fitter(tensor, device, flagship)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_main_path(ftr, device)
@@ -356,18 +421,22 @@ def profile_main_path(tensor, device) -> dict:
     kern = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(us for _, us, _ in kern) / 1e6
-    ours = {"dd_elementwise": K0_KERNEL, "resid_tangent": K1_KERNEL, "normal_eq": K2_KERNEL}
     return {"warm_fit_s": plain["fit_s"], "warm_grid_s": plain["grid_s"], "wall_s": wall,
+            "warm_fit_launches": plain["fit_launches"],
+            "warm_grid_launches": plain["grid_launches"],
             "profiled_wall_s": profiled_wall, "device_busy_s": busy, "busy_share": busy / wall,
             "kernel_s": {k: sum(us for name, us, _ in kern if pat in name) / 1e6
-                         for k, pat in ours.items()},
+                         for k, pat in KERNEL_PATTERNS.items()},
             "top": [[name[:70], us / 1e6, n] for name, us, n in sorted(kern, key=lambda r: -r[1])[:8]]}
 
 
 # --- the kernels record ----------------------------------------------------------------
 
-# substrings of the kernels' names in a profile (K2 is three passes)
-K0_KERNEL, K1_KERNEL, K2_KERNEL = "dd_elementwise_kernel", "resid_tangent_kernel", "pass_"
+# substrings of the kernels' names in a profile (K2 and K3 are three passes)
+K0_KERNEL, K1_KERNEL, K2_KERNEL, K3_KERNEL = ("dd_elementwise_kernel", "resid_tangent_kernel",
+                                              "pass_", "_pass<")
+KERNEL_PATTERNS = {"dd_elementwise": K0_KERNEL, "resid_tangent": K1_KERNEL,
+                   "normal_eq": K2_KERNEL, "ecorr_normal_eq": K3_KERNEL}
 
 
 def k0_record(model, device) -> dict:
@@ -397,12 +466,17 @@ def k0_record(model, device) -> dict:
 # a sin, cos or log as ~35 operations and a division as ~15: 10 sin/cos,
 # 1 log, 1 sqrt and ~7 divisions (~500), the dd Horner, TZR subtraction and
 # rint (~200), dot products and the rest (~50); each tangent lane adds ~80.
+# The ELL1 term adds 8 sin/cos and 1 log (~315), the dd orbital phase (~60)
+# and ~120 dual operations of the three Roemer polynomials, the inverse
+# expansion and the Shapiro term (~120 on the value, ~300 per lane).
 K1_OPS_PER_ROW = 750
 K1_OPS_PER_LANE = 80
+K1_BIN_OPS_PER_ROW = 500
+K1_BIN_OPS_PER_LANE = 300
 
 
 def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
-    from pint_tpu_torch.residuals import _lane_width, resid_tangent, resid_tangent_plain
+    from pint_tpu_torch.residuals import resid_tangent, resid_tangent_plain
 
     B = params["F0"].hi.shape[0] if params["F0"].hi.dim() else 1
     rows = tensor["t_hi"].shape[0]
@@ -411,11 +485,16 @@ def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
                        K1_KERNEL)
     plain, plain_call = measure(lambda: resid_tangent_plain(model, params, tensor, lanes),
                                 device, max(1, reps // 20))
-    k = _lane_width(len(lanes))
-    n_bytes = rows * 12 * 8 + B * 16 * 8 + B * n * (3 + 2 * k) * 8
+    k = len(lanes)
+    binary = "BinaryELL1" in model
+    n_bytes = rows * 12 * 8 + B * (P_ROW_LEN + 2 * model["Spindown"].num_terms) * 8 \
+        + B * n * (3 + 2 * k) * 8
     # the N TOA rows and the TZR row once per parameter set (the kernel's
-    # per-block recompute of the TZR row is its own cost, not needed work)
-    n_ops = B * rows * (K1_OPS_PER_ROW + K1_OPS_PER_LANE * k)
+    # per-block recompute of the TZR row and each lane chunk's recompute of
+    # the primal are its own cost, not needed work)
+    per_row = K1_OPS_PER_ROW + (K1_BIN_OPS_PER_ROW if binary else 0)
+    per_lane = K1_OPS_PER_LANE + (K1_BIN_OPS_PER_LANE if binary else 0)
+    n_ops = B * rows * (per_row + per_lane * k)
     b, how = bound_ms(n_bytes, n_ops)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
             "call_ms": call, "plain_call_ms": plain_call,
@@ -440,6 +519,74 @@ def k2_record(r, M, w, device) -> dict:
             "shape": f"B={B} N={n} p={p}"}
 
 
+# parameter row of K1 before the DM and F terms (resid_tangent.cu P_DM0)
+P_ROW_LEN = 25
+
+
+def k3_record(r, Mn, w, basis, ridge, device) -> dict:
+    """K3 at one of the flagship shapes; the library yardstick is the batched
+    cuBLAS Gram (Mn sqrt(w)) (Mn sqrt(w))^T alone."""
+    import torch
+
+    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_plain
+
+    B, p, n = Mn.shape
+    ms, call = measure(lambda: ecorr_normal_eq(r, Mn, w, basis, ridge), device, 200, K3_KERNEL)
+    plain, plain_call = measure(lambda: ecorr_normal_eq_plain(r, Mn, w, basis, ridge), device, 10)
+    A = (Mn * torch.sqrt(w)).contiguous()  # (B, p, N)
+    lib, lib_call = measure(lambda: torch.matmul(A, A.transpose(-1, -2)), device, 200)
+    ke, nnz = basis.ke, basis.epochs.rows.shape[0]
+    q = (p + 1) * (p + 2) // 2
+    # read r, Mn, w, phi and the CSR once; write G, c, chi2, ahat
+    n_bytes = (B * n * (p + 1) + n + ke) * 8 + (ke + 1 + nnz) * 4 \
+        + B * (p * p + p + 1 + ke) * 8
+    # the augmented Gram over rows (2 multiplies, 1 add per entry), the epoch
+    # sums (2 per column and row), the epoch correction (2 multiplies, 1 add
+    # and 1 division per entry) and 1/phi, De and ahat
+    n_ops = B * (n * 3 * q + nnz * 2 * (p + 2) + ke * (4 * q + 3))
+    b, how = bound_ms(n_bytes, n_ops)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
+            "call_ms": call, "plain_call_ms": plain_call, "library_call_ms": lib_call,
+            "shape": f"B={B} N={n} p={p} ke={ke}"}
+
+
+def phase_k3(model, tensor, ftr, params_b, grid_free, device) -> dict:
+    """K3 against its twin on the GLS step's inputs (B = 1) and the grid's
+    first step (B = 9), and bitwise against itself on a second run."""
+    import torch
+
+    from pint_tpu_torch.fitting.gls import _RIDGE as GLS_RIDGE
+    from pint_tpu_torch.fitting.wls import time_resid_design
+    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_plain
+    from pint_tpu_torch.gridutils import _RIDGE, _centred_equilibrated, _time_resids_design
+
+    res = ftr.resids
+    basis = model.noise_basis_and_weights(model.params, tensor)
+    w = 1.0 / res.errors_s**2
+    r0, M = time_resid_design(model, tuple(model.free_params), model.params, tensor,
+                              res.weights, True, hybrid=False)
+    norm = torch.sqrt(torch.sum(M**2, dim=0))
+    fit_in = (r0[None], (M / norm).T[None].contiguous(), w, basis, GLS_RIDGE)
+    r, Mg = _time_resids_design(model, params_b, tensor, grid_free)
+    r, Mn, _ = _centred_equilibrated(r, Mg, w, True)
+    grid_in = (r, Mn, w, basis, _RIDGE)
+    out = {}
+    for label, args in (("fit", fit_in), ("grid", grid_in)):
+        got = ecorr_normal_eq(*args)
+        again = ecorr_normal_eq(*args)
+        want = ecorr_normal_eq_plain(*args)
+        sync(device)
+        B, p = args[1].shape[:2]
+        tag = f"K3 {label} (B={B}, p={p})"
+        for name, g, wv in zip(("G", "c", "chi2", "ahat"), got, want):
+            err = max(rel_err(g[b], wv[b]) for b in range(B))
+            check(err <= 1e-12, f"{tag}: {name} within 1e-12 relative per set ({err:.3g})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: bitwise equal across two runs")
+        out[label] = {"args": args, "chi2_abs_err": float(torch.max(torch.abs(got[2] - want[2])))}
+    return out
+
+
 KERNELS = (
     ("dd_elementwise", "pint_tpu_torch/csrc/dd_elementwise.cu",
      "pint_tpu/ops/dd.py:142 (dd_add..dd_rint, inlined in every TPU program)"),
@@ -447,26 +594,17 @@ KERNELS = (
      "pint_tpu/residuals.py:90 (resid) + pint_tpu/fitting/wls.py:180 (design jvp)"),
     ("normal_eq", "pint_tpu_torch/csrc/normal_eq.cu",
      "pint_tpu/gridutils.py:132 (gn_step normal equations, grid program)"),
+    ("ecorr_normal_eq", "pint_tpu_torch/csrc/ecorr_normal_eq.cu",
+     "pint_tpu/fitting/gls.py:77 (gls_step Woodbury pieces) + gls.py:193 (gls_chi2) + "
+     "pint_tpu/gridutils.py:143 (correlated grid step), algebra of fitting/woodbury.py:79-218"),
 )
 
 
-def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-7 on `device_name`; returns the summary record."""
-    import torch
-
-    from pint_tpu_torch.device import resolve_device
+def smoke_phases(device, summary: dict) -> dict:
+    """Phases 3-8 (SMOKE_PAR, the WLS path); returns the kernel records and
+    the launch counts of its fit and grid windows."""
     from pint_tpu_torch.fitting.design import linear_split
-    from pint_tpu_torch.ops import build
     from pint_tpu_torch.prepared import load_prepared
-
-    device = resolve_device(device_name)
-    summary = {}
-    if device.type == "cuda":
-        print("phase 2: build kernels")
-        summary["build_s"] = build.build_all()
-        print(f"  built in {summary['build_s']:.2f} s into {build.build_dir()}")
-        for name in build.SOURCES:
-            print(f"  {name}: {build.ptxas_summary(name)}")
 
     print("phase 3: K0 dd_elementwise against the dd twins")
     phase_k0(device)
@@ -479,7 +617,7 @@ def phases(device_name: str = "cuda") -> dict:
     names, _, params_b = grid_params(model, start)
     grid_free = tuple(n for n in model.free_params if n not in names)
     grid_lanes = linear_split(model, grid_free)[0]
-    k1_stats = phase_k1(model, tensor, params_b, fit_lanes, grid_lanes, device)
+    k1_stats = phase_k1(model, tensor, params_b, fit_lanes, grid_lanes, device, 1e-10)
 
     print("phase 5: K2 normal_eq against its twin")
     w = 1.0 / start.resids.errors_s**2
@@ -487,33 +625,18 @@ def phases(device_name: str = "cuda") -> dict:
 
     print("phase 6: DownhillWLSFitter.fit_toas")
     main = run_main_path(fresh_fitter(tensor, device), device)
-    ftr, fit_l, grid_l = main["fitter"], main["fit_launches"], main["grid_launches"]
-    res = ftr.result
-    check(res.converged, f"fit converged in {res.iterations} iterations")
-    check(0.8 <= res.reduced_chi2 <= 1.2, f"chi2/dof = {res.reduced_chi2:.6f} in [0.8, 1.2]")
+    fit_l, grid_l = main["fit_launches"], main["grid_launches"]
     for name in ("dd_elementwise", "resid_tangent"):
         check(fit_l[name] > 0, f"{name} launched {fit_l[name]} times by fit_toas")
     with twins():
         twin = run_main_path(fresh_fitter(tensor, device), device)
-    ref = twin["fitter"]
-    vals, ref_vals = ftr.values(), ref.values()
-    ref_unc = ref.result.uncertainties
-    worst_p = max(abs(vals[n] - ref_vals[n]) / abs(ref_vals[n]) for n in vals)
-    worst_s = max(abs(vals[n] - ref_vals[n]) / ref_unc[n] for n in vals)
-    worst_u = max(abs(res.uncertainties[n] - ref_unc[n]) / ref_unc[n] for n in vals)
-    check(worst_p <= 1e-10, f"fit params within 1e-10 relative of the twin fit ({worst_p:.3g})")
-    check(worst_s <= 1e-6, f"fit params within 1e-6 of their uncertainty of the twin fit "
-                           f"({worst_s:.3g} sigma)")
-    check(worst_u <= 1e-10, f"uncertainties within 1e-10 relative ({worst_u:.3g})")
+    check_fit(main, twin, "SMOKE")
 
     print("phase 7: grid_chisq 3x3 (F0, F1)")
     import numpy as np
 
-    chi2, ref_chi2 = main["chi2"], twin["chi2"]
-    check(chi2.shape == (3, 3) and bool(np.all(np.isfinite(chi2))), "grid chi2 finite, 3x3")
-    worst_g = float(np.max(np.abs(chi2 - ref_chi2) / np.abs(ref_chi2)))
-    check(worst_g <= 1e-10, f"grid chi2 within 1e-10 relative of the twin path ({worst_g:.3g})")
-    check(int(np.argmin(chi2)) == 4, "grid chi2 minimum at the centre point")
+    check_grid(main, twin, "SMOKE")
+    check(int(np.argmin(main["chi2"])) == 4, "SMOKE grid chi2 minimum at the centre point")
     for name in ("resid_tangent", "normal_eq"):
         check(grid_l[name] > 0, f"{name} launched {grid_l[name]} times by grid_chisq")
     print(f"  grid_chisq launched dd_elementwise {grid_l['dd_elementwise']} times "
@@ -528,23 +651,117 @@ def phases(device_name: str = "cuda") -> dict:
     fit_shape = k1_record(model, tensor, model.params, fit_lanes, device, 50)
     recs["resid_tangent"].update({f"fit_{k}": v for k, v in fit_shape.items()
                                   if k in ("ms", "call_ms", "plain_ms", "bound_ms", "shape")})
+    recs["normal_eq"].update(kernel_passes_fit=fit_l["normal_eq_passes"],
+                             kernel_passes_grid=grid_l["normal_eq_passes"])
     if device.type == "cuda":
         print("phase 8: where the time goes (one warm fit + grid, then torch.profiler)")
         summary["profile"] = profile_main_path(tensor, device)
+    res = main["fitter"].result
+    summary.update({"fit_wall_s": main["fit_s"], "grid_wall_s": main["grid_s"],
+                    "fit_iterations": res.iterations, "fit_chi2_reduced": res.reduced_chi2,
+                    "grid_chi2": main["chi2"].tolist(),
+                    "ntoas": int(tensor["t_hi"].shape[0] - 1)})
     errs = {"dd_elementwise": 0.0, "resid_tangent": k1_stats["grid"]["max_abs_err"],
             "normal_eq": k2_err}
-    recs["normal_eq"].update(kernel_passes_fit=fit_l["normal_eq_passes"],
-                             kernel_passes_grid=grid_l["normal_eq_passes"])
+    return {"recs": recs, "errs": errs, "fit": fit_l, "grid": grid_l}
+
+
+def flagship_phases(device, summary: dict) -> dict:
+    """Phases 9-13 (the flagship par, the GLS path)."""
+    import numpy as np
+
+    from pint_tpu_torch.fitting.design import linear_split
+    from pint_tpu_torch.prepared import FLAGSHIP_ARCHIVE, load_prepared
+
+    print("phase 9: K1 with the ELL1 term against its twin (flagship)")
+    tensor = load_prepared(FLAGSHIP_ARCHIVE, device=device)
+    start = fresh_fitter(tensor, device, flagship=True)
+    model = start.model
+    free = tuple(model.free_params)
+    names, _, params_b = grid_params(model, start)
+    grid_free = tuple(n for n in free if n not in names)
+    grid_lanes = linear_split(model, grid_free)[0]
+    check(len(free) == 14 and len(grid_lanes) == 12,
+          f"flagship: {len(free)} free parameters, {len(grid_lanes)} grid lanes")
+    k1_stats = phase_k1(model, tensor, params_b, free, grid_lanes, device, 1e-12, "flagship ")
+
+    print("phase 10: K3 ecorr_normal_eq against its twin")
+    k3 = phase_k3(model, tensor, start, params_b, grid_free, device)
+
+    print("phase 11: DownhillGLSFitter.fit_toas (flagship)")
+    main = run_main_path(fresh_fitter(tensor, device, flagship=True), device)
+    fit_l, grid_l = main["fit_launches"], main["grid_launches"]
+    for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
+        check(fit_l[name] > 0, f"{name} launched {fit_l[name]} times by the GLS fit_toas")
+    with twins():
+        twin = run_main_path(fresh_fitter(tensor, device, flagship=True), device)
+    check_fit(main, twin, "flagship GLS")
+
+    print("phase 12: grid_chisq 3x3 (M2, SINI), GLS statistic")
+    worst_g = check_grid(main, twin, "flagship")
+    for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
+        check(grid_l[name] > 0, f"{name} launched {grid_l[name]} times by the GLS grid_chisq")
+
+    print("phase 13: flagship kernel times, warm wall and busy share")
+    recs = {
+        "resid_tangent": {
+            f"flagship_{shape}_{k}": v
+            for shape, params, lanes in (("fit", model.params, free),
+                                         ("grid", params_b, grid_lanes))
+            for k, v in k1_record(model, tensor, params, lanes, device, 20).items()
+            if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+        "ecorr_normal_eq": k3_record(*k3["grid"]["args"], device),
+    }
+    fit3 = k3_record(*k3["fit"]["args"], device)
+    recs["ecorr_normal_eq"].update({f"fit_{k}": v for k, v in fit3.items()
+                                    if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "shape")})
+    if device.type == "cuda":
+        summary["flagship_profile"] = profile_main_path(tensor, device, flagship=True)
+    res = main["fitter"].result
+    summary["flagship"] = {
+        "fit_wall_s": main["fit_s"], "grid_wall_s": main["grid_s"],
+        "fit_iterations": res.iterations, "fit_chi2_reduced": res.reduced_chi2,
+        "grid_chi2": main["chi2"].tolist(), "grid_rel_err": worst_g,
+        "ntoas": int(tensor["t_hi"].shape[0] - 1),
+        "epochs": int(model.noise_basis_and_weights(model.params, tensor).ke),
+        "free": list(free)}
+    errs = {"resid_tangent": max(s["max_abs_err"] for s in k1_stats.values()),
+            "ecorr_normal_eq": max(v["chi2_abs_err"] for v in k3.values())}
+    return {"recs": recs, "errs": errs, "fit": fit_l, "grid": grid_l}
+
+
+def phases(device_name: str = "cuda") -> dict:
+    """Phases 2-13 on `device_name`; returns the summary record."""
+    from pint_tpu_torch.device import resolve_device
+    from pint_tpu_torch.ops import build
+
+    device = resolve_device(device_name)
+    summary = {}
+    if device.type == "cuda":
+        print("phase 2: build kernels")
+        summary["build_s"] = build.build_all()
+        print(f"  built in {summary['build_s']:.2f} s into {build.build_dir()}")
+        summary["ptxas"], summary["ptxas_instances"] = {}, {}
+        for name in build.SOURCES:
+            summary["ptxas"][name] = build.ptxas_summary(name)
+            summary["ptxas_instances"][name] = build.ptxas_report(name)
+            print(f"  {name}: {summary['ptxas'][name]}")
+        for fn, (regs, spill) in summary["ptxas_instances"]["resid_tangent"].items():
+            print(f"    {fn}: {regs} registers, {spill} bytes of spill stores")
+    smoke = smoke_phases(device, summary)
+    flag = flagship_phases(device, summary)
+    windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
+               "flagship_fit": flag["fit"], "flagship_grid": flag["grid"]}
     kernels = []
     for name, src, replaces in KERNELS:
+        rec = {**smoke["recs"].get(name, {}), **flag["recs"].get(name, {})}
+        err = max(smoke["errs"].get(name, 0.0), flag["errs"].get(name, 0.0))
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": fit_l[name] + grid_l[name], "launches_fit": fit_l[name],
-                        "launches_grid": grid_l[name], "max_abs_err": errs[name],
-                        **recs[name]})
-    summary.update({"kernels": kernels, "fit_wall_s": main["fit_s"],
-                    "grid_wall_s": main["grid_s"],
-                    "fit_iterations": res.iterations, "fit_chi2_reduced": res.reduced_chi2,
-                    "grid_chi2": chi2.tolist(), "ntoas": int(tensor["t_hi"].shape[0] - 1)})
+                        "launches": sum(w[name] for w in windows.values()),
+                        **{f"launches_{k}": w[name] for k, w in windows.items()},
+                        "max_abs_err": err, **rec})
+    summary["kernels"] = kernels
     return summary
 
 

@@ -11,17 +11,26 @@
 //   Roemer -r.n and parallax                (astrometry.py)
 //   solar Shapiro -2 T ln((|s| - s.n)/AU)   (solar_system_shapiro.py)
 //   DM delay DMconst DM(t) / f_bary^2, f_bary = f (1 - v.n)  (dispersion.py)
+//   ELL1 binary delay at t - delay so far   (binary.py, binaries/engines.py):
+//     dd orbital phase norb0 = rint(dt/PB), rem = dt - PB norb0 in dd, the
+//     PBDOT term, phi = 2 pi (frac - rint(frac)); the third-order Roemer
+//     expansion and its two phi derivatives (sin/cos of phi .. 4 phi), the
+//     inverse-timing expansion, and -2 TSUN M2 log(1 - SINI sin phi)
 //   spindown phase: dd Horner of F_k over t - delay - PEPOCH (spindown.py)
 //   spin frequency f(t)                     (spindown.py)
 //   minus the TZR row's phase, then dd rint (timing_model.py, residuals.py)
 // and writes the pulse number, the fractional phase (hi + lo) and f.
 //
 // Tangents: beside every value the thread carries K dual lanes, one per
-// nonlinear free parameter (lane codes: 0 RAJ 1 DECJ 2 PMRA 3 PMDEC 4 PX,
-// 16 + k for F_k). A double-double value carries one float64 tangent: the
-// derivative needs float64 precision only, as jax's tangents through the
-// float64 carriers do. Outputs d(frac)/dp and d(f)/dp per lane; the caller
-// forms d(r/f) (fitting/wls.py, gridutils.py).
+// free parameter (lane codes: 0 RAJ 1 DECJ 2 PMRA 3 PMDEC 4 PX 5 PB 6 A1
+// 7 TASC 8 EPS1 9 EPS2, 16 + k for F_k, 32 + k for DM_k). A double-double
+// value carries one float64 tangent: the derivative needs float64 precision
+// only, as jax's tangents through the float64 carriers do. Outputs d(frac)/dp
+// and d(f)/dp per lane; the caller forms d(r/f) (fitting/wls.py, gls.py,
+// gridutils.py). A block carries at most KCHUNK = 8 lanes (registers: every
+// dual value holds K + 1 doubles); more lanes are more blocks of the same
+// launch (blockIdx.z picks the chunk), each recomputing the primal, and
+// chunk 0 alone writes the primal outputs.
 //
 // TZR row: every block's thread 0 evaluates the fiducial row (the tensor's
 // last) into shared memory before the block's rows subtract it, so one launch
@@ -39,25 +48,36 @@ namespace {
 
 using namespace pint;
 
-constexpr int KMAX = 8;
+constexpr int KCHUNK = 8;  // lanes per block
+constexpr int LMAX = 32;   // lanes per launch
 constexpr int THREADS = 256;
+constexpr double TWO_PI = 6.283185307179586;  // 2.0 * math.pi
 
 // parameter row layout, shared with pint_tpu_torch/residuals.py _pack_params
 enum : int {
   P_RAJ = 0, P_DECJ, P_PMRA, P_PMDEC, P_PX, P_POSEPOCH, P_DMEPOCH,
-  P_PEPOCH_HI, P_PEPOCH_LO, P_DM0  // then nd DM coefficients, then nf (hi, lo) F pairs
+  P_PEPOCH_HI, P_PEPOCH_LO,
+  // the ELL1 block (zeros without a binary)
+  P_PB_HI, P_PB_LO, P_TASC_HI, P_TASC_LO, P_A1, P_A1DOT, P_EPS1, P_EPS2,
+  P_EPS1DOT, P_EPS2DOT, P_PBDOT, P_XPBDOT, P_M2, P_SINI,
+  P_DM0  // then nd DM coefficients, then nf (hi, lo) F pairs
 };
-enum : int { L_RAJ = 0, L_DECJ = 1, L_PMRA = 2, L_PMDEC = 3, L_PX = 4, L_F0 = 16 };
+enum : int {
+  L_RAJ = 0, L_DECJ = 1, L_PMRA = 2, L_PMDEC = 3, L_PX = 4,
+  L_PB = 5, L_A1 = 6, L_TASC = 7, L_EPS1 = 8, L_EPS2 = 9, L_F0 = 16, L_DM0 = 32
+};
 
 struct Config {
   int n_rows;   // tensor rows, the TZR row included
   int n_out;    // data rows written
   int has_tzr;  // AbsPhase: subtract the last row's phase
   int has_ast;  // astrometry (and with it the solar Shapiro delay)
+  int has_bin;  // the ELL1 binary
   int nd;       // DM Taylor terms (0: no dispersion component)
   int nf;       // spin terms F0..F(nf-1)
   int n_par;    // parameter row length
-  int lane[KMAX];
+  int n_lane;   // lanes of this launch
+  int lane[LMAX];
   double au_ls, dmconst, tsun;
 };
 
@@ -80,12 +100,19 @@ __device__ __forceinline__ Dual<K> dconst(double v) {
   return r;
 }
 
+// the lane codes of one block's chunk, in registers
 template <int K>
-__device__ __forceinline__ Dual<K> dseed(double v, const Config &c, int code) {
+struct Lanes {
+  int code[K > 0 ? K : 1];
+};
+
+// `v` seeded with 1 on the lane of this block's chunk that carries `code`
+template <int K>
+__device__ __forceinline__ Dual<K> dseed(double v, const Lanes<K> &lane, int code) {
   Dual<K> r;
   r.v = v;
 #pragma unroll
-  for (int j = 0; j < K; ++j) r.d[j] = (c.lane[j] == code) ? 1.0 : 0.0;
+  for (int j = 0; j < K; ++j) r.d[j] = (lane.code[j] == code) ? 1.0 : 0.0;
   return r;
 }
 
@@ -245,19 +272,167 @@ __device__ __forceinline__ double fact(int n) {
   return f;
 }
 
+// ELL1 Roemer delay / a1 to third order in eccentricity and its first two
+// phi derivatives (binaries/engines.py _ell1_dre_da1, _ell1_dre_dphi_da1,
+// _ell1_dre_dphi2_da1), term by term in the twin's order
+template <int K>
+struct Ell1Harmonics {
+  Dual<K> s1, c1, s2, c2, s3, c3, s4, c4;
+};
+
+// a * x * y * ... for a constant a, left to right as Python evaluates it
+template <int K>
+__device__ __forceinline__ Dual<K> t2(double a, const Dual<K> &x, const Dual<K> &y) {
+  return dmul(dmulc(x, a), y);
+}
+template <int K>
+__device__ __forceinline__ Dual<K> t3(double a, const Dual<K> &x, const Dual<K> &y,
+                                      const Dual<K> &z) {
+  return dmul(dmul(dmulc(x, a), y), z);
+}
+
+template <int K>
+__device__ Dual<K> ell1_dre(const Ell1Harmonics<K> &h, const Dual<K> &e1, const Dual<K> &e2,
+                            const Dual<K> &e1sq, const Dual<K> &e2sq, const Dual<K> &e1cu,
+                            const Dual<K> &e2cu) {
+  Dual<K> a = dsub(dmul(e2, h.s2), dmul(e1, h.c2));
+  Dual<K> b = dsub(t2(5.0, e2sq, h.s1), t2(3.0, e2sq, h.s3));
+  b = dsub(b, t3(2.0, e2, e1, h.c1));
+  b = dadd(b, t3(6.0, e2, e1, h.c3));
+  b = dadd(b, t2(3.0, e1sq, h.s1));
+  b = dadd(b, t2(3.0, e1sq, h.s3));
+  Dual<K> q = t2(5.0, e2cu, h.s2);
+  q = dadd(q, t3(3.0, e1sq, e2, h.s2));
+  q = dsub(q, t3(6.0, e1, e2sq, h.c2));
+  q = dsub(q, t2(4.0, e1cu, h.c2));
+  q = dsub(q, t2(4.0, e2cu, h.s4));
+  q = dadd(q, t3(12.0, e1sq, e2, h.s4));
+  q = dadd(q, t3(12.0, e1, e2sq, h.c4));
+  q = dsub(q, t2(4.0, e1cu, h.c4));
+  Dual<K> r = dadd(h.s1, dmulc(a, 0.5));
+  r = dsub(r, dmulc(b, 0.125));
+  return dsub(r, dmulc(q, 1.0 / 12));
+}
+
+template <int K>
+__device__ Dual<K> ell1_drep(const Ell1Harmonics<K> &h, const Dual<K> &e1, const Dual<K> &e2,
+                             const Dual<K> &e1sq, const Dual<K> &e2sq, const Dual<K> &e1cu,
+                             const Dual<K> &e2cu) {
+  Dual<K> b = dsub(t2(5.0, e2sq, h.c1), t2(9.0, e2sq, h.c3));
+  b = dadd(b, t3(2.0, e1, e2, h.s1));
+  b = dsub(b, t3(18.0, e1, e2, h.s3));
+  b = dadd(b, t2(3.0, e1sq, h.c1));
+  b = dadd(b, t2(9.0, e1sq, h.c3));
+  Dual<K> q = t2(10.0, e2cu, h.c2);
+  q = dadd(q, t3(6.0, e1sq, e2, h.c2));
+  q = dadd(q, t3(12.0, e1, e2sq, h.s2));
+  q = dadd(q, t2(8.0, e1cu, h.s2));
+  q = dsub(q, t2(16.0, e2cu, h.c4));
+  q = dadd(q, t3(48.0, e1sq, e2, h.c4));
+  q = dsub(q, t3(48.0, e1, e2sq, h.s4));
+  q = dadd(q, t2(16.0, e1cu, h.s4));
+  Dual<K> r = dadd(dadd(h.c1, dmul(e1, h.s2)), dmul(e2, h.c2));
+  r = dsub(r, dmulc(b, 0.125));
+  return dsub(r, dmulc(q, 1.0 / 12));
+}
+
+template <int K>
+__device__ Dual<K> ell1_drepp(const Ell1Harmonics<K> &h, const Dual<K> &e1, const Dual<K> &e2,
+                              const Dual<K> &e1sq, const Dual<K> &e2sq, const Dual<K> &e1cu,
+                              const Dual<K> &e2cu) {
+  Dual<K> b = dadd(t2(-5.0, e2sq, h.s1), t2(27.0, e2sq, h.s3));
+  b = dadd(b, t3(2.0, e1, e2, h.c1));
+  b = dsub(b, t3(54.0, e1, e2, h.c3));
+  b = dsub(b, t2(3.0, e1sq, h.s1));
+  b = dsub(b, t2(27.0, e1sq, h.s3));
+  Dual<K> q = t2(-20.0, e2cu, h.s2);
+  q = dsub(q, t3(12.0, e1sq, e2, h.s2));
+  q = dadd(q, t3(24.0, e1, e2sq, h.c2));
+  q = dadd(q, t2(16.0, e1cu, h.c2));
+  q = dadd(q, t2(64.0, e2cu, h.s4));
+  q = dsub(q, t3(192.0, e1sq, e2, h.s4));
+  q = dsub(q, t3(192.0, e1, e2sq, h.c4));
+  q = dadd(q, t2(64.0, e1cu, h.c4));
+  Dual<K> r = dadd(dneg(h.s1), t2(2.0, e1, h.c2));
+  r = dsub(r, t2(2.0, e2, h.s2));
+  r = dsub(r, dmulc(b, 0.125));
+  return dsub(r, dmulc(q, 1.0 / 12));
+}
+
+// The ELL1 delay at the time t - delay_so_far (binary.py PulsarBinary._orbits
+// and delay, binaries/engines.py ell1_delay). `dsf` is the delay so far
+// with its lanes.
+template <int K>
+__device__ Dual<K> ell1_delay(double t_hi, double t_lo, const Dual<K> &dsf,
+                              const double *__restrict__ P, const Lanes<K> &lane, double tsun) {
+  // dt = (t - TASC) - delay in dd; the TASC lane enters with -1
+  DDual<K> dtx;
+  dtx.x = dd_add_fp(dd_sub(dd{t_hi, t_lo}, dd{P[P_TASC_HI], P[P_TASC_LO]}), -dsf.v);
+#pragma unroll
+  for (int j = 0; j < K; ++j) dtx.d[j] = (0.0 - (lane.code[j] == L_TASC ? 1.0 : 0.0)) - dsf.d[j];
+  Dual<K> dt;
+  dt.v = dd_to_float(dtx.x);
+#pragma unroll
+  for (int j = 0; j < K; ++j) dt.d[j] = dtx.d[j];
+  const Dual<K> pb0 = dseed<K>(__dadd_rn(P[P_PB_HI], P[P_PB_LO]), lane, L_PB);
+  // which orbit to measure from: rint carries no tangent
+  const double norb0 = rint(__ddiv_rn(dt.v, pb0.v));
+  Dual<K> rem;
+  rem.v = dd_to_float(dd_sub(dtx.x, dd_mul_fp(dd{P[P_PB_HI], P[P_PB_LO]}, norb0)));
+#pragma unroll
+  for (int j = 0; j < K; ++j) rem.d[j] = dtx.d[j] - pb0.d[j] * norb0;
+  Dual<K> frac = ddiv(rem, pb0);
+  const Dual<K> u = dadd(dconst<K>(norb0), frac);
+  const double pbdot_eff = __dadd_rn(P[P_PBDOT], P[P_XPBDOT]);
+  frac = dsub(frac, dmul(dmulc(u, __dmul_rn(0.5, pbdot_eff)), u));
+  const Dual<K> pb = dadd(pb0, dmulc(dt, P[P_PBDOT]));
+  const double n2 = rint(frac.v);
+  const Dual<K> phi = dmulc(dsub(frac, dconst<K>(n2)), TWO_PI);
+  // engine: secular A1, EPS1, EPS2
+  const Dual<K> a1 = dadd(dseed<K>(P[P_A1], lane, L_A1), dmulc(dt, P[P_A1DOT]));
+  const Dual<K> e1 = dadd(dseed<K>(P[P_EPS1], lane, L_EPS1), dmulc(dt, P[P_EPS1DOT]));
+  const Dual<K> e2 = dadd(dseed<K>(P[P_EPS2], lane, L_EPS2), dmulc(dt, P[P_EPS2DOT]));
+  Ell1Harmonics<K> h;
+  h.s1 = dsin(phi);
+  h.c1 = dcos(phi);
+  const Dual<K> p2 = dmulc(phi, 2.0), p3 = dmulc(phi, 3.0), p4 = dmulc(phi, 4.0);
+  h.s2 = dsin(p2);
+  h.c2 = dcos(p2);
+  h.s3 = dsin(p3);
+  h.c3 = dcos(p3);
+  h.s4 = dsin(p4);
+  h.c4 = dcos(p4);
+  const Dual<K> e1sq = dmul(e1, e1), e2sq = dmul(e2, e2);
+  const Dual<K> e1cu = dmul(e1sq, e1), e2cu = dmul(e2sq, e2);
+  const Dual<K> Dre = dmul(a1, ell1_dre(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
+  const Dual<K> Drep = dmul(a1, ell1_drep(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
+  const Dual<K> Drepp = dmul(a1, ell1_drepp(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
+  // inverse timing: Dre (1 - x + x^2 + 0.5 nhat^2 Dre Drepp), x = nhat Drep
+  const Dual<K> nhat = ddiv(dconst<K>(TWO_PI), pb);
+  const Dual<K> x = dmul(nhat, Drep);
+  Dual<K> g = dadd(dsub(dconst<K>(1.0), x), dmul(x, x));
+  g = dadd(g, dmul(dmul(dmulc(dmul(nhat, nhat), 0.5), Dre), Drepp));
+  const Dual<K> delay_i = dmul(Dre, g);
+  // Shapiro: -2 TSUN M2 log(1 - SINI sin phi)
+  const double tm2 = __dmul_rn(P[P_M2], tsun);
+  const Dual<K> delay_s =
+      dmulc(dlog(dsub(dconst<K>(1.0), dmulc(h.s1, P[P_SINI]))), __dmul_rn(-2.0, tm2));
+  return dadd(delay_i, delay_s);
+}
+
 template <int K>
 __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restrict__ P,
-                                const Config &c) {
+                                const Config &c, const Lanes<K> &lane) {
   const double t_hi = rows.t_hi[i], t_lo = rows.t_lo[i];
   Dual<K> total = dconst<K>(0.0);
   Dual<K> n[3];
   if (c.has_ast) {
     // pulsar direction with proper motion (astrometry.py pulsar_direction)
     const double dt = __dadd_rn(__dsub_rn(t_hi, P[P_POSEPOCH]), t_lo);
-    const Dual<K> dec0 = dseed<K>(P[P_DECJ], c, L_DECJ);
-    const Dual<K> ra = dadd(dseed<K>(P[P_RAJ], c, L_RAJ),
-                            ddiv(dmulc(dseed<K>(P[P_PMRA], c, L_PMRA), dt), dcos(dec0)));
-    const Dual<K> dec = dadd(dec0, dmulc(dseed<K>(P[P_PMDEC], c, L_PMDEC), dt));
+    const Dual<K> dec0 = dseed<K>(P[P_DECJ], lane, L_DECJ);
+    const Dual<K> ra = dadd(dseed<K>(P[P_RAJ], lane, L_RAJ),
+                            ddiv(dmulc(dseed<K>(P[P_PMRA], lane, L_PMRA), dt), dcos(dec0)));
+    const Dual<K> dec = dadd(dec0, dmulc(dseed<K>(P[P_PMDEC], lane, L_PMDEC), dt));
     const Dual<K> cl = dcos(dec);
     n[0] = dmul(cl, dcos(ra));
     n[1] = dmul(cl, dsin(ra));
@@ -266,7 +441,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     const double *r = rows.pos + 3 * i;
     const Dual<K> rn = ddot3(r, n);
     const double r2 = dot3c(r, r);
-    const Dual<K> px = dseed<K>(P[P_PX], c, L_PX);
+    const Dual<K> px = dseed<K>(P[P_PX], lane, L_PX);
     const Dual<K> px_delay =
         ddivc(dmul(dmulc(px, 0.5), dsub(dconst<K>(r2), dmul(rn, rn))), c.au_ls);
     total = dadd(total, dadd(dneg(rn), px_delay));
@@ -279,15 +454,15 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     total = dadd(total, shap);
   }
   if (c.nd > 0) {
-    // DM(t): plain Taylor polynomial about DMEPOCH (dispersion.py base_dm)
-    double dm;
+    // DM(t): Taylor polynomial about DMEPOCH (dispersion.py base_dm)
+    Dual<K> dm;
     if (c.nd == 1) {
-      dm = __dmul_rn(P[P_DM0], 1.0);
+      dm = dmulc(dseed<K>(P[P_DM0], lane, L_DM0), 1.0);
     } else {
       const double dtd = __dadd_rn(__dsub_rn(t_hi, P[P_DMEPOCH]), t_lo);
-      dm = __ddiv_rn(P[P_DM0 + c.nd - 1], fact(c.nd - 1));
+      dm = ddivc(dseed<K>(P[P_DM0 + c.nd - 1], lane, L_DM0 + c.nd - 1), fact(c.nd - 1));
       for (int k = c.nd - 2; k >= 0; --k)
-        dm = __dadd_rn(__dmul_rn(dm, dtd), __ddiv_rn(P[P_DM0 + k], fact(k)));
+        dm = dadd(dmulc(dm, dtd), ddivc(dseed<K>(P[P_DM0 + k], lane, L_DM0 + k), fact(k)));
     }
     Dual<K> fb = dconst<K>(rows.freq[i]);
     if (c.has_ast) {
@@ -295,9 +470,10 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
       fb = dmulc(dsub(dconst<K>(1.0), beta), rows.freq[i]);
     }
     Dual<K> dmd = dconst<K>(0.0);
-    if (isfinite(fb.v)) dmd = ddiv(dconst<K>(__dmul_rn(c.dmconst, dm)), dmul(fb, fb));
+    if (isfinite(fb.v)) dmd = ddiv(dmulc(dm, c.dmconst), dmul(fb, fb));
     total = dadd(total, dmd);
   }
+  if (c.has_bin) total = dadd(total, ell1_delay<K>(t_hi, t_lo, total, P, lane, c.tsun));
   // spindown (spindown.py): dt = (t - delay) - PEPOCH in dd
   const int f_base = P_DM0 + c.nd;
   DDual<K> dt;
@@ -309,7 +485,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     DDual<K> r;
     r.x = dd{P[f_base + 2 * k], P[f_base + 2 * k + 1]};
 #pragma unroll
-    for (int j = 0; j < K; ++j) r.d[j] = (c.lane[j] == L_F0 + k) ? 1.0 : 0.0;
+    for (int j = 0; j < K; ++j) r.d[j] = (lane.code[j] == L_F0 + k) ? 1.0 : 0.0;
     return r;
   };
   DDual<K> acc = ddmulc(coeff(c.nf - 1), inv_fact(c.nf));
@@ -338,7 +514,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
 #pragma unroll
   for (int j = 0; j < K; ++j) dtf.d[j] = dt.d[j];
   auto fcoeff = [&](int k) {
-    return dseed<K>(__dadd_rn(P[f_base + 2 * k], P[f_base + 2 * k + 1]), c, L_F0 + k);
+    return dseed<K>(__dadd_rn(P[f_base + 2 * k], P[f_base + 2 * k + 1]), lane, L_F0 + k);
   };
   Dual<K> fq = ddivc(fcoeff(c.nf - 1), fact(c.nf - 1));
   for (int k = c.nf - 2; k >= 0; --k) fq = dadd(dmul(fq, dtf), ddivc(fcoeff(k), fact(k)));
@@ -346,6 +522,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
   return out;
 }
 
+// grid: (row blocks, parameter sets, lane chunks of K)
 template <int K>
 __global__ void __launch_bounds__(THREADS)
 resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
@@ -353,11 +530,16 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
                      double *__restrict__ freq_out, double *__restrict__ dfrac,
                      double *__restrict__ dfreq) {
   const int b = blockIdx.y;
+  const int lb = blockIdx.z * K;  // first lane of this block's chunk
+  const int slots = gridDim.z * K;
+  Lanes<K> lane;
+#pragma unroll
+  for (int j = 0; j < K; ++j) lane.code[j] = c.lane[lb + j];
   const double *P = params + (size_t)b * c.n_par;
   __shared__ double tz_hi, tz_lo;
   __shared__ double tz_d[K > 0 ? K : 1];
   if (c.has_tzr && threadIdx.x == 0) {
-    const RowPhase<K> tz = eval_row<K>(c.n_rows - 1, rows, P, c);
+    const RowPhase<K> tz = eval_row<K>(c.n_rows - 1, rows, P, c, lane);
     tz_hi = tz.ph.x.hi;
     tz_lo = tz.ph.x.lo;
 #pragma unroll
@@ -365,7 +547,7 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   RowPhase<K> r;
-  if (i < c.n_out) r = eval_row<K>(i, rows, P, c);
+  if (i < c.n_out) r = eval_row<K>(i, rows, P, c, lane);
   __syncthreads();
   if (i >= c.n_out) return;
   DDual<K> ph = r.ph;
@@ -374,15 +556,17 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
 #pragma unroll
     for (int j = 0; j < K; ++j) ph.d[j] = ph.d[j] - tz_d[j];
   }
-  double k;
-  const dd rem = dd_rint(ph.x, k);
-  const size_t o = (size_t)b * c.n_out + i;
-  pn[o] = k;
-  frac[o] = dd_to_float(rem);
-  freq_out[o] = r.f.v;
+  if (blockIdx.z == 0) {
+    double k;
+    const dd rem = dd_rint(ph.x, k);
+    const size_t o = (size_t)b * c.n_out + i;
+    pn[o] = k;
+    frac[o] = dd_to_float(rem);
+    freq_out[o] = r.f.v;
+  }
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const size_t oj = ((size_t)b * K + j) * c.n_out + i;
+    const size_t oj = ((size_t)b * slots + lb + j) * c.n_out + i;
     dfrac[oj] = ph.d[j];
     dfreq[oj] = r.f.d[j];
   }
@@ -392,7 +576,8 @@ template <int K>
 cudaError_t launch(const Rows &rows, const double *params, const Config &c, int n_batch,
                    double *pn, double *frac, double *f, double *dfrac, double *df,
                    cudaStream_t stream) {
-  const dim3 grid((c.n_out + THREADS - 1) / THREADS, n_batch);
+  const int chunks = K > 0 ? (c.n_lane + K - 1) / K : 1;
+  const dim3 grid((c.n_out + THREADS - 1) / THREADS, n_batch, chunks);
   resid_tangent_kernel<K><<<grid, THREADS, 0, stream>>>(rows, params, c, pn, frac, f,
                                                         dfrac, df);
   return cudaGetLastError();
@@ -400,8 +585,10 @@ cudaError_t launch(const Rows &rows, const double *params, const Config &c, int 
 
 }  // namespace
 
-// ints: n_rows n_out has_tzr has_ast nd nf n_par k lane[0..k)
+// ints: n_rows n_out has_tzr has_ast nd nf n_par k has_bin lane[0..LMAX)
 // consts: au_ls dmconst tsun
+// dfrac, df: (n_batch, slots, n_out) with slots = k rounded up to whole
+// chunks of the lane width (2 for k <= 2, 4 for k <= 4, else 8)
 extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const double *freq,
                              const double *pos, const double *vel, const double *sun,
                              const double *params, int n_batch, const int *ints,
@@ -416,9 +603,12 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   c.nf = ints[5];
   c.n_par = ints[6];
   const int k = ints[7];
-  if (k < 0 || k > KMAX || c.nf < 1 || c.n_out < 0 || n_batch < 1 || n_batch > 65535)
+  c.has_bin = ints[8];
+  c.n_lane = k;
+  if (k < 0 || k > LMAX || c.nf < 1 || c.nd < 0 || c.nd > 16 || c.n_out < 0 ||
+      n_batch < 1 || n_batch > 65535 || c.n_par != P_DM0 + c.nd + 2 * c.nf)
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int j = 0; j < KMAX; ++j) c.lane[j] = j < k ? ints[8 + j] : -1;
+  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[9 + j] : -1;
   c.au_ls = consts[0];
   c.dmconst = consts[1];
   c.tsun = consts[2];
@@ -426,11 +616,13 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   const Rows rows{t_hi, t_lo, freq, pos, vel, sun};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  switch (k) {
-    case 0: e = launch<0>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s); break;
-    case 1: case 2: e = launch<2>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s); break;
-    case 3: case 4: e = launch<4>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s); break;
-    default: e = launch<8>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s); break;
-  }
+  if (k == 0)
+    e = launch<0>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  else if (k <= 2)
+    e = launch<2>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  else if (k <= 4)
+    e = launch<4>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  else
+    e = launch<KCHUNK>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
   return static_cast<int>(e);
 }

@@ -40,15 +40,33 @@ log = logging.getLogger("pint_tpu_torch.fitting")
 SVD_THRESHOLD = 1e-14
 
 
-def apply_delta(params: dict, free_names: tuple, delta: torch.Tensor) -> dict:
+# hard physical domains (pint_tpu _PARAM_DOMAIN): a Gauss-Newton step from
+# far off the minimum can propose e.g. SINI > 1, whose log turns every
+# residual NaN; the fitters project such a step back onto the boundary
+_EPS_DOM = 1e-12
+_PARAM_DOMAIN = {
+    "SINI": (-1.0 + _EPS_DOM, 1.0 - _EPS_DOM),
+    "ECC": (0.0, 1.0 - _EPS_DOM),
+    "EPS1": (-0.7, 0.7),
+    "EPS2": (-0.7, 0.7),
+    "STIGMA": (-1.0 + _EPS_DOM, 1.0 - _EPS_DOM),
+    "M2": (0.0, np.inf),
+    "MTOT": (0.0, np.inf),
+}
+
+
+def apply_delta(params: dict, free_names: tuple, delta: torch.Tensor,
+                project_domain: bool = False) -> dict:
     """params + delta over the free subset. `delta` is (..., p): a leading
     batch dimension updates a batched parameter dict (leaves (B,)).
 
     Every double-double leaf absorbs its float64 step through ONE launch of
     kernel K0 (``add_fp``, the dd_add_fp of ``ops/dd.py``), so the low words
-    keep their bits; plain leaves add in float64. (The JAX package also
-    clips binary parameters to their physical domains; no component of this
-    package has a binary parameter yet, so that projection is not ported.)"""
+    keep their bits; plain leaves add in float64.
+
+    ``project_domain=True`` (the fitters' step) clamps the parameters of
+    `_PARAM_DOMAIN` onto their domain: a double-double leaf on its high
+    word, its low word zeroed where clamped. Samplers must not set it."""
     new = dict(params)
     dd_names = [n for n in free_names if isinstance(params[n], DD)]
     col = {n: delta[..., i] for i, n in enumerate(free_names)}
@@ -64,6 +82,14 @@ def apply_delta(params: dict, free_names: tuple, delta: torch.Tensor) -> dict:
     for n in free_names:
         if n not in dd_names:
             new[n] = params[n] + col[n]
+        dom = _PARAM_DOMAIN.get(n) if project_domain else None
+        if dom is None:
+            continue
+        if n in dd_names:
+            hi = torch.clamp(new[n].hi, dom[0], dom[1])
+            new[n] = DD(hi, torch.where(hi == new[n].hi, new[n].lo, 0.0))
+        else:
+            new[n] = torch.clamp(new[n], dom[0], dom[1])
     return new
 
 
@@ -84,13 +110,17 @@ class FitResult:
 
 
 def time_resid_design(model: TimingModel, free: tuple, params: dict, tensor: dict,
-                      weights: torch.Tensor, subtract_mean: bool):
+                      weights: torch.Tensor, subtract_mean: bool, hybrid: bool = True):
     """(r0 (N,), M (N, p)): time residuals and their design matrix in the
     WLS order of the JAX package: the weighted mean is subtracted from the
     phase residual in TURNS, before the division by f. Nonlinear columns
     are the tangents of K1, d(r/f) = dr/f - r df/f^2; linear columns are
-    closed forms with their weighted mean removed."""
-    nonlin, lin_names, owners = linear_split(model, free)
+    closed forms with their weighted mean removed. ``hybrid=False`` takes
+    every column from the tangents, as the JAX package's GLS step does."""
+    if hybrid:
+        nonlin, lin_names, owners = linear_split(model, free)
+    else:
+        nonlin, lin_names, owners = tuple(free), (), {}
     mean_free = subtract_mean and not model.has_phase_offset
     out = phase_resid_tangents(model, params, tensor, lanes=nonlin)
     r, f = out.frac[0], out.f[0]

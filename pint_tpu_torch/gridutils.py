@@ -2,14 +2,18 @@
 
 Every grid point fixes the gridded parameters, refits the other free
 parameters with `maxiter` Gauss-Newton steps and reports chi^2, as the JAX
-package's ``_point_kernel`` does (the WLS statistic, ``correlated=False``).
-The grid points are a leading batch dimension B of the parameter dict,
-which replaces ``vmap``:
+package's ``_point_kernel`` does. The statistic follows the fitter, as
+there: a GLS fitter on a model with correlated noise grids the Woodbury
+chi^2, any other fitter the white one. The grid points are a leading batch
+dimension B of the parameter dict, which replaces ``vmap``:
 
 - kernel K1 (``residuals.resid_tangent``) evaluates the B forward chains
   with the tangents of the nonlinear free parameters in one launch;
-- kernel K2 (`normal_eq`, csrc/normal_eq.cu) reduces them to the
+- white: kernel K2 (`normal_eq`, csrc/normal_eq.cu) reduces them to the
   equilibrated normal equations and chi^2 of every point;
+- correlated: the weighted means and the column norms sqrt(sum w M^2) in
+  torch, then kernel K3 (``fitting/woodbury.ecorr_normal_eq``) forms the
+  Woodbury normal equations and chi^2 of every point;
 - the p x p ridge Cholesky solve stays ``torch.linalg``;
 - ``fitting/wls.apply_delta`` adds the steps into the parameters; it
   launches kernel K0 only for double-double free parameters, and the
@@ -30,6 +34,7 @@ import torch
 
 from pint_tpu_torch.fitting.design import linear_columns, linear_split
 from pint_tpu_torch.fitting.wls import apply_delta
+from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq
 from pint_tpu_torch.ops.dd import DD
 from pint_tpu_torch.residuals import phase_resid_tangents
 
@@ -133,19 +138,42 @@ def _time_resids_design(model, params, tensor, free):
     return r, M[:, [names.index(n) for n in free]]
 
 
+def _centred_equilibrated(r, M, w, mean_free: bool):
+    """The correlated grid's step inputs, in pint_tpu's gn_step order: r and
+    every column with its weighted mean removed (in seconds), the columns
+    divided by sqrt(sum w M^2). -> (r, Mn, norm)."""
+    if mean_free:
+        sw = torch.sum(w)
+        r = r - torch.sum(w * r, dim=-1, keepdim=True) / sw
+        M = M - torch.sum(w * M, dim=-1, keepdim=True) / sw
+    col2 = torch.sum(w * M * M, dim=-1)
+    norm = torch.sqrt(torch.where(col2 == 0, 1.0, col2))
+    return r, M / norm[..., None], norm
+
+
 def grid_point_chi2(model, params: dict, tensor: dict, w: torch.Tensor, free: tuple,
-                    subtract_mean: bool, maxiter: int) -> torch.Tensor:
+                    subtract_mean: bool, maxiter: int, basis=None) -> torch.Tensor:
     """chi^2 (B,) of a batched parameter dict after `maxiter` Gauss-Newton
-    refits of `free` (pint_tpu ``_point_kernel`` kernel, WLS statistic)."""
+    refits of `free` (pint_tpu ``_point_kernel``): the white statistic, or,
+    given a noise `basis`, the Woodbury one."""
+    correlated = basis is not None
     mean_free = subtract_mean and not model.has_phase_offset
     for _ in range(maxiter if free else 0):
         r, M = _time_resids_design(model, params, tensor, free)
-        G, c, _, norm = normal_eq(r, M, w, _RIDGE, mean_free)
+        if correlated:
+            r, Mn, norm = _centred_equilibrated(r, M, w, mean_free)
+            G, c, _, _ = ecorr_normal_eq(r, Mn, w, basis, _RIDGE)
+        else:
+            G, c, _, norm = normal_eq(r, M, w, _RIDGE, mean_free)
         dx = torch.cholesky_solve(c[..., None], torch.linalg.cholesky(G))[..., 0] / norm
-        params = apply_delta(params, free, dx)
+        params = apply_delta(params, free, dx, project_domain=True)
     out = phase_resid_tangents(model, params, tensor)
     r = out.frac / out.f
-    return normal_eq(r, r.new_zeros((r.shape[0], 0, r.shape[1])), w, 0.0, mean_free)[2]
+    no_cols = r.new_zeros((r.shape[0], 0, r.shape[1]))
+    if correlated:
+        r = _centred_equilibrated(r, no_cols, w, mean_free)[0]
+        return ecorr_normal_eq(r, no_cols, w, basis, 0.0)[2]
+    return normal_eq(r, no_cols, w, 0.0, mean_free)[2]
 
 
 def grid_chisq(fitter, parnames, parvalues, maxiter: int = 1) -> np.ndarray:
@@ -169,6 +197,15 @@ def grid_chisq_points(fitter, parnames, points, maxiter: int = 1) -> np.ndarray:
     if pts.ndim != 2 or pts.shape[1] != len(parnames):
         raise ValueError(f"points must be (npts, {len(parnames)}); got shape {pts.shape}")
     free = tuple(n for n in model.free_params if n not in parnames)
+    from pint_tpu_torch.fitting.gls import GLSFitter
+
+    basis = None
+    if isinstance(fitter, GLSFitter) and model.has_correlated_errors:
+        noise = {n for c in model.noise_components for n in c.specs}
+        if noise & set(parnames):
+            raise NotImplementedError(
+                f"gridding noise parameters {sorted(noise & set(parnames))} is not ported")
+        basis = model.noise_basis_and_weights(model.params, fitter.tensor)
     dev = fitter.tensor["t_hi"].device
     B = pts.shape[0]
 
@@ -184,5 +221,5 @@ def grid_chisq_points(fitter, parnames, points, maxiter: int = 1) -> np.ndarray:
             if isinstance(params[n], DD) else vals[:, i]
     w = 1.0 / fitter.resids.errors_s**2
     chi2 = grid_point_chi2(model, params, fitter.tensor, w, free,
-                           fitter.resids.subtract_mean, maxiter)
+                           fitter.resids.subtract_mean, maxiter, basis)
     return chi2.detach().cpu().numpy()

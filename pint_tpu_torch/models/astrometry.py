@@ -21,6 +21,7 @@ from pint_tpu_torch import AU_LS
 from pint_tpu_torch.models.base import DelayComponent, dt_since_epoch_f64, toa_time_dd
 from pint_tpu_torch.models.parameter import MAS_PER_YR_TO_RAD_PER_S, MAS_TO_RAD, ParamSpec
 from pint_tpu_torch.ops.dd import dd_to_float
+from pint_tpu_torch.ops import libm
 
 
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,8 +30,8 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def unit_vector(lon: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
-    cl = torch.cos(lat)
-    return torch.stack([cl * torch.cos(lon), cl * torch.sin(lon), torch.sin(lat)], dim=-1)
+    cl = libm.cos(lat)
+    return torch.stack([cl * libm.cos(lon), cl * libm.sin(lon), libm.sin(lat)], dim=-1)
 
 
 class AstrometryBase(DelayComponent):
@@ -84,6 +85,6 @@ class AstrometryEquatorial(AstrometryBase):
     def pulsar_direction(self, params: dict, tensor: dict) -> torch.Tensor:
         dt = self.dt_posepoch(params, tensor)
         dec0 = params["DECJ"]
-        ra = params["RAJ"] + params["PMRA"] * dt / torch.cos(dec0)
+        ra = params["RAJ"] + params["PMRA"] * dt / libm.cos(dec0)
         dec = dec0 + params["PMDEC"] * dt
         return unit_vector(ra, dec)

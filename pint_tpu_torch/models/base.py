@@ -18,7 +18,7 @@ import torch
 
 from pint_tpu_torch import SECS_PER_DAY, TENSOR_EPOCH_MJD
 from pint_tpu_torch.io.tim import mjd_string_to_day_frac
-from pint_tpu_torch.models.parameter import ParamSpec, PrefixSpec
+from pint_tpu_torch.models.parameter import MaskParamInfo, ParamSpec, PrefixSpec
 from pint_tpu_torch.ops.dd import DD, dd_add_fp, device_split
 
 # Evaluation order of delay categories (pint_tpu DEFAULT_ORDER): each
@@ -124,6 +124,11 @@ class Component:
     def prefix_specs(cls) -> list[PrefixSpec]:
         return []
 
+    @classmethod
+    def mask_bases(cls) -> list[ParamSpec]:
+        """Specs of repeatable mask-parameter families (EFAC, EQUAD, ...)."""
+        return []
+
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
         if cls.__dict__.get("register", True) and cls.category:
@@ -131,6 +136,7 @@ class Component:
 
     def __init__(self):
         self.specs: dict[str, ParamSpec] = {s.name: s for s in self.param_specs()}
+        self.mask_params: list[MaskParamInfo] = []
 
     @property
     def name(self) -> str:

@@ -1,6 +1,11 @@
 """Model builder: parfile -> components -> TimingModel (counterpart of
 ``pint_tpu/models/builder.py``, restricted to the components ported so far:
-AstrometryEquatorial, SolarSystemShapiro, DispersionDM, Spindown, AbsPhase).
+AstrometryEquatorial, SolarSystemShapiro, DispersionDM, PulsarBinary (ELL1),
+Spindown, AbsPhase, ScaleToaError, EcorrNoise).
+
+Mask parameters (``EFAC -f Rcvr1_2_GUPPI 1.02``) number per family in
+parfile order (EFAC1, EFAC2, ...) as in pint_tpu, so that they read the
+archive's ``mask_<name>`` columns; the port builds no mask from flags.
 
 A parfile that selects any other component raises NotImplementedError
 naming the ROADMAP item that ports it. Parameter values become float64
@@ -18,8 +23,11 @@ from pint_tpu_torch.io.par import ParFile, parse_fit_flag, parse_parfile
 from pint_tpu_torch.io.tim import mjd_string_to_day_frac
 from pint_tpu_torch.models.astrometry import AstrometryEquatorial
 from pint_tpu_torch.models.base import Component
+from pint_tpu_torch.models.binary import BINARY_MODELS, PulsarBinary
 from pint_tpu_torch.models.dispersion import DispersionDM
-from pint_tpu_torch.models.parameter import ParamSpec, ParamValueMeta
+from pint_tpu_torch.models.noise import EcorrNoise, NoiseComponent, ScaleToaError
+from pint_tpu_torch.models.parameter import (MaskParamInfo, ParamSpec, ParamValueMeta,
+                                             parse_mask_clause)
 from pint_tpu_torch.models.phase_misc import AbsPhase
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
 from pint_tpu_torch.models.spindown import Spindown
@@ -42,7 +50,8 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
     that the port does not have yet."""
     names = list(pf.names())
     checks = [
-        ("BINARY", "BINARY" in pf, "A5 (ELL1) / A8 (other binaries)"),
+        ("BINARY", "BINARY" in pf and pf.get("BINARY").upper() not in BINARY_MODELS,
+         "A8 (binaries other than ELL1)"),
         ("ELONG", "ELONG" in pf or "LAMBDA" in pf, "A9 (AstrometryEcliptic)"),
         ("DMX_", any(n.startswith("DMX_") for n in names), "A9 (DMX)"),
         ("DMJUMP", "DMJUMP" in pf, "A9 (DMJUMP)"),
@@ -58,9 +67,6 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
         ("PWEP_", any(n.startswith("PWEP_") for n in names), "A9 (piecewise spindown)"),
         ("CORRECT_TROPOSPHERE", _parse_bool(pf.get("CORRECT_TROPOSPHERE", "N")),
          "A9 (troposphere)"),
-        ("EFAC/EQUAD", any(k in pf for k in ("EFAC", "T2EFAC", "EQUAD", "T2EQUAD")),
-         "A5 (ScaleToaError)"),
-        ("ECORR", any(k in pf for k in ("ECORR", "TNECORR")), "A5 (EcorrNoise)"),
         ("RNAMP/TNREDAMP", ("RNAMP" in pf and "RNIDX" in pf) or "TNREDAMP" in pf,
          "A9 (PLRedNoise)"),
         ("TNDMAMP", "TNDMAMP" in pf, "A9 (PLDMNoise)"),
@@ -108,10 +114,31 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         frq = pf.get("TZRFRQ")
         meta["TZRFRQ"] = float(frq) if frq not in (None, "0", "0.0") else float("inf")
         consumed |= {"TZRMJD", "TZRSITE", "TZRFRQ"}
+    if "BINARY" in pf:
+        components.append(PulsarBinary(pf.get("BINARY")))
+        meta["BINARY"] = pf.get("BINARY").upper()
+        consumed.add("BINARY")
+    if any(k in pf for k in ("EFAC", "T2EFAC", "EQUAD", "T2EQUAD")):
+        components.append(ScaleToaError())
+    if any(k in pf for k in ("ECORR", "TNECORR")):
+        components.append(EcorrNoise())
 
     model = TimingModel(components, meta, device=dev)
     for comp in model.components:
         _collect_component_params(comp, pf, model, consumed)
+    for comp in model.components:
+        for base_spec in comp.mask_bases():
+            _collect_mask_params(comp, base_spec, pf, model, consumed)
+            consumed.add(base_spec.name)
+    # noise parameters are fixed inputs to WLS/GLS, as in pint_tpu: frozen
+    for comp in model.components:
+        if not isinstance(comp, NoiseComponent):
+            continue
+        for pname in comp.specs:
+            pm = model.param_meta.get(pname)
+            if pm is not None and not pm.frozen:
+                log.warning(f"noise parameter {pname} cannot be fit by WLS/GLS; freezing")
+                pm.frozen = True
     for name in pf.names():
         if name not in consumed:
             log.warning(f"unrecognized parfile key {name}; ignored")
@@ -199,3 +226,31 @@ def _store_param(model: TimingModel, spec: ParamSpec, line, from_alias=None):
         model.param_meta[spec.name] = pm
     else:
         model.meta[spec.name] = value
+
+
+def _collect_mask_params(comp: Component, base_spec: ParamSpec, pf: ParFile,
+                         model: TimingModel, consumed: set) -> None:
+    """The family's lines (name and aliases) in parfile order become
+    <BASE>1, <BASE>2, ..."""
+    lines = []
+    for key in (base_spec.name, *base_spec.aliases):
+        if key in pf:
+            lines.extend(pf.get_all(key))
+            consumed.add(key)
+    for i, line in enumerate(lines, start=1):
+        clause, rest = parse_mask_clause(line.tokens)
+        name = f"{base_spec.name}{i}"
+        spec = ParamSpec(name, kind=base_spec.kind, scale=base_spec.scale,
+                         unit=base_spec.unit,
+                         description=f"{base_spec.name} on {' '.join(clause)}")
+        comp.mask_params.append(MaskParamInfo(name=name, base=base_spec.name, index=i,
+                                              clause=clause, spec=spec))
+        comp.specs[name] = spec
+        if not rest:
+            raise ValueError(f"{base_spec.name} line missing value: {line.raw}")
+        model.params[name] = value_to_tensor(spec, spec.parse(rest[0]), model.device)
+        frozen, unc_tok = parse_fit_flag(rest)
+        pm = ParamValueMeta(spec=spec, frozen=frozen)
+        if unc_tok is not None:
+            pm.uncertainty = spec.parse_uncertainty(unc_tok)
+        model.param_meta[name] = pm

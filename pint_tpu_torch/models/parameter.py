@@ -75,12 +75,22 @@ class ParamSpec:
     aliases: tuple[str, ...] = ()
     default: object = None
     unit: str = ""
+    # tempo-heritage implicit scaling: values with |v| > unit_scale_threshold
+    # are multiplied by unit_scale_factor ("PBDOT -4.3" means -4.3e-12)
+    unit_scale: bool = False
+    unit_scale_factor: float = 1e-12
+    unit_scale_threshold: float = 1e-7
+
+    def _heuristic(self, v: float) -> float:
+        if self.unit_scale and abs(v) > self.unit_scale_threshold:
+            return v * self.unit_scale_factor
+        return v
 
     def parse(self, token: str):
         """Parfile token -> host value: float, or an exact (hi, lo) pair of
         numpy float64 for dd and epoch kinds."""
         if self.kind == "float":
-            return float(normalize_number(token)) * self.scale
+            return self._heuristic(float(normalize_number(token))) * self.scale
         if self.kind == "dd":
             from pint_tpu_torch.ops.dd import device_split
 
@@ -101,7 +111,9 @@ class ParamSpec:
     def parse_uncertainty(self, token: str) -> float:
         """Parfile uncertainty token -> internal units (always f64)."""
         token = normalize_number(token)
-        if self.kind in ("float", "dd"):
+        if self.kind == "float":
+            return self._heuristic(float(token)) * self.scale
+        if self.kind == "dd":
             return float(token) * self.scale
         if self.kind == "epoch":
             return float(token) * SECS_PER_DAY
@@ -137,6 +149,39 @@ class PrefixSpec:
                 if tail.isdigit():
                     return int(tail)
         return None
+
+
+def parse_mask_clause(tokens: list[str]) -> tuple[tuple[str, ...], list[str]]:
+    """Split a mask-parameter line (``EFAC -f Rcvr1_2_GUPPI 1.02``, ``JUMP MJD
+    57000 57100 0.1``, ``JUMP FREQ 1000 2000 0.1``, ``JUMP TEL ao 0.1``) into
+    its selection clause and the remaining ``value [fit [unc]]`` tokens. The
+    port keeps the clause as text only: the masks it selects are columns of
+    the prepared archive, made by the TOA prepare."""
+    if not tokens:
+        raise ValueError("empty mask parameter line")
+    head = tokens[0].upper()
+    if tokens[0].startswith("-") or head in ("TEL", "T"):
+        n = 2
+    elif head in ("MJD", "FREQ"):
+        n = 3
+    else:
+        raise ValueError(f"unrecognized mask selection {tokens[:2]}")
+    if len(tokens) < n:
+        raise ValueError(f"incomplete mask selection {tokens}")
+    return tuple(tokens[:n]), tokens[n:]
+
+
+@dataclass
+class MaskParamInfo:
+    """A numbered mask parameter (EFAC1, EQUAD2, ECORR1, ...): the k-th line
+    of its family in parfile order, read by the tensor column
+    ``mask_<name>``."""
+
+    name: str
+    base: str
+    index: int
+    clause: tuple[str, ...]
+    spec: ParamSpec | None = None
 
 
 @dataclass

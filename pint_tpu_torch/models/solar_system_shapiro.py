@@ -17,12 +17,13 @@ from pint_tpu_torch import AU_LS, TSUN_S
 from pint_tpu_torch.models.astrometry import dot3
 from pint_tpu_torch.models.base import DelayComponent
 from pint_tpu_torch.models.parameter import ParamSpec
+from pint_tpu_torch.ops import libm
 
 
 def shapiro_delay(obs_obj_pos_ls: torch.Tensor, psr_dir: torch.Tensor, t_obj_s: float) -> torch.Tensor:
     r = torch.sqrt(dot3(obs_obj_pos_ls, obs_obj_pos_ls))
     rcostheta = dot3(obs_obj_pos_ls, psr_dir)
-    return -2.0 * t_obj_s * torch.log((r - rcostheta) / AU_LS)
+    return -2.0 * t_obj_s * libm.log((r - rcostheta) / AU_LS)
 
 
 class SolarSystemShapiro(DelayComponent):

@@ -1,6 +1,6 @@
-"""TimingModel: ordered component chain -> phase and spin frequency
-(counterpart of ``pint_tpu/models/timing_model.py``, restricted to the
-components of this slice).
+"""TimingModel: ordered component chain -> phase and spin frequency, and
+the noise surface (counterpart of ``pint_tpu/models/timing_model.py``,
+restricted to the components ported so far).
 
 ``phase_and_freq(params, tensor)`` is the plain-torch forward pass: delays
 accumulated in DEFAULT_ORDER, phase summed over the phase components in
@@ -84,6 +84,57 @@ class TimingModel:
     def validate(self) -> None:
         for c in self.components:
             c.validate(self.params, self.meta)
+
+    # --- the noise surface (models/noise.py) ---------------------------------------
+
+    @property
+    def noise_components(self) -> list[Component]:
+        from pint_tpu_torch.models.noise import NoiseComponent
+
+        return [c for c in self.components if isinstance(c, NoiseComponent)]
+
+    @property
+    def has_correlated_errors(self) -> bool:
+        return any(getattr(c, "introduces_correlated_errors", False) for c in self.components)
+
+    def scaled_sigma(self, params: dict, tensor: dict) -> torch.Tensor:
+        """Noise-rescaled per-TOA sigma (seconds), data rows only."""
+        sigma = tensor["error_s"]
+        for c in self.noise_components:
+            sigma = c.scale_sigma(params, tensor, sigma)
+        if self.has_abs_phase:
+            sigma = sigma[:-1]
+        return sigma
+
+    def noise_basis_and_weights(self, params: dict, tensor: dict):
+        """Structured correlated-noise basis (fitting/woodbury.NoiseBasis) or
+        None. The ECORR epoch index becomes its CSR once per tensor."""
+        from pint_tpu_torch.fitting.woodbury import NoiseBasis
+
+        sl = slice(None, -1) if self.has_abs_phase else slice(None)
+        basis = None
+        for c in self.noise_components:
+            out = c.basis_and_weights(params, tensor, sl)
+            if out is None:
+                continue
+            if out[0] != "epoch":
+                raise NotImplementedError(f"noise basis kind {out[0]!r} is not ported")
+            basis = NoiseBasis(dense=None, dense_phi=None,
+                               epochs=self._epochs(tensor, out[1], out[2].shape[0]),
+                               ephi=out[2])
+        return basis
+
+    def _epochs(self, tensor: dict, eidx: torch.Tensor, ke: int):
+        """The EpochIndex of `eidx`, built once per tensor: cached against the
+        tensor's ``ecorr_eidx`` column (a strong reference, so a recycled id
+        cannot alias)."""
+        from pint_tpu_torch.fitting.woodbury import epoch_index
+
+        col = tensor["ecorr_eidx"]
+        memo = self.__dict__.get("_epoch_memo")
+        if memo is None or memo[0] is not col:
+            memo = self._epoch_memo = (col, epoch_index(eidx, ke))
+        return memo[1]
 
     # --- the forward pass (plain torch) -------------------------------------------
 

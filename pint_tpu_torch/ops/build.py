@@ -30,7 +30,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("dd_elementwise", "resid_tangent", "normal_eq")
+SOURCES = ("dd_elementwise", "resid_tangent", "normal_eq", "ecorr_normal_eq")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -94,17 +94,59 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def ptxas_summary(name: str) -> str:
-    """One line from the ptxas report of library `name`: its kernels, their
-    most registers and their most spill bytes."""
+def _kernel_name(mangled: str) -> str:
+    """'_ZN12_GLOBAL__N_120resid_tangent_kernelILi8EEEv...' ->
+    'resid_tangent_kernel<8>': the last component of the nested name and
+    its integer template arguments."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled.lstrip("_Z")
+    name, args, i = mangled, [], 0
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        n = int(s[i:j])
+        name, args, i = s[j:j + n], [], j + n
+        if s[i:i + 1] == "I":
+            m = re.match(r"I((?:Li-?\d+E)+)E", s[i:])
+            if m:
+                args = re.findall(r"Li(-?\d+)E", m.group(1))
+                i += m.end()
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_report(name: str) -> dict:
+    """{function: (registers, spill store bytes)} from the ptxas report in
+    the build log of library `name`: every kernel instance, and every device
+    function ptxas kept as a call with a stack frame of its own (its
+    registers count toward its caller's, so they read 0 here)."""
     p = build_dir() / f"{name}.log"
-    log = p.read_text() if p.exists() else ""
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
-    if not regs:
+    out, entry, props = {}, None, None
+    for line in (p.read_text() if p.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = _kernel_name(m.group(1))
+            out.setdefault(entry, (0, 0))
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = _kernel_name(m.group(1))
+            out.setdefault(props, (0, 0))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and props is not None:
+            out[props] = (out[props][0], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), out[entry][1])
+    return out
+def ptxas_summary(name: str) -> str:
+    """One line from the ptxas report of library `name`: its functions, their
+    most registers and their most spill bytes."""
+    rep = ptxas_report(name)
+    if not rep:
         return "no ptxas report"
-    return (f"{len(regs)} kernels, at most {max(regs)} registers, "
-            f"at most {max(spills, default=0)} bytes of spill stores")
+    return (f"{len(rep)} functions, at most {max(r for r, _ in rep.values())} registers, "
+            f"at most {max(s for _, s in rep.values())} bytes of spill stores")
 
 
 def library(name: str, declare) -> ctypes.CDLL:

@@ -1,0 +1,75 @@
+"""sin, cos and log for the forward chain, the same on every backend as the
+reference's.
+
+On a CPU tensor torch evaluates these through SLEEF's vector routines,
+which differ from the C library by up to an ulp: on the ~500 s Roemer delay
+that is ~3e-14 s, enough to move parameters near zero (PX, DM1) by ~5e-9 of
+their value in a fit. XLA's CPU backend, which computes the JAX package's
+reference, returns the C library's values. So on the CPU these functions
+evaluate the C library (``math``), element by element; their tangents
+follow jax's rules (sin' = cos, cos' = -sin, log' = 1/x) with the same
+functions. On a CUDA tensor they are torch's own, which are the CUDA math
+library's, as in the kernels (csrc/resid_tangent.cu).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_HOST = {name: np.frompyfunc(getattr(math, name), 1, 1) for name in ("sin", "cos", "log")}
+
+
+def _host(name: str, x: torch.Tensor) -> torch.Tensor:
+    a = x.detach().numpy()
+    out = _HOST[name](a) if a.size else a
+    return torch.from_numpy(np.asarray(out, dtype=np.float64).reshape(a.shape))
+
+
+def _tangent(name: str, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    # through _Libm again: under vmap, x is a batched tensor
+    if name == "sin":
+        return t * _Libm.apply(x, "cos")
+    if name == "cos":
+        return t * -_Libm.apply(x, "sin")
+    return t / x
+
+
+class _Libm(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, name):
+        return _host(name, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, name = inputs
+        ctx.name = name
+        ctx.save_for_forward(x)
+
+    @staticmethod
+    def jvp(ctx, tx, _):
+        (x,) = ctx.saved_tensors
+        return _tangent(ctx.name, x, tx)
+
+
+def _apply(name: str, x: torch.Tensor) -> torch.Tensor:
+    x = torch.as_tensor(x, dtype=torch.float64)
+    if x.device.type != "cpu":
+        return getattr(torch, name)(x)
+    return _Libm.apply(x, name)
+
+
+def sin(x):
+    return _apply("sin", x)
+
+
+def cos(x):
+    return _apply("cos", x)
+
+
+def log(x):
+    return _apply("log", x)

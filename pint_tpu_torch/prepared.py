@@ -5,8 +5,19 @@ geometry) and hands the device ONE dict of per-row columns,
 ``TimingModel.build_tensor``. The port starts from that dict: an ``.npz``
 archive holding the float64 columns below with the TZR fiducial TOA as the
 last row, and a ``meta`` JSON record (N, seed, the parfile it was built
-for). ``tests/test_torch_fixture.py --write`` exports it with pint_tpu and a
-test checks that a fresh export still equals the committed file.
+for). ``tests/test_torch_fixture.py --write`` exports both archives with
+pint_tpu and tests check that a fresh export still equals each committed
+file.
+
+Besides the fixed `COLUMNS`, a model with noise components reads
+
+- ``mask_<NAME>`` (N+1,): 1.0 on the rows the mask parameter NAME (EFAC1,
+  EQUAD2, ECORR1, ...) selects;
+- ``ecorr_eidx`` (N+1,): each row's ECORR epoch as float64, -1 for none
+  (the TZR row always);
+- ``ecorr_widx`` (1, ke): the ECORR parameter (its index among the ECORR
+  masks) of each epoch. The leading singleton axis keeps it clear of the
+  row axis: nothing that slices rows may touch it.
 
 `tensor_from_numpy` and `params_from_numpy` are the bridge from values
 computed by pint_tpu (as numpy; dd leaves as (hi, lo) pairs) to the port.
@@ -28,8 +39,25 @@ from pint_tpu_torch.ops.dd import DD
 COLUMNS = ("t_hi", "t_lo", "error_s", "freq_mhz",
            "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls")
 _DROPPED = ("t_q0", "t_q1", "t_q2", "t_q3")
+#: the noise columns (see the module docstring)
+ECORR_COLUMNS = ("ecorr_eidx", "ecorr_widx")
 
 SMOKE_ARCHIVE = Path(__file__).resolve().parent / "data" / "smoke_n16384.npz"
+#: profiles.FLAGSHIP_SMOKE_PAR over 16,384 sub-band TOAs in 2,048 epochs
+FLAGSHIP_ARCHIVE = Path(__file__).resolve().parent / "data" / "flagship_n16384.npz"
+
+
+def carried(names) -> list[str]:
+    """The columns of `names` the port carries, in a fixed order: COLUMNS,
+    then the mask columns sorted, then the ECORR columns. Any other
+    column raises, rather than being dropped silently."""
+    names = set(names)
+    unknown = names - set(COLUMNS) - set(_DROPPED) - set(ECORR_COLUMNS)
+    unknown = {k for k in unknown if not k.startswith("mask_")}
+    if unknown:
+        raise NotImplementedError(f"tensor columns not handled by the port yet: {sorted(unknown)}")
+    masks = sorted(k for k in names if k.startswith("mask_"))
+    return [k for k in COLUMNS if k in names] + masks + [k for k in ECORR_COLUMNS if k in names]
 
 
 def tensor_from_numpy(tensor: dict, device=None) -> dict:
@@ -37,11 +65,8 @@ def tensor_from_numpy(tensor: dict, device=None) -> dict:
     float64 tensors on `device`. Columns the ported components do not read
     raise, rather than being dropped silently."""
     dev = resolve_device(device)
-    unknown = set(tensor) - set(COLUMNS) - set(_DROPPED)
-    if unknown:
-        raise NotImplementedError(f"tensor columns not handled by the port yet: {sorted(unknown)}")
     return {k: torch.tensor(np.asarray(tensor[k], np.float64), dtype=torch.float64, device=dev)
-            for k in COLUMNS}
+            for k in carried(tensor)}
 
 
 def params_from_numpy(params: dict, device=None) -> dict:
@@ -56,8 +81,9 @@ def params_from_numpy(params: dict, device=None) -> dict:
 
 
 def save_prepared(path, tensor: dict, meta: dict) -> None:
-    """Write the COLUMNS of a numpy tensor dict and a JSON meta record."""
-    cols = {k: np.ascontiguousarray(np.asarray(tensor[k], np.float64)) for k in COLUMNS}
+    """Write the carried columns of a numpy tensor dict and a JSON meta record."""
+    cols = {k: np.ascontiguousarray(np.asarray(tensor[k], np.float64))
+            for k in carried(tensor)}
     np.savez_compressed(path, meta=np.array(json.dumps(meta, sort_keys=True)), **cols)
 
 
@@ -70,5 +96,5 @@ def load_prepared(path=SMOKE_ARCHIVE, device=None) -> dict:
     """The archive's tensor dict, float64 on `device` (CUDA unless 'cpu')."""
     dev = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
-        cols = {k: z[k] for k in COLUMNS}
+        cols = {k: z[k] for k in z.files if k != "meta"}
     return tensor_from_numpy(cols, dev)

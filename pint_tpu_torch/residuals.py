@@ -2,9 +2,11 @@
 ``pint_tpu/residuals.py``), and kernel K1.
 
 K1 (`resid_tangent`, csrc/resid_tangent.cu) evaluates the whole forward
-chain per TOA: pulse number, fractional phase and spin frequency, plus
-forward-mode tangents of the fractional phase and the frequency for up to
-eight nonlinear parameters. It replaces the TPU's `resid` program and the
+chain per TOA (astrometry, solar Shapiro, DM, the ELL1 binary, spindown):
+pulse number, fractional phase and spin frequency, plus forward-mode
+tangents of the fractional phase and the frequency for up to `MAX_LANES`
+free parameters, eight lanes per block (more lanes are more blocks in the
+same launch, each recomputing the primal). It replaces the TPU's `resid` program and the
 jax.linearize design columns of the fit and grid steps. Its plain-torch twin
 `resid_tangent_plain` runs ``TimingModel.phase_and_freq`` and takes the
 tangents with torch.func.jvp, as the JAX package does with jax.linearize.
@@ -27,9 +29,12 @@ from pint_tpu_torch.models.base import leaf_to_f64
 from pint_tpu_torch.models.timing_model import TimingModel
 from pint_tpu_torch.ops.dd import DD, dd_add_fp, dd_rint, dd_to_float
 
-#: tangent lane codes of csrc/resid_tangent.cu; F<k> is 16 + k
-LANE_CODES = {"RAJ": 0, "DECJ": 1, "PMRA": 2, "PMDEC": 3, "PX": 4}
-MAX_LANES = 8
+#: tangent lane codes of csrc/resid_tangent.cu; F<k> is 16 + k, DM<k> 32 + k
+LANE_CODES = {"RAJ": 0, "DECJ": 1, "PMRA": 2, "PMDEC": 3, "PX": 4,
+              "PB": 5, "A1": 6, "TASC": 7, "EPS1": 8, "EPS2": 9}
+MAX_LANES = 32
+#: lanes one block carries (resid_tangent.cu KCHUNK)
+LANE_CHUNK = 8
 
 
 def lane_code(name: str) -> int:
@@ -37,9 +42,14 @@ def lane_code(name: str) -> int:
         return LANE_CODES[name]
     if name.startswith("F") and name[1:].isdigit():
         return 16 + int(name[1:])
+    if name == "DM":
+        return 32
+    if name.startswith("DM") and name[2:].isdigit() and 0 < int(name[2:]) < 16:
+        return 32 + int(name[2:])
     raise NotImplementedError(
-        f"{name} as a nonlinear fit parameter has no tangent lane in kernel K1 "
-        "(csrc/resid_tangent.cu); lanes exist for RAJ, DECJ, PMRA, PMDEC, PX, F<k>")
+        f"{name} as a fit parameter has no tangent lane in kernel K1 "
+        "(csrc/resid_tangent.cu); lanes exist for RAJ, DECJ, PMRA, PMDEC, PX, "
+        "PB, A1, TASC, EPS1, EPS2, F<k>, DM<k>")
 
 
 class ResidTangent(NamedTuple):
@@ -108,24 +118,30 @@ def resid_tangent_plain(model: TimingModel, params: dict, tensor: dict,
 # --- K1 on the card ------------------------------------------------------------
 
 _ROW_KEYS = ("t_hi", "t_lo", "freq_mhz", "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls")
-_P_FIXED = 9  # RAJ DECJ PMRA PMDEC PX POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo
+# the binary block of the parameter row, after RAJ DECJ PMRA PMDEC PX
+# POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo (resid_tangent.cu P_PB_HI ...)
+_BIN_DD = ("PB", "TASC")
+_BIN_F64 = ("A1", "A1DOT", "EPS1", "EPS2", "EPS1DOT", "EPS2DOT", "PBDOT", "XPBDOT",
+            "M2", "SINI")
 
 
 def _structure(model: TimingModel):
-    """(has_ast, nd, nf): the kernel's view of the model's components."""
-    allowed = {"AstrometryEquatorial", "SolarSystemShapiro", "DispersionDM",
-               "Spindown", "AbsPhase"}
+    """(has_ast, has_bin, nd, nf): the kernel's view of the model's
+    components (noise components do not enter the phase)."""
+    allowed = {"AstrometryEquatorial", "SolarSystemShapiro", "DispersionDM", "BinaryELL1",
+               "Spindown", "AbsPhase", "ScaleToaError", "EcorrNoise"}
     extra = set(model.component_names) - allowed
     if extra:
         raise NotImplementedError(f"kernel K1 does not evaluate {sorted(extra)}")
     if "Spindown" not in model:
         raise NotImplementedError("kernel K1 needs a Spindown component")
     nd = model["DispersionDM"].num_terms if "DispersionDM" in model else 0
-    return model.astrometry is not None, nd, model["Spindown"].num_terms
+    return (model.astrometry is not None, "BinaryELL1" in model, nd,
+            model["Spindown"].num_terms)
 
 
-def _pack_params(model: TimingModel, params: dict, B: int, nd: int, nf: int,
-                 device) -> torch.Tensor:
+def _pack_params(model: TimingModel, params: dict, B: int, has_bin: bool, nd: int,
+                 nf: int, device) -> torch.Tensor:
     """(B, n_par) float64 parameter rows in the layout of resid_tangent.cu."""
     def col(v):
         v = torch.as_tensor(v, dtype=torch.float64, device=device)
@@ -143,6 +159,10 @@ def _pack_params(model: TimingModel, params: dict, B: int, nd: int, nf: int,
         col(leaf_to_f64(params["DMEPOCH"])) if "DMEPOCH" in params else zero,
         col(params["PEPOCH"].hi), col(params["PEPOCH"].lo),
     ]
+    for n in _BIN_DD:
+        v = params[n] if has_bin else DD(zero, zero)
+        cols += [col(v.hi), col(v.lo)]
+    cols += [col(params[n]) if has_bin else zero for n in _BIN_F64]
     for k in range(nd):
         cols.append(col(leaf_to_f64(params[f"DM{k}" if k else "DM"])))
     for k in range(nf):
@@ -155,8 +175,15 @@ def _pack_params(model: TimingModel, params: dict, B: int, nd: int, nf: int,
 
 
 def _lane_width(k: int) -> int:
-    """Lanes the kernel is instantiated for (resid_tangent.cu launch<K>)."""
-    return 0 if k == 0 else 2 if k <= 2 else 4 if k <= 4 else 8
+    """Lanes one block carries (resid_tangent.cu launch<K>): 0, 2, 4, or 8
+    per chunk, ceil(k / 8) chunks."""
+    return 0 if k == 0 else 2 if k <= 2 else 4 if k <= 4 else LANE_CHUNK
+
+
+def _lane_slots(k: int) -> int:
+    """Tangent rows the kernel writes: whole chunks."""
+    kw = _lane_width(k)
+    return kw * -(-k // kw) if kw else 0
 
 
 def resid_tangent(model: TimingModel, params: dict, tensor: dict,
@@ -165,14 +192,21 @@ def resid_tangent(model: TimingModel, params: dict, tensor: dict,
     (leaves scalar, or (B,) for B sets). CUDA tensors launch the kernel;
     CPU tensors take `resid_tangent_plain`."""
     require_f64("resid_tangent", params=params, tensor=tensor)
-    dev = tensor["t_hi"].device
-    if dev.type == "cpu":
+    if tensor["t_hi"].device.type == "cpu":
         return resid_tangent_plain(model, params, tensor, lanes)
+    out = _launch_k1(model, params, tensor, lanes)
+    resid_tangent.launches += 1
+    return out
+
+
+def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> ResidTangent:
+    """One launch of K1 on the tensors' device (shapes checked here)."""
+    dev = tensor["t_hi"].device
     k = len(lanes)
     if k > MAX_LANES:
         raise ValueError(f"kernel K1 carries at most {MAX_LANES} tangent lanes; got {k}")
     codes = [lane_code(n) for n in lanes]
-    has_ast, nd, nf = _structure(model)
+    has_ast, has_bin, nd, nf = _structure(model)
     rows = [tensor[key].contiguous() for key in _ROW_KEYS]
     n_rows = rows[0].shape[0]
     for t, key in zip(rows, _ROW_KEYS):
@@ -181,12 +215,12 @@ def resid_tangent(model: TimingModel, params: dict, tensor: dict,
     has_tzr = model.has_abs_phase
     n_out = n_rows - int(has_tzr)
     B = batch_size(params)
-    P = _pack_params(model, params, B, nd, nf, dev)
-    kw = _lane_width(k)
+    P = _pack_params(model, params, B, has_bin, nd, nf, dev)
+    slots = _lane_slots(k)
     out = [torch.empty((B, n_out), dtype=torch.float64, device=dev) for _ in range(3)]
-    tan = [torch.empty((B, kw, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
-    ints = (ctypes.c_int * (8 + MAX_LANES))(
-        n_rows, n_out, int(has_tzr), int(has_ast), nd, nf, P.shape[1], k,
+    tan = [torch.empty((B, slots, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
+    ints = (ctypes.c_int * (9 + MAX_LANES))(
+        n_rows, n_out, int(has_tzr), int(has_ast), nd, nf, P.shape[1], k, int(has_bin),
         *(codes + [-1] * (MAX_LANES - k)))
     consts = (ctypes.c_double * 3)(AU_LS, DMCONST, TSUN_S)
     from pint_tpu_torch.ops import build
@@ -196,7 +230,6 @@ def resid_tangent(model: TimingModel, params: dict, tensor: dict,
         *[t.data_ptr() for t in rows], P.data_ptr(), B, ints, consts,
         *[o.data_ptr() for o in out], *[t.data_ptr() for t in tan],
         build.stream_of(P)))
-    resid_tangent.launches += 1
     return ResidTangent(*out, tan[0][:, :k], tan[1][:, :k])
 
 
@@ -240,7 +273,11 @@ def phase_residual_frac(model: TimingModel, params: dict, tensor: dict,
 
 
 def data_errors(model: TimingModel, tensor: dict) -> torch.Tensor:
-    """Per-TOA sigma (seconds) over the data rows (the TZR row dropped)."""
+    """Per-TOA sigma (seconds) over the data rows (the TZR row dropped),
+    EFAC/EQUAD-rescaled when the model has noise components (fixed inputs
+    of the fits, as in pint_tpu)."""
+    if model.noise_components:
+        return model.scaled_sigma(model.params, tensor)
     err = tensor["error_s"]
     return err[:-1] if model.has_abs_phase else err
 
@@ -294,6 +331,12 @@ class Residuals:
         return float(torch.sqrt(torch.sum(w * (r - mean) ** 2) / torch.sum(w)))
 
     def calc_chi2(self) -> float:
+        """White chi^2 over the scaled sigmas, or the GLS (Woodbury) chi^2
+        when the model has correlated noise."""
+        if self.model.has_correlated_errors:
+            from pint_tpu_torch.fitting.gls import gls_chi2
+
+            return gls_chi2(self)
         return float(torch.sum((self.time_resids / self.errors_s) ** 2))
 
     @property

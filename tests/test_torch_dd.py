@@ -192,3 +192,33 @@ def test_device_split_matches():
     a, b = jdd.device_split(hi, lo)
     c, d = tdd.device_split(hi, lo)
     assert np.array_equal(a, c) and np.array_equal(b, d)
+
+
+def test_ptxas_report_reads_every_instance(tmp_path, monkeypatch):
+    """The build log's ptxas report -> registers and spill stores per kernel
+    instance and per device function kept as a call, named by the template
+    arguments."""
+    from pint_tpu_torch.ops import build
+
+    k8 = "_ZN12_GLOBAL__N_120resid_tangent_kernelILi8EEEvNS_4RowsEPKdNS_6ConfigEPdS5_S5_S5_S5_"
+    row8 = "_ZN12_GLOBAL__N_18eval_rowILi8EEENS_8RowPhaseIXT_EEEiRKNS_4RowsEPKdRKNS_6ConfigE"
+    k0 = "_ZN12_GLOBAL__N_120resid_tangent_kernelILi0EEEvNS_4RowsEPKdNS_6ConfigEPdS5_S5_S5_S5_"
+    (tmp_path / "resid_tangent.log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        f"ptxas info    : Function properties for {row8}\n"
+        "    9052 bytes stack frame, 9052 bytes spill stores, 9052 bytes spill loads\n"
+        f"ptxas info    : Compiling entry function '{k8}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {k8}\n"
+        "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 16 bytes smem\n"
+        f"ptxas info    : Compiling entry function '{k0}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {k0}\n"
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 126 registers, used 1 barriers, 16 bytes smem\n")
+    monkeypatch.setattr(build, "build_dir", lambda: tmp_path)
+    assert build.ptxas_report("resid_tangent") == {
+        "eval_row<8>": (0, 9052), "resid_tangent_kernel<8>": (128, 0),
+        "resid_tangent_kernel<0>": (126, 4)}
+    assert build.ptxas_summary("resid_tangent") == (
+        "3 functions, at most 128 registers, at most 9052 bytes of spill stores")
+    assert build.ptxas_summary("missing") == "no ptxas report"

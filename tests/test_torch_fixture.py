@@ -1,14 +1,17 @@
-"""The port's input fixture: the prepared-TOA archive, the bridge from
+"""The port's input fixtures: the prepared-TOA archives, the bridge from
 pint_tpu, the import boundary and the device rule.
 
 ``pint_tpu_torch/data/smoke_n16384.npz`` holds ``TimingModel.build_tensor``
-of ``profiles.SMOKE_PAR`` over fake TOAs made by pint_tpu (the TZR row last).
-Write it anew with
+of ``profiles.SMOKE_PAR`` over fake TOAs made by pint_tpu (the TZR row
+last); ``pint_tpu_torch/data/flagship_n16384.npz`` that of
+``profiles.flagship_smoke_dataset(16384, seed=17)`` (the flagship par,
+2,048 sub-band epochs with their EFAC/EQUAD/ECORR masks and ECORR epoch
+index). Write both anew with
 
     PINT_TPU_NBODY=0 JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write
 
-The helpers here (`smoke_dataset`, `port_pair`) also feed the other
-``tests/test_torch_*.py`` files.
+The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`) also feed
+the other ``tests/test_torch_*.py`` files.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ ARCHIVE_RECIPE = {"par": "profiles.SMOKE_PAR", "start_mjd": 54500.0, "end_mjd": 
                   "noise": True, "nbody": 0}
 ARCHIVE_N = 16384
 ARCHIVE_SEED = 11
+FLAGSHIP_SEED = 17
+FLAGSHIP_RECIPE = {"par": "profiles.FLAGSHIP_SMOKE_PAR",
+                   "dataset": "profiles.flagship_smoke_dataset", "nbody": 0}
 
 
 def smoke_dataset(n: int, seed: int):
@@ -60,6 +66,38 @@ def export(n: int = ARCHIVE_N, seed: int = ARCHIVE_SEED):
     _, _, tens = smoke_dataset(n, seed)
     cols = {k: np.asarray(tens[k], np.float64) for k in COLUMNS}
     return cols, {"n": n, "seed": seed, "rows": n + 1, **ARCHIVE_RECIPE}
+
+
+def flagship_dataset(n: int, seed: int = FLAGSHIP_SEED):
+    """(pint_tpu model, toas, build_tensor dict) of the flagship profile."""
+    from pint_tpu.profiles import flagship_smoke_dataset
+
+    model, toas = flagship_smoke_dataset(n, seed=seed)
+    return model, toas, model.build_tensor(toas)
+
+
+def flagship_export(n: int = ARCHIVE_N, seed: int = FLAGSHIP_SEED):
+    """(numpy columns, meta) of a fresh flagship export."""
+    from pint_tpu_torch.prepared import carried
+
+    _, _, tens = flagship_dataset(n, seed)
+    cols = {k: np.asarray(tens[k], np.float64) for k in carried(tens)}
+    ke = int(cols["ecorr_widx"].shape[1])
+    return cols, {"n": n, "seed": seed, "rows": n + 1, "epochs": ke, **FLAGSHIP_RECIPE}
+
+
+def flagship_pair(n: int = 1024, seed: int = FLAGSHIP_SEED):
+    """(pint_tpu model, toas, tensor, port model, port tensor) of the
+    flagship profile on the CPU, the port's model parsed from its own copy
+    of FLAGSHIP_SMOKE_PAR."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import tensor_from_numpy
+    from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR
+
+    model, toas, tens = flagship_dataset(n, seed)
+    tm = get_model(FLAGSHIP_SMOKE_PAR, from_text=True, device="cpu")
+    tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
+    return model, toas, tens, tm, tt
 
 
 def params_numpy(params: dict) -> dict:
@@ -100,6 +138,39 @@ def test_archive_matches_fresh_export():
         err = np.abs(got[k].numpy() - want)
         assert np.all(err <= 1e-12 * np.maximum(scale, np.finfo(float).tiny)), k
     assert got["t_hi"].shape[0] == meta["rows"]
+
+
+def test_flagship_archive_matches_fresh_export():
+    from pint_tpu_torch.prepared import FLAGSHIP_ARCHIVE, archive_meta, carried, load_prepared
+
+    cols, meta = flagship_export()
+    assert archive_meta(FLAGSHIP_ARCHIVE) == meta
+    got = load_prepared(FLAGSHIP_ARCHIVE, device="cpu")
+    assert list(got) == carried(cols)
+    assert got["ecorr_widx"].shape == (1, meta["epochs"]) and meta["epochs"] == 2048
+    for k, want in cols.items():
+        np.testing.assert_array_equal(got[k].numpy(), want, err_msg=k)
+    assert got["t_hi"].shape[0] == meta["rows"]
+
+
+def test_bridge_round_trips_noise_columns():
+    """mask_*, ecorr_eidx and ecorr_widx of the flagship tensor cross the
+    bridge exactly, and the port's model reads the same noise parameters."""
+    from pint_tpu_torch.prepared import tensor_from_numpy
+
+    model, _, tens, tm, _ = flagship_pair(n=64)
+    tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
+    noise = [k for k in tens if k.startswith("mask_") or k.startswith("ecorr_")]
+    assert sorted(noise) == sorted(
+        ["ecorr_eidx", "ecorr_widx"] + [f"mask_{b}{i}" for b in ("EFAC", "EQUAD", "ECORR")
+                                        for i in (1, 2)])
+    for k in noise:
+        assert tt[k].dtype == torch.float64
+        np.testing.assert_array_equal(tt[k].numpy(), np.asarray(tens[k]), err_msg=k)
+    assert tt["ecorr_widx"].shape[0] == 1 and tt["ecorr_eidx"][-1] == -1
+    assert params_numpy({k: model.params[k] for k in model.params}) == params_numpy(
+        {k: tm.params[k] for k in model.params})
+    assert tm.free_params == model.free_params
 
 
 def test_bridge_round_trips_tensor_and_params():
@@ -170,12 +241,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def _write_archive() -> None:
-    from pint_tpu_torch.prepared import SMOKE_ARCHIVE, save_prepared
+    from pint_tpu_torch.prepared import FLAGSHIP_ARCHIVE, SMOKE_ARCHIVE, save_prepared
 
-    cols, meta = export()
-    SMOKE_ARCHIVE.parent.mkdir(parents=True, exist_ok=True)
-    save_prepared(SMOKE_ARCHIVE, cols, meta)
-    print(f"wrote {SMOKE_ARCHIVE} ({SMOKE_ARCHIVE.stat().st_size} bytes, {meta['rows']} rows)")
+    for path, (cols, meta) in ((SMOKE_ARCHIVE, export()), (FLAGSHIP_ARCHIVE, flagship_export())):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save_prepared(path, cols, meta)
+        print(f"wrote {path} ({path.stat().st_size} bytes, {meta['rows']} rows)")
 
 
 if __name__ == "__main__":

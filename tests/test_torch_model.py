@@ -119,7 +119,7 @@ def test_float32_anywhere_in_the_chain_raises(pair):
 
 
 @pytest.mark.parametrize("line, item", [
-    ("BINARY ELL1", "A5"), ("ECORR -f L 0.1", "A5"), ("JUMP -f L 0.1 1", "A9"),
+    ("BINARY DD", "A8"), ("TNDMAMP -13", "A9"), ("JUMP -f L 0.1 1", "A9"),
     ("DMX_0001 0.01 1", "A9"), ("PLANET_SHAPIRO Y", "A18"),
 ])
 def test_unported_components_name_their_roadmap_item(line, item):
