@@ -37,9 +37,12 @@ EFAC/EQUAD/ECORR; 16,384 TOAs in 2,048 ECORR epochs, 14 free parameters):
    14 lanes) and the grid's (9 (M2, SINI) sets, 12 lanes): time residuals
    within 1 ps, pulse numbers equal, tangents within 1e-12 relative;
 10. K3 ``ecorr_normal_eq`` against its twin (the ``fitting/woodbury.py``
-   algebra) on the GLS step's inputs (B = 1, p = 14) and the grid's first
-   step (B = 9, p = 12): G, c, chi^2 and ahat within 1e-12 relative (the
-   sums run in another order), and bitwise equal across two runs;
+   algebra) on the GLS step's raw design (B = 1, p = 14, unweighted column
+   norms) and the grid's first step (B = 9, p = 14: 12 tangent columns and
+   the analytic DM, DM1 ones, weighted means removed, weighted norms), and
+   on the two chi^2 calls (p = 0): G, c, chi^2, ahat and the norms within
+   1e-12 relative (the sums run in another order), and bitwise equal
+   across two runs;
 11. ``DownhillGLSFitter.fit_toas`` from the flagship par moved by F0
    +2e-10 Hz, DM +1e-3 and EPS1 +1e-7, gated as in phase 6 against the
    same fit through the twins on the card;
@@ -53,7 +56,7 @@ after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
 not count). The SMOKE fit must launch K0 and K1, its grid K1 and K2; the
 flagship fit K0, K1 and K3, its grid K0, K1 and K3. K2's and K3's counts
-are of calls; each runs 2 or 3 kernel passes, counted apart for K2. At the
+are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 6. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs), and ``call_ms`` the
@@ -523,27 +526,32 @@ def k2_record(r, M, w, device) -> dict:
 P_ROW_LEN = 25
 
 
-def k3_record(r, Mn, w, basis, ridge, device) -> dict:
+def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
     """K3 at one of the flagship shapes; the library yardstick is the batched
-    cuBLAS Gram (Mn sqrt(w)) (Mn sqrt(w))^T alone."""
+    cuBLAS Gram (Mn sqrt(w)) (Mn sqrt(w))^T alone, on the twin's Mn."""
     import torch
 
-    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_plain
+    from pint_tpu_torch.fitting.woodbury import (_step_inputs, ecorr_normal_eq,
+                                                 ecorr_normal_eq_plain)
 
-    B, p, n = Mn.shape
-    ms, call = measure(lambda: ecorr_normal_eq(r, Mn, w, basis, ridge), device, 200, K3_KERNEL)
-    plain, plain_call = measure(lambda: ecorr_normal_eq_plain(r, Mn, w, basis, ridge), device, 10)
-    A = (Mn * torch.sqrt(w)).contiguous()  # (B, p, N)
+    args = (r, M, w, basis, ridge, centre, weighted_norm)
+    B, p, n = M.shape
+    ms, call = measure(lambda: ecorr_normal_eq(*args), device, 200, K3_KERNEL)
+    plain, plain_call = measure(lambda: ecorr_normal_eq_plain(*args), device, 10)
+    A = (_step_inputs(r, M, w, centre, weighted_norm)[1] * torch.sqrt(w)).contiguous()
     lib, lib_call = measure(lambda: torch.matmul(A, A.transpose(-1, -2)), device, 200)
     ke, nnz = basis.ke, basis.epochs.rows.shape[0]
     q = (p + 1) * (p + 2) // 2
-    # read r, Mn, w, phi and the CSR once; write G, c, chi2, ahat
+    # read r, M, w, phi and the CSR once; write G, c, chi2, ahat, norm
     n_bytes = (B * n * (p + 1) + n + ke) * 8 + (ke + 1 + nnz) * 4 \
-        + B * (p * p + p + 1 + ke) * 8
-    # the augmented Gram over rows (2 multiplies, 1 add per entry), the epoch
-    # sums (2 per column and row), the epoch correction (2 multiplies, 1 add
-    # and 1 division per entry) and 1/phi, De and ahat
-    n_ops = B * (n * 3 * q + nnz * 2 * (p + 2) + ke * (4 * q + 3))
+        + B * (p * p + 2 * p + 1 + ke) * 8
+    # the step inputs: the weighted means (2 per value of r and M, when
+    # centring), the column norms (3 per value of M), each value centred and
+    # divided (2); then the augmented Gram over rows (2 multiplies, 1 add per
+    # entry), the epoch sums (2 per column and row), the epoch correction (2
+    # multiplies, 1 add and 1 division per entry) and 1/phi, De and ahat
+    n_ops = B * (n * (p + 1) * (2 * int(centre) + 2) + n * p * 3 + n * 3 * q
+                 + nnz * 2 * (p + 2) + ke * (4 * q + 3))
     b, how = bound_ms(n_bytes, n_ops)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
             "call_ms": call, "plain_call_ms": plain_call, "library_call_ms": lib_call,
@@ -551,34 +559,37 @@ def k3_record(r, Mn, w, basis, ridge, device) -> dict:
 
 
 def phase_k3(model, tensor, ftr, params_b, grid_free, device) -> dict:
-    """K3 against its twin on the GLS step's inputs (B = 1) and the grid's
-    first step (B = 9), and bitwise against itself on a second run."""
+    """K3 against its twin on the GLS step's raw design (B = 1) and the
+    grid's first step (B = 9), and on the chi^2 calls of each (no columns),
+    and bitwise against itself on a second run."""
     import torch
 
     from pint_tpu_torch.fitting.gls import _RIDGE as GLS_RIDGE
     from pint_tpu_torch.fitting.wls import time_resid_design
     from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_plain
-    from pint_tpu_torch.gridutils import _RIDGE, _centred_equilibrated, _time_resids_design
+    from pint_tpu_torch.gridutils import _RIDGE, _time_resids_design
 
     res = ftr.resids
     basis = model.noise_basis_and_weights(model.params, tensor)
     w = 1.0 / res.errors_s**2
     r0, M = time_resid_design(model, tuple(model.free_params), model.params, tensor,
                               res.weights, True, hybrid=False)
-    norm = torch.sqrt(torch.sum(M**2, dim=0))
-    fit_in = (r0[None], (M / norm).T[None].contiguous(), w, basis, GLS_RIDGE)
     r, Mg = _time_resids_design(model, params_b, tensor, grid_free)
-    r, Mn, _ = _centred_equilibrated(r, Mg, w, True)
-    grid_in = (r, Mn, w, basis, _RIDGE)
+    inputs = {"fit": (r0[None], M.T[None].contiguous(), w, basis, GLS_RIDGE, False, False),
+              "grid": (r, Mg, w, basis, _RIDGE, True, True),
+              "fit chi2": (r0[None], r0.new_zeros((1, 0, r0.shape[0])), w, basis, 0.0, False,
+                           False),
+              "grid chi2": (r, r.new_zeros((r.shape[0], 0, r.shape[1])), w, basis, 0.0, True,
+                            False)}
     out = {}
-    for label, args in (("fit", fit_in), ("grid", grid_in)):
+    for label, args in inputs.items():
         got = ecorr_normal_eq(*args)
         again = ecorr_normal_eq(*args)
         want = ecorr_normal_eq_plain(*args)
         sync(device)
         B, p = args[1].shape[:2]
         tag = f"K3 {label} (B={B}, p={p})"
-        for name, g, wv in zip(("G", "c", "chi2", "ahat"), got, want):
+        for name, g, wv in zip(("G", "c", "chi2", "ahat", "norm"), got, want):
             err = max(rel_err(g[b], wv[b]) for b in range(B))
             check(err <= 1e-12, f"{tag}: {name} within 1e-12 relative per set ({err:.3g})")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -596,7 +607,8 @@ KERNELS = (
      "pint_tpu/gridutils.py:132 (gn_step normal equations, grid program)"),
     ("ecorr_normal_eq", "pint_tpu_torch/csrc/ecorr_normal_eq.cu",
      "pint_tpu/fitting/gls.py:77 (gls_step Woodbury pieces) + gls.py:193 (gls_chi2) + "
-     "pint_tpu/gridutils.py:143 (correlated grid step), algebra of fitting/woodbury.py:79-218"),
+     "pint_tpu/gridutils.py:132-170 (correlated grid step: centring, equilibration, Woodbury "
+     "normal equations, chi2), algebra of fitting/woodbury.py:79-218"),
 )
 
 

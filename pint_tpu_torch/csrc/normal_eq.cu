@@ -25,11 +25,14 @@
 // below one operation per byte, far under the H100's float64 ridge.
 // Tiles of 1024 rows (256 threads x 4 coalesced rows) give 16 x 9 = 144
 // blocks at N = 16384, B = 9: about one wave on 132 SMs.
+#include "block_sum.cuh"
 #include "dd.cuh"
 
 PINT_EXPORT_ERROR_STRING
 
 namespace {
+
+using pint::block_sum;
 
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_THREAD = 4;
@@ -38,28 +41,6 @@ constexpr int PMAX = 8;
 
 __host__ __device__ constexpr int q1(int p) { return p + 2; }
 __host__ __device__ constexpr int q2(int p) { return p * (p + 1) / 2 + p + 1; }
-
-// Sum v[0..Q) over the block into out[0..Q) (visible to all threads after
-// return), in a fixed order.
-template <int Q>
-__device__ __forceinline__ void block_sum(double (&v)[Q], double *out) {
-  __shared__ double part[THREADS / 32][Q];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    double x = v[q];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x = __dadd_rn(x, __shfl_down_sync(0xffffffffu, x, off));
-    if (lane == 0) part[warp][q] = x;
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < Q; q += THREADS) {
-    double s = 0.0;
-    for (int k = 0; k < THREADS / 32; ++k) s = __dadd_rn(s, part[k][q]);
-    out[q] = s;
-  }
-  __syncthreads();
-}
 
 template <int P>
 __global__ void __launch_bounds__(THREADS)
@@ -83,7 +64,7 @@ pass_means(const double *__restrict__ r, const double *__restrict__ M,
     for (int j = 0; j < P; ++j) acc[2 + j] = __dadd_rn(acc[2 + j], __dmul_rn(wi, Mb[(size_t)j * n + i]));
   }
   __shared__ double tot[Q];
-  block_sum<Q>(acc, tot);
+  block_sum<THREADS, Q>(acc, tot);
   if (threadIdx.x < Q) part1[((size_t)b * n_tiles + tile) * Q + threadIdx.x] = tot[threadIdx.x];
 }
 
@@ -136,7 +117,7 @@ pass_centred(const double *__restrict__ r, const double *__restrict__ M,
     acc[Q - 1] = __dadd_rn(acc[Q - 1], __dmul_rn(__dmul_rn(wi, rm), rm));
   }
   __shared__ double tot[Q];
-  block_sum<Q>(acc, tot);
+  block_sum<THREADS, Q>(acc, tot);
   for (int q = threadIdx.x; q < Q; q += THREADS)
     part2[((size_t)b * n_tiles + tile) * Q + q] = tot[q];
 }

@@ -30,7 +30,9 @@
 // gridutils.py). A block carries at most KCHUNK = 8 lanes (registers: every
 // dual value holds K + 1 doubles); more lanes are more blocks of the same
 // launch (blockIdx.z picks the chunk), each recomputing the primal, and
-// chunk 0 alone writes the primal outputs.
+// chunk 0 alone writes the primal outputs. The ELL1 term is a template
+// parameter (BIN): a model without a binary runs an instance that carries
+// none of its code or registers.
 //
 // TZR row: every block's thread 0 evaluates the fiducial row (the tensor's
 // last) into shared memory before the block's rows subtract it, so one launch
@@ -72,7 +74,6 @@ struct Config {
   int n_out;    // data rows written
   int has_tzr;  // AbsPhase: subtract the last row's phase
   int has_ast;  // astrometry (and with it the solar Shapiro delay)
-  int has_bin;  // the ELL1 binary
   int nd;       // DM Taylor terms (0: no dispersion component)
   int nf;       // spin terms F0..F(nf-1)
   int n_par;    // parameter row length
@@ -420,7 +421,7 @@ __device__ Dual<K> ell1_delay(double t_hi, double t_lo, const Dual<K> &dsf,
   return dadd(delay_i, delay_s);
 }
 
-template <int K>
+template <int K, bool BIN>
 __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restrict__ P,
                                 const Config &c, const Lanes<K> &lane) {
   const double t_hi = rows.t_hi[i], t_lo = rows.t_lo[i];
@@ -473,7 +474,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     if (isfinite(fb.v)) dmd = ddiv(dmulc(dm, c.dmconst), dmul(fb, fb));
     total = dadd(total, dmd);
   }
-  if (c.has_bin) total = dadd(total, ell1_delay<K>(t_hi, t_lo, total, P, lane, c.tsun));
+  if constexpr (BIN) total = dadd(total, ell1_delay<K>(t_hi, t_lo, total, P, lane, c.tsun));
   // spindown (spindown.py): dt = (t - delay) - PEPOCH in dd
   const int f_base = P_DM0 + c.nd;
   DDual<K> dt;
@@ -523,7 +524,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
 }
 
 // grid: (row blocks, parameter sets, lane chunks of K)
-template <int K>
+template <int K, bool BIN>
 __global__ void __launch_bounds__(THREADS)
 resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
                      double *__restrict__ pn, double *__restrict__ frac,
@@ -539,7 +540,7 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   __shared__ double tz_hi, tz_lo;
   __shared__ double tz_d[K > 0 ? K : 1];
   if (c.has_tzr && threadIdx.x == 0) {
-    const RowPhase<K> tz = eval_row<K>(c.n_rows - 1, rows, P, c, lane);
+    const RowPhase<K> tz = eval_row<K, BIN>(c.n_rows - 1, rows, P, c, lane);
     tz_hi = tz.ph.x.hi;
     tz_lo = tz.ph.x.lo;
 #pragma unroll
@@ -547,7 +548,7 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   RowPhase<K> r;
-  if (i < c.n_out) r = eval_row<K>(i, rows, P, c, lane);
+  if (i < c.n_out) r = eval_row<K, BIN>(i, rows, P, c, lane);
   __syncthreads();
   if (i >= c.n_out) return;
   DDual<K> ph = r.ph;
@@ -572,15 +573,26 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   }
 }
 
-template <int K>
+template <int K, bool BIN>
 cudaError_t launch(const Rows &rows, const double *params, const Config &c, int n_batch,
                    double *pn, double *frac, double *f, double *dfrac, double *df,
                    cudaStream_t stream) {
   const int chunks = K > 0 ? (c.n_lane + K - 1) / K : 1;
   const dim3 grid((c.n_out + THREADS - 1) / THREADS, n_batch, chunks);
-  resid_tangent_kernel<K><<<grid, THREADS, 0, stream>>>(rows, params, c, pn, frac, f,
-                                                        dfrac, df);
+  resid_tangent_kernel<K, BIN><<<grid, THREADS, 0, stream>>>(rows, params, c, pn, frac, f,
+                                                             dfrac, df);
   return cudaGetLastError();
+}
+
+// the narrowest instance that holds k lanes (a chunk of KCHUNK past 4)
+template <bool BIN>
+cudaError_t launch_lanes(int k, const Rows &rows, const double *params, const Config &c,
+                         int n_batch, double *pn, double *frac, double *f, double *dfrac,
+                         double *df, cudaStream_t s) {
+  if (k == 0) return launch<0, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  if (k <= 2) return launch<2, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  if (k <= 4) return launch<4, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  return launch<KCHUNK, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
 }
 
 }  // namespace
@@ -603,8 +615,8 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   c.nf = ints[5];
   c.n_par = ints[6];
   const int k = ints[7];
-  c.has_bin = ints[8];
   c.n_lane = k;
+  const int has_bin = ints[8];
   if (k < 0 || k > LMAX || c.nf < 1 || c.nd < 0 || c.nd > 16 || c.n_out < 0 ||
       n_batch < 1 || n_batch > 65535 || c.n_par != P_DM0 + c.nd + 2 * c.nf)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -615,14 +627,8 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   if (c.n_out == 0) return 0;
   const Rows rows{t_hi, t_lo, freq, pos, vel, sun};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (k == 0)
-    e = launch<0>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
-  else if (k <= 2)
-    e = launch<2>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
-  else if (k <= 4)
-    e = launch<4>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
-  else
-    e = launch<KCHUNK>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  const cudaError_t e =
+      has_bin ? launch_lanes<true>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s)
+              : launch_lanes<false>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
   return static_cast<int>(e);
 }

@@ -13,7 +13,7 @@ Two choices of the JAX package are kept exactly. The design is the tangent
 of the time residual for EVERY free parameter (jax.linearize over all of
 them, here K1's lanes; the DM columns are tangents too, unlike the grid's
 hybrid design). The columns are equilibrated by their UNWEIGHTED norm
-sqrt(sum M^2), and a ridge of 1e-12 I is added.
+sqrt(sum M^2), inside K3, and a ridge of 1e-12 I is added.
 
 The p x p solve is one symmetric eigendecomposition per linearization, on
 the device (``torch.linalg.eigh``): every damped Levenberg-Marquardt
@@ -45,13 +45,10 @@ def gls_step(model: TimingModel, free: tuple, params: dict, tensor: dict,
     -> (r0 (N,), M (N, p), mtcm (p, p), mtcy (p,), norm (p,), chi2_0, ahat)."""
     r0, M = time_resid_design(model, free, params, tensor, weights, subtract_mean,
                               hybrid=False)
-    cinv = 1.0 / sigma**2
     basis = model.noise_basis_and_weights(params, tensor)
-    norm = torch.sqrt(torch.sum(M**2, dim=0))
-    norm = torch.where(norm == 0, 1.0, norm)
-    Mn = M / norm
-    mtcm, mtcy, chi2_0, ahat = ecorr_normal_eq(r0[None], Mn.T[None], cinv, basis, _RIDGE)
-    return r0, M, mtcm[0], mtcy[0], norm, chi2_0[0], ahat[0]
+    mtcm, mtcy, chi2_0, ahat, norm = ecorr_normal_eq(r0[None], M.T[None], 1.0 / sigma**2,
+                                                     basis, _RIDGE)
+    return r0, M, mtcm[0], mtcy[0], norm[0], chi2_0[0], ahat[0]
 
 
 def gls_chi2_at(model: TimingModel, params: dict, tensor: dict, weights: torch.Tensor,
@@ -171,7 +168,7 @@ class GLSFitter(WLSFitter):
                 raise RuntimeError(
                     f"GLS normal equations produced a non-finite step (iteration {it}); "
                     "check the starting parameters or use DownhillGLSFitter")
-            params = apply_delta(params, self._free, dx, project_domain=True)
+            params = apply_delta(params, self._free, dx)
             sigma = torch.sqrt(torch.clamp(torch.diag(cov), min=0.0))
             rel = torch.abs(dx) / torch.where(sigma == 0, 1.0, sigma)
             if bool(torch.all(rel < xtol)):
@@ -196,7 +193,7 @@ class DownhillGLSFitter(GLSFitter):
             compute_pieces=self._step,
             solve=lambda pc, lam: slot.get(pc, pc[2], pc[3], pc[4], p).solve(lam),
             chi2_of=self.chi2_at,
-            apply_step=lambda pr, dx: apply_delta(pr, self._free, dx, project_domain=True),
+            apply_step=lambda pr, dx: apply_delta(pr, self._free, dx),
             maxiter=maxiter, required_gain=required_chi2_decrease,
             max_rejects=max_rejects, log_label="downhill GLS fit")
         _, _, mtcm, mtcy, norm, _, ahat = pieces

@@ -40,33 +40,30 @@ log = logging.getLogger("pint_tpu_torch.fitting")
 SVD_THRESHOLD = 1e-14
 
 
-# hard physical domains (pint_tpu _PARAM_DOMAIN): a Gauss-Newton step from
-# far off the minimum can propose e.g. SINI > 1, whose log turns every
-# residual NaN; the fitters project such a step back onto the boundary
+# hard physical domains (pint_tpu _PARAM_DOMAIN, the entries of the binaries
+# the port builds): a Gauss-Newton step from far off the minimum can propose
+# e.g. SINI > 1, whose log turns every residual NaN; every fitter step is
+# projected back onto the boundary
 _EPS_DOM = 1e-12
 _PARAM_DOMAIN = {
     "SINI": (-1.0 + _EPS_DOM, 1.0 - _EPS_DOM),
-    "ECC": (0.0, 1.0 - _EPS_DOM),
     "EPS1": (-0.7, 0.7),
     "EPS2": (-0.7, 0.7),
-    "STIGMA": (-1.0 + _EPS_DOM, 1.0 - _EPS_DOM),
     "M2": (0.0, np.inf),
-    "MTOT": (0.0, np.inf),
 }
 
 
-def apply_delta(params: dict, free_names: tuple, delta: torch.Tensor,
-                project_domain: bool = False) -> dict:
-    """params + delta over the free subset. `delta` is (..., p): a leading
-    batch dimension updates a batched parameter dict (leaves (B,)).
+def apply_delta(params: dict, free_names: tuple, delta: torch.Tensor) -> dict:
+    """params + delta over the free subset, projected onto `_PARAM_DOMAIN`
+    (pint_tpu's apply_delta with ``project_domain=True``, the fitters' step).
+    `delta` is (..., p): a leading batch dimension updates a batched
+    parameter dict (leaves (B,)).
 
     Every double-double leaf absorbs its float64 step through ONE launch of
     kernel K0 (``add_fp``, the dd_add_fp of ``ops/dd.py``), so the low words
-    keep their bits; plain leaves add in float64.
-
-    ``project_domain=True`` (the fitters' step) clamps the parameters of
-    `_PARAM_DOMAIN` onto their domain: a double-double leaf on its high
-    word, its low word zeroed where clamped. Samplers must not set it."""
+    keep their bits; plain leaves add in float64. A parameter with a domain
+    is clamped onto it: a double-double leaf on its high word, its low word
+    zeroed where clamped."""
     new = dict(params)
     dd_names = [n for n in free_names if isinstance(params[n], DD)]
     col = {n: delta[..., i] for i, n in enumerate(free_names)}
@@ -82,7 +79,7 @@ def apply_delta(params: dict, free_names: tuple, delta: torch.Tensor,
     for n in free_names:
         if n not in dd_names:
             new[n] = params[n] + col[n]
-        dom = _PARAM_DOMAIN.get(n) if project_domain else None
+        dom = _PARAM_DOMAIN.get(n)
         if dom is None:
             continue
         if n in dd_names:

@@ -15,14 +15,17 @@ JAX package's order of operations; they are the twin of kernel K3.
 Segment sums use no atomics (ROADMAP C3): `epoch_index` turns the epoch
 index once into a CSR (offsets, row ids) and a padded (ke, L) table of row
 ids, and `seg_sum` adds each epoch's rows in ascending order, as
-``jax.ops.segment_sum`` does on the CPU and as K3's first pass does on the
-card. So the epoch sums are bitwise the same in the twin and the kernel,
-run after run. The dense-basis (kd > 0) part has no kernel yet and raises
-on CUDA tensors: no component the port carries makes one.
+``jax.ops.segment_sum`` does on the CPU and as K3's epoch pass does on the
+card. So the epoch sums add in the same order in the twin and the kernel
+(bitwise equal where their inputs are), and run after run. The dense-basis
+(kd > 0) part has no kernel yet and raises on CUDA tensors: no component
+the port carries makes one.
 
 K3 (`ecorr_normal_eq`, csrc/ecorr_normal_eq.cu) is the block-Schur form of
 ``s_factor``/``cinv_apply``/``woodbury_chi2`` for kd = 0, over B parameter
-sets at once:
+sets at once, from the raw design M: the step's optional weighted-mean
+removal and its column norms come first (`_step_inputs`, Mn = M / norm),
+then
 
     De_e = 1/phi_e + sum_{i in e} w_i
     y_e = sum_{i in e} w_i Mn_i,  s_e = sum_{i in e} w_i r_i
@@ -309,12 +312,30 @@ def basis_dense(basis: NoiseBasis | None, n: int):
 # --- K3 ------------------------------------------------------------------------
 
 
-def ecorr_normal_eq_plain(r: torch.Tensor, Mn: torch.Tensor, w: torch.Tensor,
-                          basis: NoiseBasis | None, ridge: float):
+def _step_inputs(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor, centre: bool,
+                 weighted_norm: bool):
+    """(r, Mn, norm): with `centre`, r and every column of M (B, p, N) lose
+    their weighted mean (the grid's mean-free residuals); the columns are
+    then divided by sqrt(sum w M^2) (`weighted_norm`, the grid's gn_step) or
+    sqrt(sum M^2) (the GLS step), 1 where the sum is 0."""
+    if centre:
+        sw = torch.sum(w)
+        r = r - torch.sum(w * r, dim=-1, keepdim=True) / sw
+        M = M - torch.sum(w * M, dim=-1, keepdim=True) / sw
+    col2 = torch.sum(w * M * M if weighted_norm else M**2, dim=-1)
+    norm = torch.sqrt(torch.where(col2 == 0, 1.0, col2))
+    return r, M / norm[..., None], norm
+
+
+def ecorr_normal_eq_plain(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
+                          basis: NoiseBasis | None, ridge: float, centre: bool = False,
+                          weighted_norm: bool = False):
     """Twin of K3: the Woodbury normal equations of B parameter sets in the
     JAX package's order (``gls.get_gls_step_fn.woodbury_pieces``,
-    ``gridutils._point_kernel``). r (B, N), Mn (B, p, N), w (N,) ->
-    (G (B, p, p), c (B, p), chi2 (B,), ahat (B, ke + kd))."""
+    ``gridutils._point_kernel``), from the raw design through
+    `_step_inputs`. r (B, N), M (B, p, N), w (N,) -> (G (B, p, p), c (B, p),
+    chi2 (B,), ahat (B, ke + kd), norm (B, p))."""
+    r, Mn, norm = _step_inputs(r, M, w, centre, weighted_norm)
     sf = s_factor(basis, w) if basis is not None else None
     p = Mn.shape[1]
     eye = torch.eye(p, dtype=torch.float64, device=r.device)
@@ -326,37 +347,39 @@ def ecorr_normal_eq_plain(r: torch.Tensor, Mn: torch.Tensor, w: torch.Tensor,
         c = CinvM.T @ (-r[b])
         chi2, (ze, zd) = woodbury_chi2(basis, w, r[b], sf=sf)
         outs.append((G, c, chi2, cat_ahat(ze, zd).to(r.device)))
-    return tuple(torch.stack(x) for x in zip(*outs))
+    return (*(torch.stack(x) for x in zip(*outs)), norm)
 
 
 #: the most design columns K3 takes (csrc/ecorr_normal_eq.cu PMAX)
 K3_PMAX = 20
 
 
-def ecorr_normal_eq(r: torch.Tensor, Mn: torch.Tensor, w: torch.Tensor,
-                    basis: NoiseBasis | None, ridge: float):
-    """K3: the Woodbury normal equations over B parameter sets. A CUDA tensor
+def ecorr_normal_eq(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
+                    basis: NoiseBasis | None, ridge: float, centre: bool = False,
+                    weighted_norm: bool = False):
+    """K3: the Woodbury normal equations over B parameter sets, the mean
+    removal and column equilibration of the step included. A CUDA tensor
     launches the kernel (and raises if it cannot); a CPU tensor takes
-    `ecorr_normal_eq_plain`. Shapes as in the twin; for an ECORR-only
-    basis ahat is (B, ke). `ecorr_normal_eq.launches` counts calls, each
-    of which runs 3 kernel passes (2 when there are no epochs)."""
+    `ecorr_normal_eq_plain`. Shapes and options as in the twin; for an
+    ECORR-only basis ahat is (B, ke). `ecorr_normal_eq.launches` counts
+    calls, each of which runs 3 to 6 kernel passes."""
     if r.device.type == "cpu":
-        return ecorr_normal_eq_plain(r, Mn, w, basis, ridge)
-    out = _launch_k3(r, Mn, w, basis, ridge)
+        return ecorr_normal_eq_plain(r, M, w, basis, ridge, centre, weighted_norm)
+    out = _launch_k3(r, M, w, basis, ridge, centre, weighted_norm)
     ecorr_normal_eq.launches += 1
     return out
 
 
-def _launch_k3(r, Mn, w, basis, ridge):
+def _launch_k3(r, M, w, basis, ridge, centre, weighted_norm):
     """One call of K3 on the tensors' device (shapes checked here)."""
     B, n = r.shape
-    p = Mn.shape[1]
-    if Mn.shape != (B, p, n) or w.shape != (n,) or p > K3_PMAX:
-        raise ValueError(f"ecorr_normal_eq needs r (B, N), Mn (B, p <= {K3_PMAX}, N), w (N,); "
-                         f"got {tuple(r.shape)}, {tuple(Mn.shape)}, {tuple(w.shape)}")
+    p = M.shape[1]
+    if M.shape != (B, p, n) or w.shape != (n,) or p > K3_PMAX:
+        raise ValueError(f"ecorr_normal_eq needs r (B, N), M (B, p <= {K3_PMAX}, N), w (N,); "
+                         f"got {tuple(r.shape)}, {tuple(M.shape)}, {tuple(w.shape)}")
     if basis is not None and (basis.dense is not None or basis.row_scale is not None):
         raise NotImplementedError("kernel K3 takes an ECORR-only basis (kd = 0, no row scale)")
-    for t in (r, Mn, w):
+    for t in (r, M, w):
         if t.dtype != torch.float64 or t.device != r.device:
             raise ValueError("ecorr_normal_eq needs float64 tensors on one device")
     if basis is None:
@@ -371,22 +394,25 @@ def _launch_k3(r, Mn, w, basis, ridge):
                 or phi.dtype != torch.float64 or phi.device != r.device \
                 or offsets.device != r.device:
             raise ValueError("the epoch index and phi must match r's rows and device")
-    r, Mn, w, phi = r.contiguous(), Mn.contiguous(), w.contiguous(), phi.contiguous()
+    r, M, w, phi = r.contiguous(), M.contiguous(), w.contiguous(), phi.contiguous()
     from pint_tpu_torch.ops import build
 
     lib = build.library("ecorr_normal_eq", _declare_k3)
-    parts = lib.ecorr_normal_eq_parts(n, ke)
+    parts, s_tiles = lib.ecorr_normal_eq_parts(n, ke), lib.ecorr_normal_eq_stat_tiles(n)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float64, device=r.device)
 
+    mpart, npart, mean = empty(B, s_tiles, p + 2), empty(B, s_tiles, max(p, 1)), empty(B, p + 1)
     esum, part = empty(B, max(ke, 1), p + 2), empty(B, parts, (p + 1) * (p + 2) // 2)
-    G, c, chi2, ahat = empty(B, p, p), empty(B, p), empty(B), empty(B, ke)
+    G, c, chi2, ahat, norm = empty(B, p, p), empty(B, p), empty(B), empty(B, ke), empty(B, p)
     build.check(lib, lib.ecorr_normal_eq(
-        r.data_ptr(), Mn.data_ptr(), w.data_ptr(), offsets.data_ptr(), rows.data_ptr(),
-        phi.data_ptr(), B, p, n, ke, ridge, esum.data_ptr(), part.data_ptr(),
-        G.data_ptr(), c.data_ptr(), chi2.data_ptr(), ahat.data_ptr(), build.stream_of(r)))
-    return G, c, chi2, ahat
+        r.data_ptr(), M.data_ptr(), w.data_ptr(), offsets.data_ptr(), rows.data_ptr(),
+        phi.data_ptr(), B, p, n, ke, int(centre), int(weighted_norm), ridge,
+        mpart.data_ptr(), npart.data_ptr(), mean.data_ptr(), esum.data_ptr(), part.data_ptr(),
+        G.data_ptr(), c.data_ptr(), chi2.data_ptr(), ahat.data_ptr(), norm.data_ptr(),
+        build.stream_of(r)))
+    return G, c, chi2, ahat, norm
 
 
 ecorr_normal_eq.launches = 0
@@ -395,8 +421,10 @@ ecorr_normal_eq.launches = 0
 def _declare_k3(lib) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.ecorr_normal_eq.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_double,
-                                    p, p, p, p, p, p, p]
+    lib.ecorr_normal_eq.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_double,
+                                    p, p, p, p, p, p, p, p, p, p, p]
     lib.ecorr_normal_eq.restype = ctypes.c_int
     lib.ecorr_normal_eq_parts.argtypes = [i, i]
     lib.ecorr_normal_eq_parts.restype = ctypes.c_int
+    lib.ecorr_normal_eq_stat_tiles.argtypes = [i]
+    lib.ecorr_normal_eq_stat_tiles.restype = ctypes.c_int

@@ -11,8 +11,8 @@ dimension B of the parameter dict, which replaces ``vmap``:
   with the tangents of the nonlinear free parameters in one launch;
 - white: kernel K2 (`normal_eq`, csrc/normal_eq.cu) reduces them to the
   equilibrated normal equations and chi^2 of every point;
-- correlated: the weighted means and the column norms sqrt(sum w M^2) in
-  torch, then kernel K3 (``fitting/woodbury.ecorr_normal_eq``) forms the
+- correlated: kernel K3 (``fitting/woodbury.ecorr_normal_eq``) removes the
+  weighted means, equilibrates the columns by sqrt(sum w M^2) and forms the
   Woodbury normal equations and chi^2 of every point;
 - the p x p ridge Cholesky solve stays ``torch.linalg``;
 - ``fitting/wls.apply_delta`` adds the steps into the parameters; it
@@ -21,7 +21,7 @@ dimension B of the parameter dict, which replaces ``vmap``:
   are plain float64, so that grid does not launch K0.
 
 Unlike the WLS fitter, the grid divides by f FIRST and subtracts the
-weighted mean in SECONDS (pint_tpu gridutils.py:103-107); K2 does the
+weighted mean in SECONDS (pint_tpu gridutils.py:103-107); K2 or K3 does the
 subtraction.
 """
 
@@ -138,19 +138,6 @@ def _time_resids_design(model, params, tensor, free):
     return r, M[:, [names.index(n) for n in free]]
 
 
-def _centred_equilibrated(r, M, w, mean_free: bool):
-    """The correlated grid's step inputs, in pint_tpu's gn_step order: r and
-    every column with its weighted mean removed (in seconds), the columns
-    divided by sqrt(sum w M^2). -> (r, Mn, norm)."""
-    if mean_free:
-        sw = torch.sum(w)
-        r = r - torch.sum(w * r, dim=-1, keepdim=True) / sw
-        M = M - torch.sum(w * M, dim=-1, keepdim=True) / sw
-    col2 = torch.sum(w * M * M, dim=-1)
-    norm = torch.sqrt(torch.where(col2 == 0, 1.0, col2))
-    return r, M / norm[..., None], norm
-
-
 def grid_point_chi2(model, params: dict, tensor: dict, w: torch.Tensor, free: tuple,
                     subtract_mean: bool, maxiter: int, basis=None) -> torch.Tensor:
     """chi^2 (B,) of a batched parameter dict after `maxiter` Gauss-Newton
@@ -161,18 +148,17 @@ def grid_point_chi2(model, params: dict, tensor: dict, w: torch.Tensor, free: tu
     for _ in range(maxiter if free else 0):
         r, M = _time_resids_design(model, params, tensor, free)
         if correlated:
-            r, Mn, norm = _centred_equilibrated(r, M, w, mean_free)
-            G, c, _, _ = ecorr_normal_eq(r, Mn, w, basis, _RIDGE)
+            G, c, _, _, norm = ecorr_normal_eq(r, M, w, basis, _RIDGE, mean_free,
+                                               weighted_norm=True)
         else:
             G, c, _, norm = normal_eq(r, M, w, _RIDGE, mean_free)
         dx = torch.cholesky_solve(c[..., None], torch.linalg.cholesky(G))[..., 0] / norm
-        params = apply_delta(params, free, dx, project_domain=True)
+        params = apply_delta(params, free, dx)
     out = phase_resid_tangents(model, params, tensor)
     r = out.frac / out.f
     no_cols = r.new_zeros((r.shape[0], 0, r.shape[1]))
     if correlated:
-        r = _centred_equilibrated(r, no_cols, w, mean_free)[0]
-        return ecorr_normal_eq(r, no_cols, w, basis, 0.0)[2]
+        return ecorr_normal_eq(r, no_cols, w, basis, 0.0, mean_free)[2]
     return normal_eq(r, no_cols, w, 0.0, mean_free)[2]
 
 

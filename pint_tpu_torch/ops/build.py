@@ -97,7 +97,7 @@ def build_all() -> float:
 def _kernel_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_120resid_tangent_kernelILi8EEEv...' ->
     'resid_tangent_kernel<8>': the last component of the nested name and
-    its integer template arguments."""
+    its integer and bool template arguments (bool as 0 or 1)."""
     s = mangled[3:] if mangled.startswith("_ZN") else mangled.lstrip("_Z")
     name, args, i = mangled, [], 0
     while i < len(s) and s[i].isdigit():
@@ -107,9 +107,9 @@ def _kernel_name(mangled: str) -> str:
         n = int(s[i:j])
         name, args, i = s[j:j + n], [], j + n
         if s[i:i + 1] == "I":
-            m = re.match(r"I((?:Li-?\d+E)+)E", s[i:])
+            m = re.match(r"I((?:L[ib]-?\d+E)+)E", s[i:])
             if m:
-                args = re.findall(r"Li(-?\d+)E", m.group(1))
+                args = re.findall(r"L[ib](-?\d+)E", m.group(1))
                 i += m.end()
     return f"{name}<{','.join(args)}>" if args else name
 
@@ -139,6 +139,8 @@ def ptxas_report(name: str) -> dict:
         if m and entry is not None:
             out[entry] = (int(m.group(1)), out[entry][1])
     return out
+
+
 def ptxas_summary(name: str) -> str:
     """One line from the ptxas report of library `name`: its functions, their
     most registers and their most spill bytes."""

@@ -126,8 +126,9 @@ def test_binary_tangent_lanes_and_unported_models():
 
 
 def test_apply_delta_projects_onto_domains_bitwise(pair):
-    """The fitters' step clamps SINI, M2, EPS1 and EPS2 (on the high word
-    of a dd leaf, its low word zeroed) exactly as pint_tpu's apply_delta."""
+    """Every fitter step clamps SINI, M2, EPS1 and EPS2 (on the high word
+    of a dd leaf, its low word zeroed) exactly as pint_tpu's apply_delta
+    with project_domain=True."""
     from pint_tpu.fitting.wls import apply_delta as jax_apply
     from pint_tpu_torch.fitting.wls import apply_delta
 
@@ -136,10 +137,38 @@ def test_apply_delta_projects_onto_domains_bitwise(pair):
     rng = np.random.default_rng(7)
     for _ in range(4):
         delta = rng.normal(size=len(free)) * np.array([0.05, 0.3, 1.0, 1.0, 1e-3, 1e-9, 1e-3])
-        for project in (False, True):
-            want = params_numpy(jax_apply(model.params, free, delta, project_domain=project))
-            got = params_numpy(apply_delta(tm.params, free, torch.tensor(delta),
-                                           project_domain=project))
-            assert got == want, project
-    pinned = apply_delta(tm.params, ("SINI", "M2"), torch.tensor([5.0, -5.0]), project_domain=True)
+        want = params_numpy(jax_apply(model.params, free, delta, project_domain=True))
+        got = params_numpy(apply_delta(tm.params, free, torch.tensor(delta)))
+        assert got == want
+    pinned = apply_delta(tm.params, ("SINI", "M2"), torch.tensor([5.0, -5.0]))
     assert float(pinned["SINI"]) == 1.0 - 1e-12 and float(pinned["M2"]) == 0.0
+
+
+def test_wls_step_pins_sini_as_pint_tpu(pair):
+    """A WLS Gauss-Newton step on the ELL1 model with SINI free from 0.9:
+    the Shapiro log steepens towards SINI = 1, so the linear step overshoots
+    past 1, and both WLSFitters pin SINI at 1 - 1e-12 (bitwise equal), with
+    F0 and the uncertainties within 1e-10 relative of pint_tpu's. The chi^2
+    at the pin must be finite (unprojected, log(1 - SINI sin phi) is NaN);
+    it is not held to 1e-10, since 1 - SINI sin phi ~ 1e-12 near conjunction
+    turns an ulp of sin phi into ~1e-4 of that TOA's log."""
+    import copy
+
+    from pint_tpu.fitting.wls import WLSFitter as JaxWLSFitter
+    from pint_tpu_torch.fitting.wls import WLSFitter
+
+    model, toas, _, tm, tt = (copy.deepcopy(x) for x in pair)
+    for m in (model, tm):
+        m.set_free(["F0", "SINI"])
+    model.params = {**model.params, "SINI": jnp.float64(0.9)}
+    tm.params = {**tm.params, "SINI": torch.tensor(0.9, dtype=torch.float64)}
+    ref = JaxWLSFitter(toas, model)
+    want = ref.fit_toas(maxiter=1)
+    ftr = WLSFitter(tt, tm)
+    got = ftr.fit_toas(maxiter=1)
+    ref_v, v = params_numpy(ref.model.params), params_numpy(ftr.model.params)
+    assert v["SINI"] == ref_v["SINI"] == 1.0 - 1e-12
+    assert abs(sum(v["F0"]) - sum(ref_v["F0"])) <= 1e-10 * abs(sum(ref_v["F0"]))
+    for n, u in want.uncertainties.items():
+        assert abs(got.uncertainties[n] - u) <= 1e-10 * u, n
+    assert np.isfinite(got.chi2)

@@ -197,12 +197,12 @@ def test_device_split_matches():
 def test_ptxas_report_reads_every_instance(tmp_path, monkeypatch):
     """The build log's ptxas report -> registers and spill stores per kernel
     instance and per device function kept as a call, named by the template
-    arguments."""
+    arguments (a bool one as 0 or 1)."""
     from pint_tpu_torch.ops import build
 
-    k8 = "_ZN12_GLOBAL__N_120resid_tangent_kernelILi8EEEvNS_4RowsEPKdNS_6ConfigEPdS5_S5_S5_S5_"
-    row8 = "_ZN12_GLOBAL__N_18eval_rowILi8EEENS_8RowPhaseIXT_EEEiRKNS_4RowsEPKdRKNS_6ConfigE"
-    k0 = "_ZN12_GLOBAL__N_120resid_tangent_kernelILi0EEEvNS_4RowsEPKdNS_6ConfigEPdS5_S5_S5_S5_"
+    k8 = "_ZN12_GLOBAL__N_120resid_tangent_kernelILi8ELb1EEEvNS_4RowsEPKdNS_6ConfigEPdS5_S5_S5_S5_"
+    row8 = "_ZN12_GLOBAL__N_18eval_rowILi8ELb1EEENS_8RowPhaseIXT_EEEiRKNS_4RowsEPKdRKNS_6ConfigE"
+    k0 = "_ZN12_GLOBAL__N_120resid_tangent_kernelILi0ELb0EEEvNS_4RowsEPKdNS_6ConfigEPdS5_S5_S5_S5_"
     (tmp_path / "resid_tangent.log").write_text(
         "ptxas info    : 0 bytes gmem\n"
         f"ptxas info    : Function properties for {row8}\n"
@@ -217,8 +217,8 @@ def test_ptxas_report_reads_every_instance(tmp_path, monkeypatch):
         "ptxas info    : Used 126 registers, used 1 barriers, 16 bytes smem\n")
     monkeypatch.setattr(build, "build_dir", lambda: tmp_path)
     assert build.ptxas_report("resid_tangent") == {
-        "eval_row<8>": (0, 9052), "resid_tangent_kernel<8>": (128, 0),
-        "resid_tangent_kernel<0>": (126, 4)}
+        "eval_row<8,1>": (0, 9052), "resid_tangent_kernel<8,1>": (128, 0),
+        "resid_tangent_kernel<0,0>": (126, 4)}
     assert build.ptxas_summary("resid_tangent") == (
         "3 functions, at most 128 registers, at most 9052 bytes of spill stores")
     assert build.ptxas_summary("missing") == "no ptxas report"

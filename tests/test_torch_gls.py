@@ -199,25 +199,36 @@ def test_woodbury_functions_match_pint_tpu(kind):
     np.testing.assert_array_equal(pphi.numpy(), np.asarray(jphi))
 
 
+@pytest.mark.parametrize("step", ("gls", "grid"))
 @pytest.mark.parametrize("kind", ("ecorr", "both"))
-def test_k3_twin_is_the_dense_gls_algebra(kind):
-    """K3's twin (batched) against the normal equations with C built dense:
-    G = Mn^T C^-1 Mn + ridge, c = -Mn^T C^-1 r, chi2 = r^T C^-1 r,
-    ahat = phi F^T C^-1 r."""
+def test_k3_twin_is_the_dense_gls_algebra(kind, step):
+    """K3's twin (batched) against the normal equations with C built dense,
+    from the raw design M: the grid's step first removes the weighted means
+    from r and M and equilibrates by sqrt(sum w M^2), the GLS step by
+    sqrt(sum M^2); then with Mn = M / norm, G = Mn^T C^-1 Mn + ridge,
+    c = -Mn^T C^-1 r, chi2 = r^T C^-1 r, ahat = phi F^T C^-1 r."""
     from pint_tpu_torch.fitting.woodbury import basis_dense, ecorr_normal_eq
 
     _, pb, w, X, r = hand_basis(kind)
     F, phi = (a.numpy() for a in basis_dense(pb, w.size))
     Cinv = np.linalg.inv(np.diag(1.0 / w) + (F * phi) @ F.T)
-    rs = np.stack([r, 2.0 * r])
-    Mn = np.stack([X.T, 0.5 * X.T])
-    G, c, chi2, ahat = ecorr_normal_eq(torch.tensor(rs), torch.tensor(Mn), torch.tensor(w), pb,
-                                       1e-6)
+    rs = np.stack([r, 2.0 * r + 1e-6])
+    Ms = np.stack([X.T, 0.5 * X.T + 3.0])
+    grid = step == "grid"
+    G, c, chi2, ahat, norm = ecorr_normal_eq(torch.tensor(rs), torch.tensor(Ms),
+                                             torch.tensor(w), pb, 1e-6, grid, grid)
     for b in range(2):
-        assert rel(G[b], Mn[b] @ Cinv @ Mn[b].T + 1e-6 * np.eye(3)) <= 1e-10
-        assert rel(c[b], -Mn[b] @ Cinv @ rs[b]) <= 1e-10
-        assert rel(chi2[b], rs[b] @ Cinv @ rs[b]) <= 1e-10
-        assert rel(ahat[b], phi * (F.T @ (Cinv @ rs[b]))) <= 1e-10
+        rb, Mb = rs[b], Ms[b]
+        if grid:
+            rb = rb - np.sum(w * rb) / np.sum(w)
+            Mb = Mb - np.sum(w * Mb, axis=1, keepdims=True) / np.sum(w)
+        nb = np.sqrt(np.sum((w if grid else 1.0) * Mb * Mb, axis=1))
+        assert rel(norm[b], nb) <= 1e-12
+        Mn = Mb / nb[:, None]
+        assert rel(G[b], Mn @ Cinv @ Mn.T + 1e-6 * np.eye(3)) <= 1e-10
+        assert rel(c[b], -Mn @ Cinv @ rb) <= 1e-10
+        assert rel(chi2[b], rb @ Cinv @ rb) <= 1e-10
+        assert rel(ahat[b], phi * (F.T @ (Cinv @ rb))) <= 1e-10
 
 
 # --- the GLS step, the fitters and the grid ---------------------------------------
@@ -252,7 +263,8 @@ def test_grid_hybrid_design_matches_pint_tpu(big, fits):
     from pint_tpu.fitting.design import linear_split as jax_linear_split
     from pint_tpu.fitting.wls import apply_delta as jax_apply
     from pint_tpu.residuals import phase_residual_frac as jax_prf
-    from pint_tpu_torch.gridutils import _centred_equilibrated, _time_resids_design
+    from pint_tpu_torch.fitting.woodbury import _step_inputs
+    from pint_tpu_torch.gridutils import _time_resids_design
     from pint_tpu_torch.residuals import Residuals
 
     model, _, tens, tm, tt = big
@@ -279,7 +291,7 @@ def test_grid_hybrid_design_matches_pint_tpu(big, fits):
     r, M = _time_resids_design(tm, one, tt, free)
     tw = 1.0 / Residuals(tt, tm).errors_s ** 2
     np.testing.assert_array_equal(tw.numpy(), w_np)
-    r, Mn, norm = _centred_equilibrated(r, M, tw, True)
+    r, Mn, norm = _step_inputs(r, M, tw, True, True)
     assert np.max(np.abs(r[0].numpy() - np.asarray(r0))) <= 1e-12
     for j, n in enumerate(free):
         assert rel(Mn[0, j] * norm[0, j], want[n]) <= 1e-10, n
