@@ -51,12 +51,38 @@ EFAC/EQUAD/ECORR; 16,384 TOAs in 2,048 ECORR epochs, 14 free parameters):
 13. kernel times at the flagship shapes, and the warm wall and busy share
    of one flagship fit + grid, as in phase 8.
 
+Then the port's own TOA prepare (``PINT_TPU_NBODY=0`` for the whole
+process: the analytic ephemeris):
+
+14. K4 ``site_geometry`` and K5 ``analytic_ephemeris`` against their twins
+   at N = 131,072 epochs (1995-2035, GBT, polar motion of ~0.3 arcsec; K5
+   for the prepare's bodies and for every body it serves): K4 position
+   within 1e-6 m and velocity within 1e-9 m/s, K5 within 1 mm and 1e-4 m/s;
+15. ``get_TOAs`` of a .tim of 131,072 synthetic flagship-shaped lines (GBT,
+   two receivers, 2003-2033) through the kernels and through the twins on
+   the card: columns within those bounds (TDB within 1 ps), and the wall of
+   each stage (parse, clock, tdb, eop, geometry, ephemeris);
+16. ``get_model_and_toas`` of the flagship par and
+   ``pint_tpu_torch/data/flagship_n16384.tim`` and ``build_tensor`` (K4 and
+   K5 twice each: the TOAs and the TZR row): t within 5 ps of the archive's
+   (the tim's 16 decimals of a day), masks and ECORR columns exact,
+   positions within 1 mm plus the archive's recorded geometry staleness
+   (``geom_stale_s``: pint_tpu's fake-TOA iteration moved its times by up to
+   4.1 us without recomputing its positions, ~0.12 m at 30 km/s);
+17. the GLS fit and (M2, SINI) grid from those TOAs, gated as in phases
+   11-12 against the same path through the twins (prepare included); and
+   against phase 11's fit from the archive: params within 1e-3 sigma of a
+   fit of the archive whose frequencies are the tim's (written with six
+   decimals, up to 4.3e-7 MHz from the archive's; that rounding alone moves
+   DM by ~1e-3 sigma, printed apart).
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
-not count). The SMOKE fit must launch K0 and K1, its grid K1 and K2; the
-flagship fit K0, K1 and K3, its grid K0, K1 and K3. K2's and K3's counts
-are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 6. At the
+not count), and around phase 16's ``get_model_and_toas`` + ``build_tensor``.
+The SMOKE fit must launch K0 and K1, its grid K1 and K2; the flagship fit
+K0, K1 and K3, its grid K0, K1 and K3; the prepare K4 and K5 twice each.
+K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 6. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs), and ``call_ms`` the
@@ -64,7 +90,8 @@ CUDA-event time per call, which includes the host's time to enqueue it.
 ``bound_ms`` is the larger of the bytes the function must move over
 3.35 TB/s and its float64 operations over 34 TFLOP/s (H100 SXM, NVIDIA data
 sheet, float64 outside the tensor cores). The output ends with the
-``kernels`` record, the card's name and power limit, and the result line.
+``kernels`` record (with each library's ptxas registers and spills), the
+card's name and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -72,8 +99,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,7 +152,8 @@ def timed_ms(fn, device, reps: int) -> float:
 def measure(fn, device, reps: int, kernel: str | None = None) -> tuple:
     """(device ms, call ms) of one call of `fn`. Device ms is the summed time
     of the kernels the call runs, from torch.profiler's CUDA activity (only
-    kernels whose name holds `kernel`, when given); call ms is `timed_ms`,
+    kernels whose name holds `kernel`, or one of a tuple of names, when
+    given); call ms is `timed_ms`,
     which includes the host's time to enqueue the call and bounds the rate of
     back-to-back calls. On the CPU the device time is None."""
     call = timed_ms(fn, device, reps)
@@ -133,12 +163,14 @@ def measure(fn, device, reps: int, kernel: str | None = None) -> tuple:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    pats = (kernel,) if isinstance(kernel, str) else kernel
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+             if e.device_type == DeviceType.CUDA
+             and (pats is None or any(p in e.key for p in pats)))
     return us / 1e3 / reps, call
 
 
@@ -162,20 +194,24 @@ def rel_err(got, want) -> float:
 def twins():
     """Route the main path through the plain-torch twins, on the card."""
     from pint_tpu_torch import gridutils, residuals
+    from pint_tpu_torch.astro import device_prepare as dp
     from pint_tpu_torch.fitting import gls, wls, woodbury
     from pint_tpu_torch.ops import dd
 
     saved = (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
-             gls.ecorr_normal_eq, gridutils.ecorr_normal_eq)
+             gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
+             dp.analytic_ephemeris)
     residuals.resid_tangent = residuals.resid_tangent_plain
     wls.dd_elementwise = dd.dd_elementwise_plain
     gridutils.normal_eq = gridutils.normal_eq_plain
     gls.ecorr_normal_eq = gridutils.ecorr_normal_eq = woodbury.ecorr_normal_eq_plain
+    dp.site_geometry, dp.analytic_ephemeris = dp.site_geometry_plain, dp.analytic_ephemeris_plain
     try:
         yield
     finally:
         (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
-         gls.ecorr_normal_eq, gridutils.ecorr_normal_eq) = saved
+         gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
+         dp.analytic_ephemeris) = saved
 
 
 def device_line() -> str:
@@ -330,13 +366,15 @@ def fresh_fitter(tensor, device, flagship: bool = False):
 
 
 def counters():
+    from pint_tpu_torch.astro.device_prepare import analytic_ephemeris, site_geometry
     from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq
     from pint_tpu_torch.gridutils import normal_eq
     from pint_tpu_torch.ops.dd import dd_elementwise
     from pint_tpu_torch.residuals import resid_tangent
 
     return {"dd_elementwise": dd_elementwise, "resid_tangent": resid_tangent,
-            "normal_eq": normal_eq, "ecorr_normal_eq": ecorr_normal_eq}
+            "normal_eq": normal_eq, "ecorr_normal_eq": ecorr_normal_eq,
+            "site_geometry": site_geometry, "analytic_ephemeris": analytic_ephemeris}
 
 
 @contextlib.contextmanager
@@ -438,8 +476,11 @@ def profile_main_path(tensor, device, flagship: bool = False) -> dict:
 # substrings of the kernels' names in a profile (K2 and K3 are three passes)
 K0_KERNEL, K1_KERNEL, K2_KERNEL, K3_KERNEL = ("dd_elementwise_kernel", "resid_tangent_kernel",
                                               "pass_", "_pass<")
+K4_KERNEL, K5_KERNELS = "site_geometry_kernel", ("analytic_ephemeris_kernel",
+                                                 "central_difference_kernel")
 KERNEL_PATTERNS = {"dd_elementwise": K0_KERNEL, "resid_tangent": K1_KERNEL,
-                   "normal_eq": K2_KERNEL, "ecorr_normal_eq": K3_KERNEL}
+                   "normal_eq": K2_KERNEL, "ecorr_normal_eq": K3_KERNEL,
+                   "site_geometry": K4_KERNEL, "analytic_ephemeris": K5_KERNELS[0]}
 
 
 def k0_record(model, device) -> dict:
@@ -609,6 +650,12 @@ KERNELS = (
      "pint_tpu/fitting/gls.py:77 (gls_step Woodbury pieces) + gls.py:193 (gls_chi2) + "
      "pint_tpu/gridutils.py:132-170 (correlated grid step: centring, equilibration, Woodbury "
      "normal equations, chi2), algebra of fitting/woodbury.py:79-218"),
+    ("site_geometry", "pint_tpu_torch/csrc/site_geometry.cu",
+     "pint_tpu/astro/device_prepare.py:91 (prepare_geometry: astro/erot.py "
+     "itrf_to_gcrs_posvel)"),
+    ("analytic_ephemeris", "pint_tpu_torch/csrc/analytic_ephemeris.cu",
+     "pint_tpu/astro/device_prepare.py:121 (prepare_ephemeris: astro/ephemeris.py "
+     "AnalyticEphemeris._posvel_analytic per body)"),
 )
 
 
@@ -740,11 +787,310 @@ def flagship_phases(device, summary: dict) -> dict:
         "free": list(free)}
     errs = {"resid_tangent": max(s["max_abs_err"] for s in k1_stats.values()),
             "ecorr_normal_eq": max(v["chi2_abs_err"] for v in k3.values())}
-    return {"recs": recs, "errs": errs, "fit": fit_l, "grid": grid_l}
+    return {"recs": recs, "errs": errs, "fit": fit_l, "grid": grid_l,
+            "fitter": main["fitter"]}
+
+
+# --- phases 14-17: the TOA prepare (K4, K5) and the fit from a .tim -----------------
+
+PREPARE_N = 131072
+GBT_ITRF = (882589.65, -4924872.32, 3943729.348)
+C_M_PER_S = 299792458.0
+
+# K4's float64 operations per epoch, counted from csrc/site_geometry.cu with a
+# sine or cosine as ~35 operations: 71 of them (the 30 nutation arguments'
+# sines and cosines, the four rotations' and the angles of ERA and the
+# equation of the equinoxes), ~800 other operations (the polynomials, the 30
+# arguments of 9 operations each, the two 30-term sums, three 3x3 products
+# and the rotation of the site)
+K4_OPS_PER_EPOCH = 71 * 35 + 800
+# K5's per evaluation of the system (three per epoch), from
+# csrc/analytic_ephemeris.cu: each VSOP87 term a cosine and 4 operations; the
+# three mean-element bodies 10 Newton steps (a sine, a cosine, 6 operations)
+# and 12 sines or cosines; 5 per VSOP body turning (L, B, R) into xyz; the F-W
+# rotation's 6; the Moon's 51 terms (a sine or cosine and ~12 operations) and
+# 12 more sines; ~100 operations of rotations and sums per body served
+K5_TRIG_OPS = 35
+
+
+def k5_ops_per_epoch(bodies) -> int:
+    from pint_tpu_torch.astro.ephemeris import pack_tables
+
+    table, layout = pack_tables()
+    lay = layout[:-7].reshape(6, 3, 6, 2)
+    planets = int(lay[1:, :, :, 1].sum())  # venus .. neptune (the Sun needs them)
+    earth = int(lay[0, :, :, 1].sum()) if set(bodies) & {"earth", "moon", "emb"} else 0
+    moon = set(bodies) & {"moon", "emb"}
+    per_eval = ((planets + earth) * (K5_TRIG_OPS + 4)
+                + 3 * (10 * (2 * K5_TRIG_OPS + 6) + 12 * K5_TRIG_OPS)
+                + (5 + int(earth > 0)) * 5 * K5_TRIG_OPS + 6 * K5_TRIG_OPS
+                + (51 * (K5_TRIG_OPS + 12) + 12 * K5_TRIG_OPS if moon else 0)
+                + 100 * (len(bodies) + 8))
+    return 3 * per_eval
+
+
+def prepare_epochs(n: int, seed: int = 29):
+    """UT1 MJDs 1995-2035, TT centuries and polar-motion angles of n epochs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mjd = np.sort(rng.uniform(49718.0, 64328.0, n))
+    tt = (mjd + 69.184 / 86400.0 - 51544.5) / 36525.0
+    return mjd, tt, rng.uniform(-1.5e-6, 1.5e-6, n), rng.uniform(-1.5e-6, 1.5e-6, n)
+
+
+def phase_k45(device) -> dict:
+    """K4 and K5 against their twins at PREPARE_N epochs."""
+    import torch
+
+    from pint_tpu_torch.astro import device_prepare as dp
+    from pint_tpu_torch.astro.ephemeris import BODIES
+
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    mjd, tt, xp, yp = (t(a) for a in prepare_epochs(PREPARE_N))
+    got, want = dp.site_geometry(GBT_ITRF, mjd, tt, xp, yp), \
+        dp.site_geometry_plain(GBT_ITRF, mjd, tt, xp, yp)
+    sync(device)
+    ep = float(torch.max(torch.abs(got[0] - want[0])))
+    ev = float(torch.max(torch.abs(got[1] - want[1])))
+    check(ep <= 1e-6, f"K4 N={PREPARE_N}: position within 1e-6 m of the twin ({ep:.3g} m)")
+    check(ev <= 1e-9, f"K4 N={PREPARE_N}: velocity within 1e-9 m/s of the twin ({ev:.3g} m/s)")
+    T = (mjd - 51544.5) / 36525.0
+    out = {"k4_pos_err_m": ep, "k4_vel_err_m_s": ev}
+    for bodies in (("earth", "sun"), BODIES):
+        got, want = dp.analytic_ephemeris(bodies, T), dp.analytic_ephemeris_plain(bodies, T)
+        sync(device)
+        ep = max(float(torch.max(torch.abs(got[b][0] - want[b][0]))) for b in bodies)
+        ev = max(float(torch.max(torch.abs(got[b][1] - want[b][1]))) for b in bodies)
+        tag = f"K5 N={PREPARE_N} {len(bodies)} bodies"
+        check(ep <= 1e-3, f"{tag}: positions within 1 mm of the twin ({ep:.3g} m)")
+        check(ev <= 1e-4, f"{tag}: velocities within 1e-4 m/s of the twin ({ev:.3g} m/s)")
+        out[f"k5_{len(bodies)}_pos_err_m"], out[f"k5_{len(bodies)}_vel_err_m_s"] = ep, ev
+    return out
+
+
+def synthetic_tim(path: Path, n: int, seed: int = 31) -> None:
+    """A .tim of n flagship-shaped lines: epochs of the 8 sub-bands of one of
+    two receivers at GBT, 2003-2033, 1 us errors."""
+    import numpy as np
+
+    from pint_tpu_torch.io.tim import TOALine, write_tim
+    from pint_tpu_torch.profiles import RECEIVERS
+
+    rng = np.random.default_rng(seed)
+    per = len(RECEIVERS[0][1])
+    start = np.sort(rng.uniform(52640.0, 63598.0, n // per))
+    lines = []
+    for i, mjd in enumerate(start):
+        fname, subbands = RECEIVERS[i % len(RECEIVERS)]
+        for j, f in enumerate(subbands):
+            m = mjd + j * 0.1 / 86400.0
+            day = int(m)
+            lines.append(TOALine(f"syn_{len(lines)}", float(f), day, m - day, 0.0, 1.0, "gbt",
+                                 {"f": fname, "fe": fname.split("_GUPPI")[0]}))
+    write_tim(lines, str(path))
+
+
+def compare_toas(got, want, label: str) -> dict:
+    """The prepared columns of two TOAs objects: TDB within 1 ps, positions
+    within 1 mm, velocities within 1e-4 m/s."""
+    import numpy as np
+
+    dt = ((got.tdb.day - want.tdb.day) * 86400.0
+          + ((got.tdb.frac_hi - want.tdb.frac_hi) + (got.tdb.frac_lo - want.tdb.frac_lo))
+          * 86400.0)
+    errs = {"tdb_s": float(np.max(np.abs(dt)))}
+    for k in ("ssb_obs_pos_m", "obs_sun_pos_m", "ssb_obs_vel_m_s"):
+        errs[k] = float(np.max(np.abs(getattr(got, k) - getattr(want, k))))
+    check(errs["tdb_s"] <= 1e-12, f"{label}: TDB within 1 ps ({errs['tdb_s']:.3g} s)")
+    for k in ("ssb_obs_pos_m", "obs_sun_pos_m"):
+        check(errs[k] <= 1e-3, f"{label}: {k} within 1 mm ({errs[k]:.3g} m)")
+    check(errs["ssb_obs_vel_m_s"] <= 1e-4,
+          f"{label}: ssb_obs_vel within 1e-4 m/s ({errs['ssb_obs_vel_m_s']:.3g} m/s)")
+    return errs
+
+
+def phase_prepare_scale(device, tmp: Path) -> dict:
+    """get_TOAs of PREPARE_N synthetic lines through the kernels and the
+    twins, with the wall of each stage."""
+    from pint_tpu_torch.toas import get_TOAs
+
+    tim = tmp / "synthetic.tim"
+    t0 = time.perf_counter()
+    synthetic_tim(tim, PREPARE_N)
+    print(f"  wrote {PREPARE_N} lines in {time.perf_counter() - t0:.2f} s")
+    # phase 14 has loaded both libraries and their tables: nothing here is one-time
+    t0 = time.perf_counter()
+    got = get_TOAs(str(tim), device=device)
+    wall = time.perf_counter() - t0
+    with twins():
+        t0 = time.perf_counter()
+        want = get_TOAs(str(tim), device=device)
+        twin_wall = time.perf_counter() - t0
+    check(len(got) == PREPARE_N, f"get_TOAs prepared {len(got)} TOAs")
+    errs = compare_toas(got, want, f"prepare N={PREPARE_N} kernels vs twins")
+    print("  stage walls (s), kernels: " + json.dumps(got.stage_s))
+    print("  stage walls (s), twins:   " + json.dumps(want.stage_s))
+    return {"n": PREPARE_N, "wall_s": wall, "stage_s": got.stage_s, "twin_wall_s": twin_wall,
+            "twin_stage_s": want.stage_s, "errs": errs}
+
+
+def flagship_tim_path(device, tmp: Path) -> dict:
+    """get_model_and_toas + build_tensor of the flagship par and .tim, in a
+    launch window of their own."""
+    from pint_tpu_torch.models import get_model_and_toas
+    from pint_tpu_torch.prepared import FLAGSHIP_TIM
+    from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR
+
+    par = tmp / "flagship.par"
+    par.write_text(FLAGSHIP_SMOKE_PAR)
+    out = {"launches": {}}
+    with counted(out["launches"]):
+        t0 = time.perf_counter()
+        model, toas = get_model_and_toas(str(par), str(FLAGSHIP_TIM), device=device)
+        tensor = model.build_tensor(toas)
+        sync(device)
+        out["wall_s"] = time.perf_counter() - t0
+    out.update(model=model, toas=toas, tensor=tensor, stage_s=toas.stage_s)
+    return out
+
+
+def check_against_archive(tensor, device) -> dict:
+    """The columns prepared from the .tim against the archive's."""
+    import torch
+
+    from pint_tpu_torch.prepared import FLAGSHIP_ARCHIVE, archive_meta, load_prepared
+
+    arch = load_prepared(FLAGSHIP_ARCHIVE, device=device)
+    check(list(tensor) == list(arch), f"the tensor has the archive's {len(arch)} columns")
+    dt = float(torch.max(torch.abs((tensor["t_hi"] - arch["t_hi"])
+                                   + (tensor["t_lo"] - arch["t_lo"]))))
+    check(dt <= 5e-12, f"t within 5 ps of the archive ({dt:.3g} s)")
+    stale = archive_meta(FLAGSHIP_ARCHIVE)["geom_stale_s"]
+    speed = torch.linalg.norm(arch["ssb_obs_vel_ls"], dim=1)
+    errs = {"t_s": dt}
+    for k in ("ssb_obs_pos_ls", "obs_sun_pos_ls"):
+        err = torch.linalg.norm(tensor[k] - arch[k], dim=1)
+        ok = bool(torch.all(err <= speed * stale + 1e-3 / C_M_PER_S))
+        errs[k + "_m"] = float(torch.max(err)) * C_M_PER_S
+        check(ok, f"{k} within 1 mm + |v| x {stale:.3g} s of the archive "
+                  f"(at most {errs[k + '_m']:.4g} m)")
+    for k in arch:
+        if k.startswith(("mask_", "ecorr_")):
+            check(torch.equal(tensor[k], arch[k]), f"{k} equal to the archive's")
+    errs["freq_mhz"] = float(torch.max(torch.abs(tensor["freq_mhz"] - arch["freq_mhz"])))
+    print(f"  freq_mhz within {errs['freq_mhz']:.3g} MHz of the archive's (six decimals)")
+    return errs
+
+
+def sigma_diff(ftr, ref) -> tuple[float, str]:
+    vals, rv, unc = ftr.values(), ref.values(), ref.result.uncertainties
+    worst = max(vals, key=lambda n: abs(vals[n] - rv[n]) / unc[n])
+    return abs(vals[worst] - rv[worst]) / unc[worst], worst
+
+
+def k4_record(n: int, device, reps: int) -> dict:
+    """K4 over n epochs at GBT (the main path: the flagship's 16,384 TOAs)."""
+    import torch
+
+    from pint_tpu_torch.astro import device_prepare as dp
+
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    args = (GBT_ITRF, *(t(a) for a in prepare_epochs(n)))
+    ms, call = measure(lambda: dp.site_geometry(*args), device, reps, K4_KERNEL)
+    plain, plain_call = measure(lambda: dp.site_geometry_plain(*args), device, 3)
+    # read UT1, TT, xp, yp; write pos and vel
+    b, how = bound_ms(n * 10 * 8, n * K4_OPS_PER_EPOCH)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+            "call_ms": call, "plain_call_ms": plain_call, "shape": f"N={n}"}
+
+
+def k5_record(n: int, device, reps: int) -> dict:
+    """K5 over n epochs for the prepare's bodies (Earth, Sun)."""
+    import torch
+
+    from pint_tpu_torch.astro import device_prepare as dp
+    from pint_tpu_torch.astro.ephemeris import pack_tables
+
+    T = torch.as_tensor((prepare_epochs(n)[0] - 51544.5) / 36525.0, dtype=torch.float64,
+                        device=device)
+    bodies = ("earth", "sun")
+    ms, call = measure(lambda: dp.analytic_ephemeris(bodies, T), device, reps, K5_KERNELS)
+    plain, plain_call = measure(lambda: dp.analytic_ephemeris_plain(bodies, T), device, 2)
+    # read T and the table once; write pos and vel of each body
+    b, how = bound_ms(n * 8 + pack_tables()[0].size * 8 + n * len(bodies) * 6 * 8,
+                      n * k5_ops_per_epoch(bodies))
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+            "call_ms": call, "plain_call_ms": plain_call, "shape": f"N={n} bodies=earth,sun"}
+
+
+def prepare_phases(device, summary: dict, flagship: dict) -> dict:
+    """Phases 14-17: the port's TOA prepare and the flagship fit from a .tim."""
+    from pint_tpu_torch.prepared import FLAGSHIP_ARCHIVE, load_prepared
+
+    print("phase 14: K4 site_geometry and K5 analytic_ephemeris against their twins")
+    errs = phase_k45(device)
+    with tempfile.TemporaryDirectory() as tmpname:
+        tmp = Path(tmpname)
+        print(f"phase 15: get_TOAs of {PREPARE_N} synthetic lines, kernels and twins")
+        scale = phase_prepare_scale(device, tmp)
+
+        print("phase 16: get_model_and_toas + build_tensor of the flagship par and .tim")
+        main = flagship_tim_path(device, tmp)
+        pl = main["launches"]
+        want = 2 if device.type == "cuda" else 0  # the CPU takes the twins
+        for name in ("site_geometry", "analytic_ephemeris"):
+            check(pl[name] == want, f"{name} launched {pl[name]} times (the TOAs and the TZR row)")
+        print("  stage walls (s): " + json.dumps(main["stage_s"])
+              + f"; get_model_and_toas + build_tensor {main['wall_s']:.3f} s")
+        arch_errs = check_against_archive(main["tensor"], device)
+        with twins():
+            twin = flagship_tim_path(device, tmp)
+
+        print("phase 17: GLS fit and (M2, SINI) grid from the .tim's TOAs")
+        run = run_main_path(fresh_fitter(main["tensor"], device, flagship=True), device)
+        fit_l, grid_l = run["fit_launches"], run["grid_launches"]
+        for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
+            for what, counts in (("fit_toas", fit_l), ("grid_chisq", grid_l)):
+                check(counts[name] > 0 or device.type != "cuda",
+                      f"{name} launched {counts[name]} times by the {what}")
+        with twins():
+            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, flagship=True), device)
+        check_fit(run, twin_run, "tim GLS")
+        worst_g = check_grid(run, twin_run, "tim")
+        raw, raw_name = sigma_diff(run["fitter"], flagship["fitter"])
+        print(f"  against phase 11's fit from the archive: {raw:.3g} sigma ({raw_name}; the "
+              "tim's six-decimal frequencies)")
+        arch = load_prepared(FLAGSHIP_ARCHIVE, device=device)
+        arch["freq_mhz"] = main["tensor"]["freq_mhz"].clone()
+        same_freq = run_main_path(fresh_fitter(arch, device, flagship=True), device)
+        worst, name = sigma_diff(run["fitter"], same_freq["fitter"])
+        check(worst <= 1e-3, f"tim fit within 1e-3 sigma of the archive's fit with the tim's "
+                             f"frequencies ({worst:.3g} sigma, {name})")
+    res = run["fitter"].result
+    summary["prepare"] = {
+        "scale": scale, "flagship_stage_s": main["stage_s"],
+        "flagship_prepare_wall_s": main["wall_s"], "twin_prepare_wall_s": twin["wall_s"],
+        "archive_errs": arch_errs, "k45_errs": errs,
+        "tim_fit": {"fit_wall_s": run["fit_s"], "grid_wall_s": run["grid_s"],
+                    "fit_iterations": res.iterations, "fit_chi2_reduced": res.reduced_chi2,
+                    "grid_rel_err": worst_g, "vs_archive_sigma": raw,
+                    "vs_archive_same_freq_sigma": worst,
+                    "grid_chi2": run["chi2"].tolist()}}
+    n = len(main["toas"])
+    recs = {"site_geometry": k4_record(n, device, 50),
+            "analytic_ephemeris": k5_record(n, device, 20)}
+    for name, record in (("site_geometry", k4_record), ("analytic_ephemeris", k5_record)):
+        recs[name].update({f"scale_{k}": v for k, v in record(PREPARE_N, device, 5).items()
+                           if k in ("ms", "call_ms", "plain_ms", "bound_ms", "shape")})
+    out_errs = {"site_geometry": errs["k4_pos_err_m"],
+                "analytic_ephemeris": max(errs["k5_2_pos_err_m"], errs["k5_11_pos_err_m"])}
+    return {"recs": recs, "errs": out_errs, "prepare": pl, "fit": fit_l, "grid": grid_l}
+
 
 
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-13 on `device_name`; returns the summary record."""
+    """Phases 2-17 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -763,16 +1109,22 @@ def phases(device_name: str = "cuda") -> dict:
             print(f"    {fn}: {regs} registers, {spill} bytes of spill stores")
     smoke = smoke_phases(device, summary)
     flag = flagship_phases(device, summary)
+    prep = prepare_phases(device, summary, flag)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
-               "flagship_fit": flag["fit"], "flagship_grid": flag["grid"]}
+               "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
+               "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"]}
     kernels = []
     for name, src, replaces in KERNELS:
-        rec = {**smoke["recs"].get(name, {}), **flag["recs"].get(name, {})}
-        err = max(smoke["errs"].get(name, 0.0), flag["errs"].get(name, 0.0))
+        rec = {**smoke["recs"].get(name, {}), **flag["recs"].get(name, {}),
+               **prep["recs"].get(name, {})}
+        err = max(r["errs"].get(name, 0.0) for r in (smoke, flag, prep))
+        ptxas = summary.get("ptxas_instances", {}).get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(w[name] for w in windows.values()),
                         **{f"launches_{k}": w[name] for k, w in windows.items()},
-                        "max_abs_err": err, **rec})
+                        "max_abs_err": err, **rec,
+                        "ptxas": {fn: {"registers": r, "spill_store_bytes": sp}
+                                  for fn, (r, sp) in ptxas.items()}})
     summary["kernels"] = kernels
     return summary
 
@@ -787,6 +1139,9 @@ def main() -> int:
         print(f"chip_smoke: {REPO} holds no pint_tpu_torch package", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    # the analytic ephemeris, in the port and in pint_tpu alike (the port
+    # refuses pint_tpu's default N-body window until slice 4)
+    os.environ["PINT_TPU_NBODY"] = "0"
     print("phase 1: device")
     dev_line = device_line()
     print(dev_line)

@@ -37,3 +37,17 @@ OBLIQUITY_J2000_ARCSEC = 84381.406
 
 # integer MJD origin of the device-side dd seconds (pint_tpu.toas)
 TENSOR_EPOCH_MJD = 55000
+
+# planetary GM (m^3/s^2), DE440-family values, as in pint_tpu
+GM_BODY = {
+    "mercury": 2.2031868551e13,
+    "venus": 3.24858592e14,
+    "earth": 3.98600435507e14,
+    "moon": 4.902800118e12,
+    "mars": 4.2828375816e13,  # mars system
+    "jupiter": 1.26712764100e17,  # jupiter system
+    "saturn": 3.7940584841800e16,  # saturn system
+    "uranus": 5.794556400e15,
+    "neptune": 6.8365271005800e15,
+}
+EARTH_MOON_MASS_RATIO = 81.3005682214972154

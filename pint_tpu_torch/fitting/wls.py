@@ -31,7 +31,7 @@ from pint_tpu_torch.models.timing_model import TimingModel
 from pint_tpu_torch.ops.dd import DD, dd_elementwise
 from pint_tpu_torch.ops.xprec import params_to_dd
 from pint_tpu_torch.residuals import (Residuals, phase_resid_tangents, phase_residual_frac,
-                                      weighted_mean)
+                                      tensor_of, weighted_mean)
 
 log = logging.getLogger("pint_tpu_torch.fitting")
 
@@ -209,10 +209,10 @@ class WLSFitter:
     """Iterated linear WLS (Gauss-Newton without damping). `toas` is the
     prepared TOA tensor dict (``prepared.load_prepared``)."""
 
-    def __init__(self, toas: dict, model: TimingModel, residuals: Residuals | None = None):
-        self.toas = toas
+    def __init__(self, toas, model: TimingModel, residuals: Residuals | None = None):
+        self.toas = tensor_of(toas, model)
         self.model = model
-        self.resids = residuals or Residuals(toas, model)
+        self.resids = residuals or Residuals(self.toas, model)
         self.tensor = self.resids.tensor
         self._free = tuple(model.free_params)
         self.result: FitResult | None = None

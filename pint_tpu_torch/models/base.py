@@ -2,8 +2,9 @@
 
 `Component` instances are static structure (which parameters exist, how
 many Taylor terms); parameter values are a flat dict of float64 tensors
-threaded through plain functions; the TOA side is the prepared tensor dict
-(``prepared.load_prepared``) with the TZR fiducial TOA as its last row.
+threaded through plain functions; the TOA side is the tensor dict
+(``TimingModel.build_tensor`` of prepared TOAs, or a prepared archive) with
+the TZR fiducial TOA as its last row.
 
 Delay components return float64 seconds; phase components return DD turns.
 Rows are the LAST dimension of every per-TOA tensor, so a parameter dict
@@ -147,6 +148,12 @@ class Component:
 
     def validate(self, params: dict, meta: dict) -> None:
         """Raise on inconsistent configuration."""
+
+    def host_columns(self, toas, params: dict) -> dict[str, np.ndarray]:
+        """Per-TOA host arrays this component needs in the tensor: one
+        ``mask_<name>`` column per mask parameter."""
+        return {f"mask_{mp.name}": mp.clause.select(toas).astype(np.float64)
+                for mp in self.mask_params}
 
     def delay(self, params: dict, tensor: dict, delay_so_far, xp):
         """Additional delay in seconds (float64) given the accumulated delay."""

@@ -4,8 +4,9 @@ AstrometryEquatorial, SolarSystemShapiro, DispersionDM, PulsarBinary (ELL1),
 Spindown, AbsPhase, ScaleToaError, EcorrNoise).
 
 Mask parameters (``EFAC -f Rcvr1_2_GUPPI 1.02``) number per family in
-parfile order (EFAC1, EFAC2, ...) as in pint_tpu, so that they read the
-archive's ``mask_<name>`` columns; the port builds no mask from flags.
+parfile order (EFAC1, EFAC2, ...) as in pint_tpu; each reads the tensor
+column ``mask_<name>`` that ``TimingModel.build_tensor`` selects from the
+TOAs' flags (or that a prepared archive carries).
 
 A parfile that selects any other component raises NotImplementedError
 naming the ROADMAP item that ports it. Parameter values become float64
@@ -82,6 +83,17 @@ def get_model(parfile: str, from_text: bool = False, device=None) -> TimingModel
     """Parfile path (or text with from_text=True) -> TimingModel on `device`
     (CUDA unless 'cpu' is asked for)."""
     return build_model(parse_parfile(parfile, from_text=from_text), device=device)
+
+
+def get_model_and_toas(parfile: str, timfile: str, device=None, **kw):
+    """(model, TOAs) from a parfile and a .tim file on `device` (CUDA unless
+    'cpu'): the model's EPHEM, PLANET_SHAPIRO and CLK directives steer the
+    prepare as in pint_tpu (``toas.get_TOAs``)."""
+    from pint_tpu_torch.toas import get_TOAs
+
+    model = get_model(parfile, device=resolve_device(device))
+    toas = get_TOAs(timfile, model=model, device=model.device, **kw)
+    return model, toas
 
 
 def build_model(pf: ParFile, device=None) -> TimingModel:
@@ -242,7 +254,8 @@ def _collect_mask_params(comp: Component, base_spec: ParamSpec, pf: ParFile,
         name = f"{base_spec.name}{i}"
         spec = ParamSpec(name, kind=base_spec.kind, scale=base_spec.scale,
                          unit=base_spec.unit,
-                         description=f"{base_spec.name} on {' '.join(clause)}")
+                         description=f"{base_spec.name} on "
+                                     f"{' '.join(clause.as_parfile_tokens())}")
         comp.mask_params.append(MaskParamInfo(name=name, base=base_spec.name, index=i,
                                               clause=clause, spec=spec))
         comp.specs[name] = spec

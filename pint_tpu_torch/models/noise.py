@@ -12,18 +12,24 @@ Noise enters a fit through two surfaces:
   Woodbury algebra of ``fitting/woodbury.py`` (and kernel K3) never builds
   the (N, k_epoch) membership matrix.
 
-The epoch grouping is host work of the TOA prepare; the port reads its
-result from the prepared archive (``ecorr_eidx``, ``ecorr_widx``) and does
-not rebuild it. The power-law Fourier bases (PLRedNoise, PLDMNoise,
-PLGWBNoise) are not ported yet (ROADMAP A9, A12).
+The epoch grouping is host work of ``TimingModel.build_tensor``
+(``EcorrNoise.host_columns``, on the prepared TDB); a prepared archive
+carries its result (``ecorr_eidx``, ``ecorr_widx``). The power-law
+Fourier bases (PLRedNoise, PLDMNoise, PLGWBNoise) are not ported yet
+(ROADMAP A9, A12).
 """
 
 from __future__ import annotations
 
+import logging
+
+import numpy as np
 import torch
 
 from pint_tpu_torch.models.base import Component, leaf_to_f64
 from pint_tpu_torch.models.parameter import ParamSpec
+
+log = logging.getLogger("pint_tpu_torch.noise")
 
 
 def hypot(x, y):
@@ -81,6 +87,24 @@ class ScaleToaError(NoiseComponent):
         return sigma
 
 
+def _quantize_epochs(t_s: np.ndarray, dt: float = 1.0, nmin: int = 2) -> list[np.ndarray]:
+    """Group times into buckets separated by > dt seconds, keeping buckets
+    with >= nmin members (NANOGrav ECORR epochs: simultaneous sub-band TOAs
+    within ~1 s)."""
+    if len(t_s) == 0:
+        return []
+    isort = np.argsort(t_s)
+    buckets = [[isort[0]]]
+    ref = t_s[isort[0]]
+    for i in isort[1:]:
+        if t_s[i] - ref < dt:
+            buckets[-1].append(i)
+        else:
+            buckets.append([i])
+            ref = t_s[i]
+    return [np.asarray(b) for b in buckets if len(b) >= nmin]
+
+
 class EcorrNoise(NoiseComponent):
     """Epoch-correlated white noise: a fully correlated error within each
     observing epoch of a backend. The archive carries the epoch of every
@@ -96,6 +120,39 @@ class EcorrNoise(NoiseComponent):
     def mask_bases(cls):
         return [ParamSpec("ECORR", scale=1e-6, unit="us", aliases=("TNECORR",),
                           description="epoch-correlated error")]
+
+    def host_columns(self, toas, params):
+        """The mask columns, then each row's epoch (``ecorr_eidx``, -1 for
+        none) and each epoch's ECORR parameter (``ecorr_widx``), grouped on
+        the prepared TDB. Zero-error rows (the TZR row) join no epoch; where
+        two ECORR selections overlap, the first keeps the rows."""
+        cols = super().host_columns(toas, params)
+        t_s = toas.tdb.mjd_float() * 86400.0
+        n = len(toas)
+        real = np.asarray(toas.error_us) > 0
+        eidx = np.full(n, -1.0)
+        widx: list[int] = []
+        k = 0
+        for pi, mp in enumerate(self.mask_params):
+            mask = np.flatnonzero((cols[f"mask_{mp.name}"] > 0) & real)
+            for bucket in _quantize_epochs(t_s[mask]):
+                rows = mask[bucket]
+                taken = eidx[rows] >= 0
+                if taken.any():
+                    log.warning(f"{int(taken.sum())} TOAs already in an ECORR epoch; "
+                                f"{mp.name} keeps only the unclaimed ones")
+                    rows = rows[~taken]
+                    if len(rows) < 2:
+                        continue
+                eidx[rows] = k
+                widx.append(pi)
+                k += 1
+        if k == 0:
+            log.warning("ECORR present but no epoch has >= 2 selected TOAs")
+        cols["ecorr_eidx"] = eidx
+        cols["ecorr_widx"] = (np.asarray(widx, np.float64)[None, :] if widx
+                              else np.zeros((1, 0)))
+        return cols
 
     def basis_and_weights(self, params, tensor, sl):
         widx_arr = tensor["ecorr_widx"]

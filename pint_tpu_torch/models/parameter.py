@@ -151,24 +151,65 @@ class PrefixSpec:
         return None
 
 
-def parse_mask_clause(tokens: list[str]) -> tuple[tuple[str, ...], list[str]]:
+@dataclass
+class MaskClause:
+    """The selection clause of a mask parameter (pint_tpu's MaskClause):
+    kind "all", "mjd" (TDB MJD range), "freq" (MHz range), "tel"
+    (observatory) or "flag" (``-key value``)."""
+
+    kind: str
+    key: str = ""  # flag name for kind == "flag"
+    args: tuple = ()
+
+    def select(self, toas) -> np.ndarray:
+        """Dense boolean mask over a host TOAs object."""
+        n = len(toas)
+        if self.kind == "all":
+            return np.ones(n, bool)
+        if self.kind == "mjd":
+            lo, hi = float(self.args[0]), float(self.args[1])
+            m = toas.tdb.mjd_float()
+            return (m >= lo) & (m <= hi)
+        if self.kind == "freq":
+            lo, hi = float(self.args[0]), float(self.args[1])
+            return (toas.freq_mhz >= lo) & (toas.freq_mhz <= hi)
+        if self.kind == "tel":
+            from pint_tpu_torch.astro.observatories import get_observatory
+
+            return toas.obs == get_observatory(str(self.args[0])).name
+        if self.kind == "flag":
+            want = str(self.args[0])
+            return np.array([f.get(self.key) == want for f in toas.flags], bool)
+        raise ValueError(f"unknown mask clause kind {self.kind}")
+
+    def as_parfile_tokens(self) -> list[str]:
+        if self.kind == "mjd":
+            return ["MJD", str(self.args[0]), str(self.args[1])]
+        if self.kind == "freq":
+            return ["FREQ", str(self.args[0]), str(self.args[1])]
+        if self.kind == "tel":
+            return ["TEL", str(self.args[0])]
+        if self.kind == "flag":
+            return [f"-{self.key}", str(self.args[0])]
+        return []
+
+
+def parse_mask_clause(tokens: list[str]) -> tuple[MaskClause, list[str]]:
     """Split a mask-parameter line (``EFAC -f Rcvr1_2_GUPPI 1.02``, ``JUMP MJD
     57000 57100 0.1``, ``JUMP FREQ 1000 2000 0.1``, ``JUMP TEL ao 0.1``) into
-    its selection clause and the remaining ``value [fit [unc]]`` tokens. The
-    port keeps the clause as text only: the masks it selects are columns of
-    the prepared archive, made by the TOA prepare."""
+    its selection clause and the remaining ``value [fit [unc]]`` tokens."""
     if not tokens:
         raise ValueError("empty mask parameter line")
     head = tokens[0].upper()
-    if tokens[0].startswith("-") or head in ("TEL", "T"):
-        n = 2
-    elif head in ("MJD", "FREQ"):
-        n = 3
-    else:
-        raise ValueError(f"unrecognized mask selection {tokens[:2]}")
-    if len(tokens) < n:
-        raise ValueError(f"incomplete mask selection {tokens}")
-    return tuple(tokens[:n]), tokens[n:]
+    if tokens[0].startswith("-"):
+        return MaskClause("flag", key=tokens[0][1:], args=(tokens[1],)), tokens[2:]
+    if head == "MJD":
+        return MaskClause("mjd", args=(float(tokens[1]), float(tokens[2]))), tokens[3:]
+    if head == "FREQ":
+        return MaskClause("freq", args=(float(tokens[1]), float(tokens[2]))), tokens[3:]
+    if head in ("TEL", "T"):
+        return MaskClause("tel", args=(tokens[1],)), tokens[2:]
+    raise ValueError(f"unrecognized mask selection {tokens[:2]}")
 
 
 @dataclass
@@ -180,7 +221,7 @@ class MaskParamInfo:
     name: str
     base: str
     index: int
-    clause: tuple[str, ...]
+    clause: MaskClause
     spec: ParamSpec | None = None
 
 

@@ -11,10 +11,12 @@ which computes the same chain per TOA on the card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pint_tpu_torch.models.base import DEFAULT_ORDER, Component
 from pint_tpu_torch.models.parameter import ParamValueMeta
+from pint_tpu_torch.ops.dd import device_split
 from pint_tpu_torch.ops.xprec import DD64
 
 # params that configure host-side tensor construction and cannot be fitted
@@ -84,6 +86,43 @@ class TimingModel:
     def validate(self) -> None:
         for c in self.components:
             c.validate(self.params, self.meta)
+
+    # --- the tensor (host columns -> float64 tensors on the model's device) ------
+
+    def build_tensor(self, toas) -> dict:
+        """Prepared TOAs -> the dict of float64 tensors on the model's device
+        that the forward chain reads: the TZR fiducial TOA, prepared through
+        the same pipeline (K4 and K5 on the card), appended as the last row;
+        TDB as double-double seconds (``device_split``); every component's
+        host columns. The TZR row belongs to no mask. Columns the port does
+        not read yet (planet positions, wideband DMs) raise."""
+        from pint_tpu_torch.prepared import tensor_from_numpy
+        from pint_tpu_torch.toas import make_tzr_toa, merge_TOAs
+
+        if toas.is_wideband:
+            raise NotImplementedError("wideband TOAs (-pp_dm): not ported yet, ROADMAP A10")
+        full = toas
+        if self.has_abs_phase:
+            tzr = make_tzr_toa(self.meta["TZR_DAY"], self.meta["TZR_HI"], self.meta["TZR_LO"],
+                               self.meta.get("TZRSITE", "ssb"),
+                               self.meta.get("TZRFRQ", float("inf")),
+                               ephem=toas.ephem, planets=toas.planets, device=self.device)
+            full = merge_TOAs([toas, tzr])
+        tens = full.tensor()
+        t_hi, t_lo = device_split(tens.t_hi, tens.t_lo)
+        out = {"t_hi": t_hi, "t_lo": t_lo, "error_s": tens.error_s, "freq_mhz": tens.freq_mhz,
+               "ssb_obs_pos_ls": tens.ssb_obs_pos_ls, "ssb_obs_vel_ls": tens.ssb_obs_vel_ls,
+               "obs_sun_pos_ls": tens.obs_sun_pos_ls}
+        for p, arr in tens.planet_pos_ls.items():
+            out[f"obs_{p}_pos_ls"] = arr
+        n_rows = t_hi.shape[0]
+        for c in self.components:
+            for k, col in c.host_columns(full, self.params).items():
+                col = np.array(col, np.float64)
+                if self.has_abs_phase and k.startswith("mask_") and col.shape[:1] == (n_rows,):
+                    col[-1] = 0.0
+                out[k] = col
+        return tensor_from_numpy(out, self.device)
 
     # --- the noise surface (models/noise.py) ---------------------------------------
 

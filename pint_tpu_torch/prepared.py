@@ -1,4 +1,5 @@
-"""Prepared-TOA archives: the port's input until it has its own TOA prepare.
+"""Prepared-TOA archives: the input of the port's first two slices, and the
+reference its own TOA prepare (``toas.py``) is checked against.
 
 pint_tpu prepares TOAs on the host (clock chain, TDB, ephemeris, observatory
 geometry) and hands the device ONE dict of per-row columns,
@@ -45,6 +46,9 @@ ECORR_COLUMNS = ("ecorr_eidx", "ecorr_widx")
 SMOKE_ARCHIVE = Path(__file__).resolve().parent / "data" / "smoke_n16384.npz"
 #: profiles.FLAGSHIP_SMOKE_PAR over 16,384 sub-band TOAs in 2,048 epochs
 FLAGSHIP_ARCHIVE = Path(__file__).resolve().parent / "data" / "flagship_n16384.npz"
+#: the same TOAs as a .tim file (pint_tpu's TOAs.write_tim of the raw site
+#: UTC), the input of the port's own TOA prepare (toas.get_TOAs)
+FLAGSHIP_TIM = Path(__file__).resolve().parent / "data" / "flagship_n16384.tim"
 
 
 def carried(names) -> list[str]:

@@ -282,11 +282,19 @@ def data_errors(model: TimingModel, tensor: dict) -> torch.Tensor:
     return err[:-1] if model.has_abs_phase else err
 
 
-class Residuals:
-    """Residuals of a model against a prepared TOA tensor (the port's stand-in
-    for pint_tpu's TOAs object, ``prepared.load_prepared``)."""
+def tensor_of(toas, model: TimingModel) -> dict:
+    """The tensor dict of `toas`: a dict as it is (``prepared.load_prepared``,
+    ``TimingModel.build_tensor``), prepared TOAs (``toas.TOAs``) through
+    ``model.build_tensor``."""
+    return toas if isinstance(toas, dict) else model.build_tensor(toas)
 
-    def __init__(self, toas: dict, model: TimingModel, subtract_mean: bool = True):
+
+class Residuals:
+    """Residuals of a model against TOAs: a tensor dict, or prepared TOAs
+    (``toas.get_TOAs``), whose tensor is built once here."""
+
+    def __init__(self, toas, model: TimingModel, subtract_mean: bool = True):
+        toas = tensor_of(toas, model)
         dev = toas["t_hi"].device
         if model.device is not None and torch.device(model.device) != dev:
             raise ValueError(f"model on {model.device} but TOAs on {dev}")

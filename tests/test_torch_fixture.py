@@ -16,6 +16,7 @@ the other ``tests/test_torch_*.py`` files.
 
 from __future__ import annotations
 
+import functools
 import os
 import subprocess
 import sys
@@ -68,8 +69,10 @@ def export(n: int = ARCHIVE_N, seed: int = ARCHIVE_SEED):
     return cols, {"n": n, "seed": seed, "rows": n + 1, **ARCHIVE_RECIPE}
 
 
+@functools.lru_cache(maxsize=2)
 def flagship_dataset(n: int, seed: int = FLAGSHIP_SEED):
-    """(pint_tpu model, toas, build_tensor dict) of the flagship profile."""
+    """(pint_tpu model, toas, build_tensor dict) of the flagship profile,
+    made once per (n, seed) in a process: callers must not modify it."""
     from pint_tpu.profiles import flagship_smoke_dataset
 
     model, toas = flagship_smoke_dataset(n, seed=seed)
@@ -80,10 +83,14 @@ def flagship_export(n: int = ARCHIVE_N, seed: int = FLAGSHIP_SEED):
     """(numpy columns, meta) of a fresh flagship export."""
     from pint_tpu_torch.prepared import carried
 
-    _, _, tens = flagship_dataset(n, seed)
+    _, toas, tens = flagship_dataset(n, seed)
     cols = {k: np.asarray(tens[k], np.float64) for k in carried(tens)}
     ke = int(cols["ecorr_widx"].shape[1])
-    return cols, {"n": n, "seed": seed, "rows": n + 1, "epochs": ke, **FLAGSHIP_RECIPE}
+    # pint_tpu's fake-TOA iteration reuses the geometry columns across
+    # sub-10-us time shifts and records the total shift: the positions are
+    # those of times up to geom_stale_s away from the archive's t
+    return cols, {"n": n, "seed": seed, "rows": n + 1, "epochs": ke,
+                  "geom_stale_s": float(toas.geom_stale_s), **FLAGSHIP_RECIPE}
 
 
 def flagship_pair(n: int = 1024, seed: int = FLAGSHIP_SEED):
@@ -153,6 +160,49 @@ def test_flagship_archive_matches_fresh_export():
     assert got["t_hi"].shape[0] == meta["rows"]
 
 
+def test_flagship_tim_matches_fresh_export(tmp_path):
+    """The committed .tim parses to the lines of a fresh export (the
+    provenance C lines differ, so lines and not bytes are compared)."""
+    from pint_tpu.io.tim import parse_tim
+    from pint_tpu_torch.prepared import FLAGSHIP_TIM
+
+    _, toas, _ = flagship_dataset(ARCHIVE_N)
+    toas.write_tim(str(tmp_path / "fresh.tim"))
+    fresh, committed = parse_tim(str(tmp_path / "fresh.tim")), parse_tim(str(FLAGSHIP_TIM))
+    assert len(committed.toas) == ARCHIVE_N
+    assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
+
+
+def test_flagship_tim_prepares_to_the_archive(tmp_path, monkeypatch):
+    """pint_tpu's prepare of the committed .tim gives the archive's columns:
+    t (hi + lo) within 5 ps (the tim's 16 decimals of a day round each UTC
+    by <= 4.3 ps), masks and ECORR columns exact, positions within 1 mm
+    plus the archive's recorded geometry staleness: the fake-TOA iteration
+    that made it moved the times by up to ``geom_stale_s`` (4.1 us) without
+    recomputing the positions, which are thus up to |v| geom_stale_s
+    (~0.12 m) from those of its own times."""
+    from pint_tpu.toas import get_TOAs
+    from pint_tpu_torch.prepared import FLAGSHIP_ARCHIVE, FLAGSHIP_TIM, archive_meta
+
+    monkeypatch.setenv("PINT_TPU_CACHE_DIR", str(tmp_path))
+    model, _, _ = flagship_dataset(ARCHIVE_N)
+    tens = model.build_tensor(get_TOAs(str(FLAGSHIP_TIM), model=model))
+    with np.load(FLAGSHIP_ARCHIVE) as z:
+        arch = {k: z[k] for k in z.files if k != "meta"}
+    dt = (np.asarray(tens["t_hi"]) - arch["t_hi"]) + (np.asarray(tens["t_lo"]) - arch["t_lo"])
+    assert np.max(np.abs(dt)) <= 5e-12
+    stale = archive_meta(FLAGSHIP_ARCHIVE)["geom_stale_s"]
+    assert 0 < stale < 1e-5
+    speed = np.linalg.norm(arch["ssb_obs_vel_ls"], axis=1)  # light-seconds per second
+    for k in ("ssb_obs_pos_ls", "obs_sun_pos_ls"):
+        err = np.linalg.norm(np.asarray(tens[k]) - arch[k], axis=1)
+        assert np.all(err <= speed * stale + 1e-3 / 299792458.0), k
+    noise = [k for k in arch if k.startswith(("mask_", "ecorr_"))]
+    assert len(noise) == 8
+    for k in noise:
+        assert np.array_equal(np.asarray(tens[k]), arch[k]), k
+
+
 def test_bridge_round_trips_noise_columns():
     """mask_*, ecorr_eidx and ecorr_widx of the flagship tensor cross the
     bridge exactly, and the port's model reads the same noise parameters."""
@@ -212,6 +262,11 @@ def test_port_imports_no_jax_and_nothing_of_pint_tpu():
         "import sys\n"
         "import pint_tpu_torch, pint_tpu_torch.fitting, pint_tpu_torch.gridutils\n"
         "import pint_tpu_torch.prepared, pint_tpu_torch.ops.build, pint_tpu_torch.profiles\n"
+        "import pint_tpu_torch.toas, pint_tpu_torch.io.tim, pint_tpu_torch.astro.time\n"
+        "import pint_tpu_torch.astro.clock, pint_tpu_torch.astro.observatories\n"
+        "import pint_tpu_torch.astro.eop, pint_tpu_torch.astro.erot, pint_tpu_torch.astro.vsop87\n"
+        "import pint_tpu_torch.astro.vsop87_planets, pint_tpu_torch.astro.ephemeris\n"
+        "import pint_tpu_torch.astro.device_prepare\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pint_tpu' or m.startswith('pint_tpu.'))\n"
@@ -237,16 +292,30 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         params_from_numpy({"F0": 1.0})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_model(SMOKE_PAR, from_text=True, device="cuda")
+    from pint_tpu_torch.io.tim import TOALine
+    from pint_tpu_torch.models import get_model_and_toas
+    from pint_tpu_torch.prepared import FLAGSHIP_TIM
+    from pint_tpu_torch.toas import get_TOAs, prepare_TOAs
+
+    line = TOALine("x", 1400.0, 57000, 0.25, 0.0, 1.0, "gbt")
+    for call in (lambda: get_TOAs(str(FLAGSHIP_TIM)), lambda: prepare_TOAs([line]),
+                 lambda: get_model_and_toas("unused.par", str(FLAGSHIP_TIM))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     assert get_model(SMOKE_PAR, from_text=True, device="cpu").device.type == "cpu"
 
 
 def _write_archive() -> None:
-    from pint_tpu_torch.prepared import FLAGSHIP_ARCHIVE, SMOKE_ARCHIVE, save_prepared
+    from pint_tpu_torch.prepared import (FLAGSHIP_ARCHIVE, FLAGSHIP_TIM, SMOKE_ARCHIVE,
+                                         save_prepared)
 
     for path, (cols, meta) in ((SMOKE_ARCHIVE, export()), (FLAGSHIP_ARCHIVE, flagship_export())):
         path.parent.mkdir(parents=True, exist_ok=True)
         save_prepared(path, cols, meta)
         print(f"wrote {path} ({path.stat().st_size} bytes, {meta['rows']} rows)")
+    _, toas, _ = flagship_dataset(ARCHIVE_N)
+    toas.write_tim(str(FLAGSHIP_TIM))
+    print(f"wrote {FLAGSHIP_TIM} ({FLAGSHIP_TIM.stat().st_size} bytes, {len(toas)} TOAs)")
 
 
 if __name__ == "__main__":
