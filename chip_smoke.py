@@ -51,8 +51,8 @@ EFAC/EQUAD/ECORR; 16,384 TOAs in 2,048 ECORR epochs, 14 free parameters):
 13. kernel times at the flagship shapes, and the warm wall and busy share
    of one flagship fit + grid, as in phase 8.
 
-Then the port's own TOA prepare (``PINT_TPU_NBODY=0`` for the whole
-process: the analytic ephemeris):
+Then the port's own TOA prepare under the analytic ephemeris
+(``PINT_TPU_NBODY=0`` for phases 15-17, set around them):
 
 14. K4 ``site_geometry`` and K5 ``analytic_ephemeris`` against their twins
    at N = 131,072 epochs (1995-2035, GBT, polar motion of ~0.3 arcsec; K5
@@ -76,16 +76,53 @@ process: the analytic ephemeris):
    decimals, up to 4.3e-7 MHz from the archive's; that rounding alone moves
    DM by ~1e-3 sigma, printed apart).
 
+Then pint_tpu's default ephemeris, the N-body window (no ``PINT_TPU_NBODY``
+setting, the window and pack caches in a temporary directory):
+
+18. the flagship's 12-year window (t0 0.15 jcent, 8,767 half-day samples of
+   10 bodies) built on the host and timed, and its Chebyshev pack snapshot
+   (11 bodies, 14 coefficients); K6 ``nbody_serve`` against its twin at
+   N = 131,072 epochs over the window (a quarter on grid nodes, both ends),
+   all 10 bodies, and the EMB formed after it; K7 ``chebyshev_eval`` against
+   its twin on that pack and on the pack of ``tests/data/mini_de.bsp`` (every
+   record edge, both ends): within 1e-6 m and 1e-9 m/s (bitwise expected:
+   the twins sum in the kernels' order), and K7 on the mini kernel within
+   1 mm and 1e-7 m/s of the host SPK reader;
+19. ``get_model_and_toas`` of the flagship par and
+   ``pint_tpu_torch/data/flagship_n16384_nbody.tim`` (the same dataset
+   simulated under the N-body window) and ``build_tensor``: K6 and K4
+   launched twice (the TOAs and the TZR row), K5 and K7 not at all, the
+   window of phase 18 served (built once); columns within phase 16's bounds
+   of the same path through the twins;
+20. the GLS fit and (M2, SINI) grid from those TOAs, gated as in phases
+   11-12 against the twin path (chi^2/dof in [0.8, 1.2]);
+21. ``PINT_TPU_KERNEL_EPHEM=1``: the same prepare served from phase 18's pack
+   by K7 (launched twice, K6 not at all), within phase 16's bounds of its twin
+   path; the Earth within 10 m and 1e-3 m/s of phase 19's and the fit within
+   0.1 sigma of phase 20's (a Chebyshev record cannot follow the window's C1
+   Hermite serve closer: pint_tpu's own snapshot of this window is 5.88 m
+   and 5.4e-4 m/s from its direct serve, and moves its own fit by 0.060
+   sigma, on the CPU: the slow test ``tests/test_torch_kernel_ephem.py::
+   test_pint_tpu_snapshot_of_the_flagship_window`` holds it to these limits);
+22. ``PINT_TPU_EPHEM`` set to an SPK kernel that ``spk_write.export_spk``
+   writes from the window over MJD 56600-57400: the same prepare through
+   ``KernelEphemeris``, K7 on the kernel's raw records, gated as phase 21.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
-not count), and around phase 16's ``get_model_and_toas`` + ``build_tensor``.
+not count), and around each ``get_model_and_toas`` + ``build_tensor`` of
+phases 16, 19, 21 and 22 and each fit of phases 21 and 22.
 The SMOKE fit must launch K0 and K1, its grid K1 and K2; the flagship fit
-K0, K1 and K3, its grid K0, K1 and K3; the prepare K4 and K5 twice each.
+K0, K1 and K3, its grid K0, K1 and K3; the analytic prepare K4 and K5 twice
+each; the default prepare K4 and K6 twice each, the pack and SPK prepares K4
+and K7 twice each.
 K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 6. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
-the kernels the twin or the library call runs), and ``call_ms`` the
+the kernels the twin or the library call runs; where the profiler reads no
+device time of such a call, CUDA events around calls queued behind a spin
+kernel, so that the host's enqueue is not timed), and ``call_ms`` the
 CUDA-event time per call, which includes the host's time to enqueue it.
 ``bound_ms`` is the larger of the bytes the function must move over
 3.35 TB/s and its float64 operations over 34 TFLOP/s (H100 SXM, NVIDIA data
@@ -155,7 +192,9 @@ def measure(fn, device, reps: int, kernel: str | None = None) -> tuple:
     kernels whose name holds `kernel`, or one of a tuple of names, when
     given); call ms is `timed_ms`,
     which includes the host's time to enqueue the call and bounds the rate of
-    back-to-back calls. On the CPU the device time is None."""
+    back-to-back calls. On the CPU the device time is None. A named kernel
+    the profiler does not see fails the run; a call of library or twin
+    kernels whose device time it does not see is timed by `queued_ms`."""
     call = timed_ms(fn, device, reps)
     if device.type != "cuda":
         return None, call
@@ -168,10 +207,37 @@ def measure(fn, device, reps: int, kernel: str | None = None) -> tuple:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (pats is None or any(p in e.key for p in pats)))
-    return us / 1e3 / reps, call
+    seen = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and (pats is None or any(p in e.key for p in pats))]
+    us = sum(e.self_device_time_total for e in seen)
+    if us > 0:
+        return us / 1e3 / reps, call
+    if pats is not None:
+        raise SmokeFailure(f"the profiler saw no device time of kernel {pats} "
+                           f"(events: {[e.key for e in seen]})")
+    queued = queued_ms(fn, reps)
+    print(f"  the profiler read no device time of a call ({len(seen)} kernel events); "
+          f"timed behind a busy queue: {queued:.4g} ms")
+    return queued, call
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds of one call, without the profiler: the card is
+    held by a spin kernel while the host enqueues `reps` calls between two
+    CUDA events, so the events time the calls' kernels back to back, with
+    no wait on the host's enqueue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of clock cycles, longer than the enqueue
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def sync(device) -> None:
@@ -200,18 +266,39 @@ def twins():
 
     saved = (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
              gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
-             dp.analytic_ephemeris)
+             dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval)
     residuals.resid_tangent = residuals.resid_tangent_plain
     wls.dd_elementwise = dd.dd_elementwise_plain
     gridutils.normal_eq = gridutils.normal_eq_plain
     gls.ecorr_normal_eq = gridutils.ecorr_normal_eq = woodbury.ecorr_normal_eq_plain
     dp.site_geometry, dp.analytic_ephemeris = dp.site_geometry_plain, dp.analytic_ephemeris_plain
+    dp.nbody_serve, dp.chebyshev_eval = dp.nbody_serve_plain, dp.chebyshev_eval_plain
     try:
         yield
     finally:
         (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
          gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
-         dp.analytic_ephemeris) = saved
+         dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval) = saved
+
+
+@contextlib.contextmanager
+def knobs(**settings):
+    """Set (a string) or unset (None) environment settings for a block, and
+    restore them after it."""
+    saved = {k: os.environ.get(k) for k in settings}
+    for k, v in settings.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def device_line() -> str:
@@ -366,7 +453,8 @@ def fresh_fitter(tensor, device, flagship: bool = False):
 
 
 def counters():
-    from pint_tpu_torch.astro.device_prepare import analytic_ephemeris, site_geometry
+    from pint_tpu_torch.astro.device_prepare import (analytic_ephemeris, chebyshev_eval,
+                                                     nbody_serve, site_geometry)
     from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq
     from pint_tpu_torch.gridutils import normal_eq
     from pint_tpu_torch.ops.dd import dd_elementwise
@@ -374,7 +462,8 @@ def counters():
 
     return {"dd_elementwise": dd_elementwise, "resid_tangent": resid_tangent,
             "normal_eq": normal_eq, "ecorr_normal_eq": ecorr_normal_eq,
-            "site_geometry": site_geometry, "analytic_ephemeris": analytic_ephemeris}
+            "site_geometry": site_geometry, "analytic_ephemeris": analytic_ephemeris,
+            "nbody_serve": nbody_serve, "chebyshev_eval": chebyshev_eval}
 
 
 @contextlib.contextmanager
@@ -478,9 +567,11 @@ K0_KERNEL, K1_KERNEL, K2_KERNEL, K3_KERNEL = ("dd_elementwise_kernel", "resid_ta
                                               "pass_", "_pass<")
 K4_KERNEL, K5_KERNELS = "site_geometry_kernel", ("analytic_ephemeris_kernel",
                                                  "central_difference_kernel")
+K6_KERNEL, K7_KERNEL = "nbody_serve_kernel", "chebyshev_eval_kernel"
 KERNEL_PATTERNS = {"dd_elementwise": K0_KERNEL, "resid_tangent": K1_KERNEL,
                    "normal_eq": K2_KERNEL, "ecorr_normal_eq": K3_KERNEL,
-                   "site_geometry": K4_KERNEL, "analytic_ephemeris": K5_KERNELS[0]}
+                   "site_geometry": K4_KERNEL, "analytic_ephemeris": K5_KERNELS[0],
+                   "nbody_serve": K6_KERNEL, "chebyshev_eval": K7_KERNEL}
 
 
 def k0_record(model, device) -> dict:
@@ -656,6 +747,12 @@ KERNELS = (
     ("analytic_ephemeris", "pint_tpu_torch/csrc/analytic_ephemeris.cu",
      "pint_tpu/astro/device_prepare.py:121 (prepare_ephemeris: astro/ephemeris.py "
      "AnalyticEphemeris._posvel_analytic per body)"),
+    ("nbody_serve", "pint_tpu_torch/csrc/nbody_serve.cu",
+     "pint_tpu/astro/device_prepare.py:175 (prepare_nbody: astro/nbody.py "
+     "NBodyEphemeris.posvel, Hermite serve + in-band correction)"),
+    ("chebyshev_eval", "pint_tpu_torch/csrc/chebyshev_eval.cu",
+     "pint_tpu/astro/device_prepare.py:233 (prepare_kernel_eval: astro/kernel_ephemeris.py "
+     "eval_rows, record gather + Chebyshev recurrence + analytic velocity)"),
 )
 
 
@@ -935,9 +1032,10 @@ def phase_prepare_scale(device, tmp: Path) -> dict:
             "twin_stage_s": want.stage_s, "errs": errs}
 
 
-def flagship_tim_path(device, tmp: Path) -> dict:
-    """get_model_and_toas + build_tensor of the flagship par and .tim, in a
-    launch window of their own."""
+def flagship_tim_path(device, tmp: Path, tim=None) -> dict:
+    """get_model_and_toas + build_tensor of the flagship par and a .tim (the
+    analytic-ephemeris flagship .tim unless given), in a launch window of
+    their own."""
     from pint_tpu_torch.models import get_model_and_toas
     from pint_tpu_torch.prepared import FLAGSHIP_TIM
     from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR
@@ -947,7 +1045,7 @@ def flagship_tim_path(device, tmp: Path) -> dict:
     out = {"launches": {}}
     with counted(out["launches"]):
         t0 = time.perf_counter()
-        model, toas = get_model_and_toas(str(par), str(FLAGSHIP_TIM), device=device)
+        model, toas = get_model_and_toas(str(par), str(tim or FLAGSHIP_TIM), device=device)
         tensor = model.build_tensor(toas)
         sync(device)
         out["wall_s"] = time.perf_counter() - t0
@@ -1030,7 +1128,8 @@ def prepare_phases(device, summary: dict, flagship: dict) -> dict:
 
     print("phase 14: K4 site_geometry and K5 analytic_ephemeris against their twins")
     errs = phase_k45(device)
-    with tempfile.TemporaryDirectory() as tmpname:
+    with tempfile.TemporaryDirectory() as tmpname, knobs(
+            PINT_TPU_NBODY="0", PINT_TPU_EPHEM=None, PINT_TPU_KERNEL_EPHEM=None):
         tmp = Path(tmpname)
         print(f"phase 15: get_TOAs of {PREPARE_N} synthetic lines, kernels and twins")
         scale = phase_prepare_scale(device, tmp)
@@ -1089,8 +1188,389 @@ def prepare_phases(device, summary: dict, flagship: dict) -> dict:
 
 
 
+# --- phases 18-22: pint_tpu's default ephemeris (K6, K7) and the fit from it ----------
+
+#: the flagship's epochs (profiles.flagship_smoke_dataset) and the span of the
+#: SPK kernel phase 22 exports from the window (TZR epoch 57000.1 included)
+FLAGSHIP_SPAN_MJD = (56650.0, 57350.0)
+EXPORT_SPAN_MJD = (56600.0, 57400.0)
+MINI_DE = REPO / "tests" / "data" / "mini_de.bsp"
+# K6's float64 operations, counted from csrc/nbody_serve.cu with a sine or
+# cosine as ~35: per (epoch, body) the cell, the Hermite weights and the two
+# sums (~60); per design column added into the two sums 12; per trusted
+# period its sine and cosine and its four columns and derivatives (~84); the
+# polynomial columns ~25
+K6_OPS_HERMITE, K6_OPS_COLUMN, K6_OPS_PERIOD, K6_OPS_POLY = 60, 12, 84, 25
+# K7's per (epoch, row): per coefficient the recurrence and its derivative
+# (7) and the two sums over xyz (12), ~10 for the record and tau; per (epoch,
+# body) 12 for the chain sums and km -> m
+K7_OPS_PER_COEF, K7_OPS_PER_ROW, K7_OPS_PER_BODY = 19, 10, 12
+
+
+def jcent(mjd):
+    return (mjd - 51544.5) / 36525.0
+
+
+def window_epochs(nb, n: int, seed: int = 37):
+    """n TDB centuries over the window's grid: a quarter on grid nodes (some
+    land on a node exactly), both ends, the rest uniform."""
+    import numpy as np
+
+    from pint_tpu_torch.astro.nbody import CENT_S
+
+    rng = np.random.default_rng(seed)
+    g = nb.grid_s
+    t = np.concatenate([g[rng.integers(0, g.size, n // 4)], g[[0, -1]],
+                        rng.uniform(g[0], g[-1], n - n // 4 - 2)])
+    T = nb.t0 + t / CENT_S
+    return T, int(np.sum(np.isin((T - nb.t0) * CENT_S, g)))
+
+
+def pack_epochs(pack, n: int, seed: int = 41):
+    """n TDB centuries inside the pack's coverage of its first body: every
+    record edge of every row, both ends, the rest uniform."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = max(pack.span_et(b)[0] for b in pack.bodies), min(pack.span_et(b)[1]
+                                                                for b in pack.bodies)
+    edges = np.concatenate([pack.init[i] + pack.intlen[i] * np.arange(pack.nrec[i] + 1)
+                            for i in range(len(pack.bodies))])
+    et = np.clip(np.concatenate([edges, [lo, hi], rng.uniform(lo, hi, n - edges.size - 2)]),
+                 lo, hi)
+    return et / (36525.0 * 86400.0)
+
+
+def max_dist(got: dict, want: dict) -> tuple[float, float, bool]:
+    """(position, velocity) max distances over bodies, and bitwise equality."""
+    import torch
+
+    ep = max(float(torch.max(torch.abs(got[b][0] - want[b][0]))) for b in want)
+    ev = max(float(torch.max(torch.abs(got[b][1] - want[b][1]))) for b in want)
+    same = all(torch.equal(got[b][0], want[b][0]) and torch.equal(got[b][1], want[b][1])
+               for b in want)
+    return ep, ev, same
+
+
+def phase_k67(device) -> dict:
+    """The flagship window and its pack snapshot, built once each (timed);
+    K6 and K7 against their twins at PREPARE_N epochs; K7 on the mini kernel
+    against the host SPK reader."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.astro import device_prepare as dp
+    from pint_tpu_torch.astro import kernel_ephemeris as ke
+    from pint_tpu_torch.astro.ephemeris import get_ephemeris, stage_sink
+    from pint_tpu_torch.astro.nbody import _BODIES
+    from pint_tpu_torch.astro.spk import SPKEphemeris
+
+    eph = get_ephemeris()
+    T_data = jcent(np.array(FLAGSHIP_SPAN_MJD))
+    with stage_sink({"nbody_build": 0.0, "kernel_build": 0.0}) as stages:
+        t0 = time.perf_counter()
+        nb = eph._nbody_for(T_data)
+        window_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pack = ke.pack_for_analytic(eph, T_data)
+        pack_s = time.perf_counter() - t0
+    check(nb.grid_s.size == 8767 and (nb.t0, 2 * nb.half_span_s / 86400 / 365.25) == (0.15, 12.0),
+          f"flagship window: t0 {nb.t0}, {nb.grid_s.size} samples of {len(_BODIES)} bodies, "
+          f"built in {window_s:.2f} s (nbody_build stage {stages['nbody_build']:.2f} s)")
+    check(pack.coef.shape[0] == 11, f"pack snapshot {pack.coef.shape} built in {pack_s:.2f} s "
+                                    f"(kernel_build stage {stages['kernel_build']:.2f} s)")
+    out = {"window_build_s": window_s, "pack_build_s": pack_s,
+           **{f"{k}_stage_s": v for k, v in stages.items()}}
+
+    T_np, exact = window_epochs(nb, PREPARE_N)
+    T = torch.as_tensor(T_np, device=device)
+    got, want = dp.nbody_serve(nb, _BODIES, T), dp.nbody_serve_plain(nb, _BODIES, T)
+    sync(device)
+    ep, ev, same = max_dist(got, want)
+    tag = f"K6 N={PREPARE_N} ({exact} exactly on grid nodes), {len(_BODIES)} bodies"
+    check(ep <= 1e-6, f"{tag}: positions within 1e-6 m of the twin ({ep:.3g} m, bitwise {same})")
+    check(ev <= 1e-9, f"{tag}: velocities within 1e-9 m/s of the twin ({ev:.3g} m/s)")
+    got = dp.nbody_posvel(nb, ("emb",), T_np, device)["emb"]
+    with twins():
+        want = dp.nbody_posvel(nb, ("emb",), T_np, device)["emb"]
+    e_emb = float(np.max(np.abs(got[0] - want[0])))
+    v_emb = float(np.max(np.abs(got[1] - want[1])))
+    check(e_emb <= 1e-6 and v_emb <= 1e-9, f"K6 EMB (Earth and Moon combined after the launch) "
+                                           f"within 1e-6 m, 1e-9 m/s ({e_emb:.3g}, {v_emb:.3g})")
+    out.update(k6_pos_err_m=max(ep, e_emb), k6_vel_err_m_s=max(ev, v_emb), k6_bitwise=same)
+
+    mini = ke.pack_from_spk(str(MINI_DE))
+    for label, pk in (("N-body pack", pack), ("mini_de.bsp pack", mini)):
+        Tp_np = pack_epochs(pk, PREPARE_N)
+        Tp = torch.as_tensor(Tp_np, device=device)
+        got = dp.chebyshev_eval(pk, pk.bodies, Tp)
+        want = dp.chebyshev_eval_plain(pk, pk.bodies, Tp)
+        sync(device)
+        ep, ev, same = max_dist(got, want)
+        tag = f"K7 {label} {tuple(pk.coef.shape)} N={PREPARE_N}, {len(pk.bodies)} bodies"
+        check(ep <= 1e-6, f"{tag}: positions within 1e-6 m of the twin ({ep:.3g} m, bitwise "
+                          f"{same})")
+        check(ev <= 1e-9, f"{tag}: velocities within 1e-9 m/s of the twin ({ev:.3g} m/s)")
+        key = "k7_nbody" if pk is pack else "k7_mini"
+        out.update({f"{key}_pos_err_m": ep, f"{key}_vel_err_m_s": ev, f"{key}_bitwise": same})
+    # `got` and `Tp_np` are the mini kernel's, from the loop's last pass
+    reader = SPKEphemeris(str(MINI_DE))
+    rp = max(float(np.max(np.abs(got[b][0].cpu().numpy() - reader.posvel_ssb(b, Tp_np)[0])))
+             for b in mini.bodies)
+    rv = max(float(np.max(np.abs(got[b][1].cpu().numpy() - reader.posvel_ssb(b, Tp_np)[1])))
+             for b in mini.bodies)
+    check(rp <= 1e-3 and rv <= 1e-7, f"K7 mini_de.bsp within 1 mm and 1e-7 m/s of the host SPK "
+                                     f"reader ({rp:.3g} m, {rv:.3g} m/s)")
+    out.update(k7_vs_reader_m=rp, k7_vs_reader_m_s=rv)
+    return {"errs": out, "window": nb, "pack": pack}
+
+
+def k6_record(nb, n: int, bodies, device, reps: int) -> dict:
+    """K6 over n epochs of the flagship window for `bodies`; the library
+    yardstick is torch.matmul of the (n, 39) Earth design by corr_e."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.astro import device_prepare as dp
+    from pint_tpu_torch.astro.nbody import CENT_S, band_design
+
+    T_np = np.sort(window_epochs(nb, n)[0])
+    T = torch.as_tensor(T_np, device=device)
+    ms, call = measure(lambda: dp.nbody_serve(nb, bodies, T), device, reps, K6_KERNEL)
+    plain, plain_call = measure(lambda: dp.nbody_serve_plain(nb, bodies, T), device, 3)
+    w = nb.tensors(device)
+    G, _ = band_design((T - nb.t0) * CENT_S, nb._periods_e, nb.half_span_s)
+    lib, lib_call = measure(lambda: torch.matmul(G, w["corr_e"]), device, reps)
+    # read the epochs, the grid samples the epochs fall between (once each)
+    # and both corrections; write pos and vel of each body
+    k = np.floor(((T_np - nb.t0) * CENT_S - nb.grid_s[0]) / (nb.grid_s[1] - nb.grid_s[0]))
+    samples = np.unique(np.concatenate([k, k + 1])).size
+    ne, nm = len(nb._periods_e), len(nb._periods_m)
+    n_bytes = n * 8 + samples * len(bodies) * 6 * 8 + (nb._corr_e.size + nb._corr_m.size) * 8 \
+        + n * len(bodies) * 6 * 8
+    band_e = K6_OPS_POLY + (7 + 4 * ne) * K6_OPS_COLUMN + ne * K6_OPS_PERIOD
+    band_m = K6_OPS_POLY + (7 + 4 * nm) * K6_OPS_COLUMN + nm * K6_OPS_PERIOD
+    per_epoch = sum(K6_OPS_HERMITE + (band_e if b in ("earth", "moon") else 0)
+                    + (band_m if b == "moon" else 0) for b in bodies)
+    b, how = bound_ms(n_bytes, n * per_epoch)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
+            "call_ms": call, "plain_call_ms": plain_call, "library_call_ms": lib_call,
+            "shape": f"N={n} bodies={','.join(bodies)} G={nb.grid_s.size}"}
+
+
+def k7_record(pack, n: int, bodies, device, reps: int, T_np=None) -> dict:
+    """K7 over n epochs (the flagship's span unless given) for `bodies`."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.astro import device_prepare as dp
+
+    if T_np is None:
+        T_np = np.sort(jcent(np.random.default_rng(43).uniform(*FLAGSHIP_SPAN_MJD, n)))
+    T = torch.as_tensor(T_np, device=device)
+    ms, call = measure(lambda: dp.chebyshev_eval(pack, bodies, T), device, reps, K7_KERNEL)
+    plain, plain_call = measure(lambda: dp.chebyshev_eval_plain(pack, bodies, T), device, 3)
+    # read the epochs and each record the epochs select (once); write pos, vel
+    et = T_np * 36525.0 * 86400.0
+    C = pack.coef.shape[2]
+    rows = sorted({r for b in bodies for r in pack.chain_rows(b)})
+    records = sum(np.unique(np.clip(np.floor((et - pack.init[r]) / pack.intlen[r]), 0,
+                                    pack.nrec[r] - 1)).size for r in rows)
+    n_bytes = n * 8 + records * (3 * C + 1) * 8 + n * len(bodies) * 6 * 8
+    per_epoch = sum(K7_OPS_PER_BODY + len(pack.chain_rows(b)) * (K7_OPS_PER_COEF * C
+                                                                 + K7_OPS_PER_ROW)
+                    for b in bodies)
+    b, how = bound_ms(n_bytes, n * per_epoch)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+            "library": "none: no torch call sums a Chebyshev series",
+            "call_ms": call, "plain_call_ms": plain_call,
+            "shape": f"N={n} bodies={','.join(bodies)} pack={tuple(pack.coef.shape)}"}
+
+
+def compare_tensors(got, want, label: str) -> dict:
+    """The prepared tensor rows of two paths (the TZR row included): t within
+    1 ps, positions within 1 mm, velocities within 1e-4 m/s, the rest equal."""
+    import torch
+
+    dt = float(torch.max(torch.abs((got["t_hi"] - want["t_hi"]) + (got["t_lo"] - want["t_lo"]))))
+    errs = {"t_s": dt}
+    check(dt <= 1e-12, f"{label}: tensor t within 1 ps ({dt:.3g} s)")
+    for k, tol in (("ssb_obs_pos_ls", 1e-3), ("obs_sun_pos_ls", 1e-3), ("ssb_obs_vel_ls", 1e-4)):
+        errs[k] = float(torch.max(torch.abs(got[k] - want[k]))) * C_M_PER_S
+        check(errs[k] <= tol, f"{label}: tensor {k} within {tol:g} ({errs[k]:.3g} m or m/s)")
+    for k in want:
+        if not k.startswith(("t_", "ssb_", "obs_")):
+            check(torch.equal(got[k], want[k]), f"{label}: tensor {k} equal")
+    return errs
+
+
+#: phases 21-22: the pack snapshot and the SPK export of the flagship window
+#: against its direct serve, the Earth (m, m/s) and the GLS fit (sigma). A
+#: Chebyshev record cannot follow the window's C1 Hermite serve closer:
+#: pint_tpu's own snapshot is 5.88 m, 5.4e-4 m/s and 0.060 sigma from its
+#: direct serve, read by the slow test tests/test_torch_kernel_ephem.py::
+#: test_pint_tpu_snapshot_of_the_flagship_window, which holds it to these
+SNAPSHOT_LIMITS = {"earth_m": 10.0, "earth_m_s": 1e-3, "fit_sigma": 0.1}
+
+
+def fit_only(tensor, device) -> dict:
+    """The flagship GLS fit from the moved start, in a launch window."""
+    out = {"launches": {}}
+    ftr = fresh_fitter(tensor, device, flagship=True)
+    with counted(out["launches"]):
+        t0 = time.perf_counter()
+        ftr.fit_toas()
+        sync(device)
+        out["fit_s"] = time.perf_counter() - t0
+    out["fitter"] = ftr
+    return out
+
+
+def other_ephemeris(device, tmp: Path, label: str, base: dict, base_fit) -> dict:
+    """Phases 21-22: the flagship N-body .tim prepared under the current
+    settings (K7, not K6, launched twice: the TOAs and the TZR row), against
+    the same path through the twins, and against phase 19's columns and
+    phase 20's fit: Earth within 10 m and 1e-3 m/s, the fit within 0.1
+    sigma (`SNAPSHOT_LIMITS`; pint_tpu's 0.05 m pack-vs-direct bound holds
+    for the analytic series only)."""
+    import numpy as np
+
+    from pint_tpu_torch.prepared import FLAGSHIP_NBODY_TIM
+
+    main = flagship_tim_path(device, tmp, FLAGSHIP_NBODY_TIM)
+    pl = main["launches"]
+    want = 2 if device.type == "cuda" else 0
+    check(pl["chebyshev_eval"] == want and pl["nbody_serve"] == 0
+          and pl["analytic_ephemeris"] == 0,
+          f"{label}: chebyshev_eval launched {pl['chebyshev_eval']} times, nbody_serve "
+          f"{pl['nbody_serve']}, analytic_ephemeris {pl['analytic_ephemeris']}")
+    print(f"  ephemeris {main['toas'].ephem}; stage walls (s): " + json.dumps(main["stage_s"])
+          + f"; get_model_and_toas + build_tensor {main['wall_s']:.3f} s")
+    with twins():
+        twin = flagship_tim_path(device, tmp, FLAGSHIP_NBODY_TIM)
+    errs = {"twin": compare_toas(main["toas"], twin["toas"], f"{label} kernels vs twins")}
+    errs["twin_tensor"] = compare_tensors(main["tensor"], twin["tensor"], f"{label}")
+    ep = float(np.max(np.abs(main["toas"].ssb_obs_pos_m - base["toas"].ssb_obs_pos_m)))
+    ev = float(np.max(np.abs(main["toas"].ssb_obs_vel_m_s - base["toas"].ssb_obs_vel_m_s)))
+    lim = SNAPSHOT_LIMITS
+    check(ep <= lim["earth_m"] and ev <= lim["earth_m_s"],
+          f"{label}: Earth within {lim['earth_m']:g} m and {lim['earth_m_s']:g} m/s of the "
+          f"window's (phase 19) ({ep:.4g} m, {ev:.3g} m/s)")
+    run = fit_only(main["tensor"], device)
+    res = run["fitter"].result
+    check(res.converged and 0.8 <= res.reduced_chi2 <= 1.2,
+          f"{label} fit converged, chi2/dof = {res.reduced_chi2:.6f}")
+    worst, name = sigma_diff(run["fitter"], base_fit)
+    check(worst <= lim["fit_sigma"], f"{label} fit within {lim['fit_sigma']:g} sigma of phase "
+                                     f"20's ({worst:.3g} sigma, {name})")
+    for k in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
+        check(run["launches"][k] > 0 or device.type != "cuda",
+              f"{k} launched {run['launches'][k]} times by the {label} fit")
+    errs.update(earth_vs_window_m=ep, earth_vs_window_m_s=ev, fit_vs_window_sigma=worst)
+    return {"errs": errs, "prepare": pl, "fit": run["launches"], "stage_s": main["stage_s"],
+            "wall_s": main["wall_s"], "fit_s": run["fit_s"], "chi2_reduced": res.reduced_chi2,
+            "ephem": main["toas"].ephem}
+
+
+def ephemeris_phases(device, summary: dict) -> dict:
+    """Phases 18-22: pint_tpu's default ephemeris (the N-body window, K6), its
+    Chebyshev pack snapshot and an SPK kernel exported from it (K7), and the
+    flagship fit from each."""
+    from pint_tpu_torch.astro.spk_write import export_spk
+    from pint_tpu_torch.prepared import FLAGSHIP_NBODY_TIM
+
+    with tempfile.TemporaryDirectory() as tmpname, knobs(
+            PINT_TPU_NBODY=None, PINT_TPU_EPHEM=None, PINT_TPU_KERNEL_EPHEM=None,
+            PINT_TPU_CACHE_DIR=str(Path(tmpname) / "cache")):
+        tmp = Path(tmpname)
+        print("phase 18: the flagship N-body window and pack; K6 nbody_serve and K7 "
+              "chebyshev_eval against their twins")
+        k67 = phase_k67(device)
+        nb, pack = k67["window"], k67["pack"]
+
+        print("phase 19: get_model_and_toas + build_tensor under pint_tpu's default ephemeris")
+        main = flagship_tim_path(device, tmp, FLAGSHIP_NBODY_TIM)
+        pl = main["launches"]
+        want = 2 if device.type == "cuda" else 0
+        check(pl["nbody_serve"] == want and pl["site_geometry"] == want,
+              f"nbody_serve launched {pl['nbody_serve']} times, site_geometry "
+              f"{pl['site_geometry']} (the TOAs and the TZR row)")
+        check(pl["analytic_ephemeris"] == 0 and pl["chebyshev_eval"] == 0,
+              f"analytic_ephemeris launched {pl['analytic_ephemeris']} times, chebyshev_eval "
+              f"{pl['chebyshev_eval']}")
+        check(main["toas"].ephem == "analytic" and "nbody_build" not in main["stage_s"],
+              f"the window was built once, in phase 18 ({k67['errs']['window_build_s']:.2f} s); "
+              "the prepare served it")
+        print("  stage walls (s): " + json.dumps(main["stage_s"])
+              + f"; get_model_and_toas + build_tensor {main['wall_s']:.3f} s")
+        with twins():
+            twin = flagship_tim_path(device, tmp, FLAGSHIP_NBODY_TIM)
+        nb_errs = {"twin": compare_toas(main["toas"], twin["toas"], "default ephemeris kernels "
+                                                                    "vs twins"),
+                   "twin_tensor": compare_tensors(main["tensor"], twin["tensor"],
+                                                  "default ephemeris")}
+
+        print("phase 20: GLS fit and (M2, SINI) grid from the default-ephemeris TOAs")
+        run = run_main_path(fresh_fitter(main["tensor"], device, flagship=True), device)
+        fit_l, grid_l = run["fit_launches"], run["grid_launches"]
+        for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
+            for what, counts in (("fit_toas", fit_l), ("grid_chisq", grid_l)):
+                check(counts[name] > 0 or device.type != "cuda",
+                      f"{name} launched {counts[name]} times by the {what}")
+        with twins():
+            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, flagship=True),
+                                     device)
+        check_fit(run, twin_run, "default-ephemeris GLS")
+        worst_g = check_grid(run, twin_run, "default-ephemeris")
+
+        print("phase 21: PINT_TPU_KERNEL_EPHEM=1, the window's pack snapshot (K7)")
+        with knobs(PINT_TPU_KERNEL_EPHEM="1"):
+            pk = other_ephemeris(device, tmp, "pack snapshot", main, run["fitter"])
+
+        print("phase 22: PINT_TPU_EPHEM, an SPK kernel exported from the window (K7)")
+        spk = tmp / "flagship_window.bsp"
+        t0 = time.perf_counter()
+        export_spk(str(spk), *EXPORT_SPAN_MJD, device=device)
+        export_s = time.perf_counter() - t0
+        print(f"  exported MJD {EXPORT_SPAN_MJD} in {export_s:.2f} s ({spk.stat().st_size} bytes)")
+        with knobs(PINT_TPU_EPHEM=str(spk)):
+            sp = other_ephemeris(device, tmp, "SPK export", main, run["fitter"])
+        check(sp["ephem"].startswith("kernelpack:spk:"), f"served as {sp['ephem']}")
+
+        n = len(main["toas"])
+        recs = {"nbody_serve": k6_record(nb, n, ("earth", "sun"), device, 50),
+                "chebyshev_eval": k7_record(pack, n, ("earth", "sun"), device, 50)}
+        from pint_tpu_torch.astro.nbody import _BODIES
+
+        recs["nbody_serve"].update({f"scale_{k}": v for k, v in k6_record(
+            nb, PREPARE_N, _BODIES, device, 5).items()
+            if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "library_call_ms", "shape")})
+        recs["chebyshev_eval"].update({f"scale_{k}": v for k, v in k7_record(
+            pack, PREPARE_N, pack.bodies, device, 5).items()
+            if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")})
+    res = run["fitter"].result
+    summary["ephemeris"] = {
+        **{k: v for k, v in k67["errs"].items()},
+        "default_stage_s": main["stage_s"], "default_prepare_wall_s": main["wall_s"],
+        "default_twin_prepare_wall_s": twin["wall_s"], "default_errs": nb_errs,
+        "default_fit": {"fit_wall_s": run["fit_s"], "grid_wall_s": run["grid_s"],
+                        "fit_iterations": res.iterations, "fit_chi2_reduced": res.reduced_chi2,
+                        "grid_rel_err": worst_g, "grid_chi2": run["chi2"].tolist()},
+        "pack": {k: v for k, v in pk.items() if k not in ("prepare", "fit")},
+        "spk": {**{k: v for k, v in sp.items() if k not in ("prepare", "fit")},
+                "export_s": export_s}}
+    errs = {"nbody_serve": k67["errs"]["k6_pos_err_m"],
+            "chebyshev_eval": max(k67["errs"]["k7_nbody_pos_err_m"],
+                                  k67["errs"]["k7_mini_pos_err_m"])}
+    return {"recs": recs, "errs": errs,
+            "windows": {"nbody_prepare": pl, "nbody_fit": fit_l, "nbody_grid": grid_l,
+                        "pack_prepare": pk["prepare"], "pack_fit": pk["fit"],
+                        "spk_prepare": sp["prepare"], "spk_fit": sp["fit"]}}
+
+
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-17 on `device_name`; returns the summary record."""
+    """Phases 2-22 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -1110,14 +1590,16 @@ def phases(device_name: str = "cuda") -> dict:
     smoke = smoke_phases(device, summary)
     flag = flagship_phases(device, summary)
     prep = prepare_phases(device, summary, flag)
+    ephem = ephemeris_phases(device, summary)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
-               "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"]}
+               "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
+               **ephem["windows"]}
     kernels = []
     for name, src, replaces in KERNELS:
         rec = {**smoke["recs"].get(name, {}), **flag["recs"].get(name, {}),
-               **prep["recs"].get(name, {})}
-        err = max(r["errs"].get(name, 0.0) for r in (smoke, flag, prep))
+               **prep["recs"].get(name, {}), **ephem["recs"].get(name, {})}
+        err = max(r["errs"].get(name, 0.0) for r in (smoke, flag, prep, ephem))
         ptxas = summary.get("ptxas_instances", {}).get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(w[name] for w in windows.values()),
@@ -1139,9 +1621,6 @@ def main() -> int:
         print(f"chip_smoke: {REPO} holds no pint_tpu_torch package", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    # the analytic ephemeris, in the port and in pint_tpu alike (the port
-    # refuses pint_tpu's default N-body window until slice 4)
-    os.environ["PINT_TPU_NBODY"] = "0"
     print("phase 1: device")
     dev_line = device_line()
     print(dev_line)

@@ -17,16 +17,28 @@ the same formulas, on tensors. `pack_tables` packs every table the series
 read into the one float64 tensor K5 receives, so the tables have one source
 in the port.
 
-`get_ephemeris` serves the analytic series only. pint_tpu refines it with an
-N-body window unless ``PINT_TPU_NBODY=0``, and serves a JPL kernel or a
-Chebyshev pack when ``PINT_TPU_EPHEM`` is set or ``PINT_TPU_KERNEL_EPHEM=1``;
-the port has neither yet (slice 4, ROADMAP) and raises NotImplementedError
-under those settings, so it never answers differently from pint_tpu.
+`get_ephemeris` serves what pint_tpu serves under the same settings:
+
+- by default the N-body window of ``astro/nbody.py`` (kernel K6), built on
+  the host once per quantized window (`quantize_nbody_window`) and kept per
+  instance; ``PINT_TPU_NBODY=0`` serves the analytic series (K5);
+- ``PINT_TPU_KERNEL_EPHEM=1``: a Chebyshev pack snapshot of that path
+  (``astro/kernel_ephemeris.py``, kernel K7);
+- ``PINT_TPU_EPHEM=<SPK file>``: the kernel's records as a pack (K7), or
+  with ``PINT_TPU_KERNEL_EPHEM=0`` the host reader ``astro/spk.py``.
+
+pint_tpu falls back where a pack cannot be built or compiled (to the direct
+path or the host reader), and to the analytic series when the SPK file is
+missing or unreadable (a degradation-ledger event). The port raises in each
+of those places, naming the cause.
 """
 
 from __future__ import annotations
 
 import os
+import time
+from contextlib import contextmanager
+from contextvars import ContextVar
 
 import numpy as np
 import torch
@@ -347,43 +359,152 @@ def pack_tables() -> tuple[np.ndarray, np.ndarray]:
     return table, np.concatenate([layout.ravel(), tail]).astype(np.int32)
 
 
+def quantize_nbody_window(lo: float, hi: float) -> tuple[float, float]:
+    """The serving window of a [lo, hi] TDB-century request, as pint_tpu
+    quantizes it: centre snapped to whole years, span to a multiple of 4
+    years (at least 12). The N-body window and the pack snapshot share it,
+    and neither depends on what the process loaded before."""
+    yr = 365.25 * 86400.0 / (36525.0 * 86400.0)  # 1 year in jcent
+    t0_q = round(((lo + hi) / 2.0) / yr) * yr
+    # span: data + 4 yr margin + 1 yr quantization slack, snapped up to a
+    # multiple of 4 years, at least 12
+    span_yr = max(4.0 * np.ceil(((hi - lo) * 100.0 + 5.0) / 4.0), 12.0)
+    return round(t0_q, 6), span_yr
+
+
+#: the dict that `build_stage` adds its walls to (`stage_sink`), if any
+_SINK: ContextVar[dict | None] = ContextVar("build_stage_sink", default=None)
+
+
+@contextmanager
+def stage_sink(stage_s: dict):
+    """Add the walls of the window and pack builds run in the block to
+    `stage_s`, by stage (``nbody_build``, ``kernel_build``)."""
+    token = _SINK.set(stage_s)
+    try:
+        yield stage_s
+    finally:
+        _SINK.reset(token)
+
+
+@contextmanager
+def build_stage(name: str):
+    """Time a build as stage `name` of the enclosing `stage_sink`,
+    exclusive of the stages nested in it."""
+    sink = _SINK.get()
+    if sink is None:
+        yield
+        return
+    t0, nested = time.perf_counter(), sum(sink.values())
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0 - (sum(sink.values()) - nested)
+        sink[name] = sink.get(name, 0.0) + dt
+
+
+def _cpu(T) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(T, np.float64))
+
+
 class AnalyticEphemeris:
-    """The built-in analytic ephemeris (see the module docstring)."""
+    """The built-in ephemeris: the analytic series, refined by the N-body
+    window unless ``PINT_TPU_NBODY=0`` (see the module docstring)."""
 
     name = "analytic"
     bodies = BODIES
 
-    def posvel_many(self, bodies, tdb_jcent: np.ndarray, device) -> dict:
-        """{body: (pos [m], vel [m/s])} as numpy, through K5 on the card or
-        its twin on the CPU (``device_prepare.analytic_posvel``)."""
+    def __init__(self):
+        #: quantized window key -> NBodyEphemeris (`_nbody_for`)
+        self._nbody_windows: dict = {}
+        #: (window, configuration) -> kernel-pack key (`kernel_ephemeris.pack_for_analytic`)
+        self._pack_key_memo: dict = {}
+
+    # the series on the host, through K5's CPU twin (numpy in, numpy out),
+    # as pint_tpu's host numpy: the N-body build's anchors and the pack keys
+
+    def pos_ssb_many(self, bodies, tdb_jcent) -> dict:
+        return {b: p.numpy() for b, p in pos_ssb_many(tuple(bodies), _cpu(tdb_jcent)).items()}
+
+    def pos_ssb(self, body: str, tdb_jcent) -> np.ndarray:
+        return self.pos_ssb_many((body,), tdb_jcent)[body]
+
+    def _posvel_analytic(self, body: str, tdb_jcent, dt_s: float = 16.0):
+        p, v = analytic_posvel((body,), _cpu(tdb_jcent), dt_s)[body]
+        return p.numpy(), v.numpy()
+
+    def _nbody_for(self, T: np.ndarray):
+        """The N-body window serving the request `T` (TDB centuries), or None
+        under ``PINT_TPU_NBODY=0``. It depends only on the requested range,
+        quantized (`quantize_nbody_window`), never on what was loaded before."""
+        if os.environ.get("PINT_TPU_NBODY", "1") == "0":
+            return None
+        from pint_tpu_torch.astro.nbody import refuse_comb
+
+        refuse_comb()
+        t0_q, span_yr = quantize_nbody_window(float(np.min(T)), float(np.max(T)))
+        return self._nbody_window(t0_q, span_yr)
+
+    def _nbody_window(self, t0_q: float, span_yr: float):
+        """The window of an already quantized key, built (or read from the
+        disk cache) once per instance, in the ``nbody_build`` stage."""
+        key = (t0_q, span_yr)
+        if key not in self._nbody_windows:
+            from pint_tpu_torch.astro.nbody import NBodyEphemeris
+
+            with build_stage("nbody_build"):
+                self._nbody_windows[key] = NBodyEphemeris(self, t0_q, span_years=span_yr)
+        return self._nbody_windows[key]
+
+    def _kernel_pack_for(self, T: np.ndarray):
+        """The pack snapshot covering a request (``PINT_TPU_KERNEL_EPHEM=1``).
+        pint_tpu serves the direct path when the build fails; the port raises."""
+        from pint_tpu_torch.astro import kernel_ephemeris as ke
+
+        try:
+            return ke.pack_for_analytic(self, T)
+        except Exception as e:
+            raise RuntimeError(
+                f"PINT_TPU_KERNEL_EPHEM=1: the kernel-pack snapshot could not be built ({e}); "
+                "pint_tpu would serve the direct path, the port does not (unset the "
+                "knob to ask for it)") from e
+
+    def posvel_many(self, bodies, tdb_jcent: np.ndarray, device=None) -> dict:
+        """{body: (pos [m], vel [m/s])} as numpy: a forced pack (K7), else the
+        N-body window (K6), else the series (K5), on `device` (the twins on
+        the CPU); ``device_prepare.posvel_ssb_many``."""
         from pint_tpu_torch.astro import device_prepare
 
-        return device_prepare.analytic_posvel(tuple(bodies), tdb_jcent, device)
+        return device_prepare.posvel_ssb_many(self, tuple(bodies), tdb_jcent, device)
 
 
 _DEFAULT: AnalyticEphemeris | None = None
 
 
-def get_ephemeris(name: str = "auto") -> AnalyticEphemeris:
-    """The analytic ephemeris, under the settings where pint_tpu serves it
-    too (``PINT_TPU_NBODY=0``, no ``PINT_TPU_EPHEM``, no forced kernel
-    pack); NotImplementedError otherwise. A par file's EPHEM name (DE440,
-    ...) is served by the analytic series, with a warning in pint_tpu's
-    degradation ledger there and none here."""
+def get_ephemeris(name: str = "auto"):
+    """The ephemeris pint_tpu serves under the current settings (module
+    docstring). A par file's EPHEM name (DE440, ...) is served by the
+    built-in ephemeris, with a warning in pint_tpu's degradation ledger
+    there and none here (ROADMAP A17)."""
     global _DEFAULT
-    if os.environ.get("PINT_TPU_EPHEM"):
-        raise NotImplementedError(
-            "PINT_TPU_EPHEM (a JPL SPK kernel, astro/spk.py and its Chebyshev pack) is not "
-            "ported yet: slice 4 of the port (ROADMAP)")
-    if os.environ.get("PINT_TPU_KERNEL_EPHEM") == "1":
-        raise NotImplementedError(
-            "PINT_TPU_KERNEL_EPHEM=1 (the Chebyshev kernel-pack snapshot) is not ported yet: "
-            "slice 4 of the port (ROADMAP)")
-    if os.environ.get("PINT_TPU_NBODY", "1") != "0":
-        raise NotImplementedError(
-            "the N-body ephemeris window (pint_tpu's default; astro/nbody.py) is not ported "
-            "yet: slice 4 of the port (ROADMAP). Set PINT_TPU_NBODY=0 for the analytic "
-            "ephemeris, in pint_tpu and the port alike")
+    kernel = os.environ.get("PINT_TPU_EPHEM")
+    if kernel:
+        from pint_tpu_torch.astro import kernel_ephemeris as ke
+        from pint_tpu_torch.astro.spk import SPKEphemeris
+
+        if not os.path.exists(kernel):
+            raise FileNotFoundError(
+                f"PINT_TPU_EPHEM={kernel} does not exist; pint_tpu would serve the analytic "
+                "ephemeris instead (with a degradation-ledger event), the port does not")
+        if ke.enabled():
+            try:
+                return ke.KernelEphemeris(ke.pack_for_spk_file(kernel))
+            except Exception as e:
+                raise RuntimeError(
+                    f"PINT_TPU_EPHEM={kernel}: the Chebyshev pack could not be compiled ({e}); "
+                    "pint_tpu would serve the host SPK reader, the port does not (set "
+                    "PINT_TPU_KERNEL_EPHEM=0 to ask for it)") from e
+        return SPKEphemeris(kernel)
     if _DEFAULT is None:
         _DEFAULT = AnalyticEphemeris()
     return _DEFAULT

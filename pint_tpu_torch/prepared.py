@@ -49,6 +49,9 @@ FLAGSHIP_ARCHIVE = Path(__file__).resolve().parent / "data" / "flagship_n16384.n
 #: the same TOAs as a .tim file (pint_tpu's TOAs.write_tim of the raw site
 #: UTC), the input of the port's own TOA prepare (toas.get_TOAs)
 FLAGSHIP_TIM = Path(__file__).resolve().parent / "data" / "flagship_n16384.tim"
+#: the same dataset simulated under pint_tpu's default ephemeris (the N-body
+#: window), the input of the default-ephemeris prepare
+FLAGSHIP_NBODY_TIM = Path(__file__).resolve().parent / "data" / "flagship_n16384_nbody.tim"
 
 
 def carried(names) -> list[str]:

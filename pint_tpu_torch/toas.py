@@ -1,5 +1,6 @@
 """TOA loading and preparation (counterpart of ``pint_tpu/toas.py``): .tim
--> clock chain -> TT -> site geometry (K4) -> ephemeris (K5) -> TDB, the
+-> clock chain -> TT -> site geometry (K4) -> ephemeris (the N-body window
+K6 by default, a Chebyshev pack K7, or the analytic series K5) -> TDB, the
 host ``TOAs`` container, and ``TOAs.tensor`` for ``TimingModel.build_tensor``.
 
 The host steps are numpy, as in pint_tpu, with the same arithmetic: times
@@ -10,9 +11,11 @@ twins when the caller asks for the CPU; every entry point takes ``device=``
 and runs on CUDA by default.
 
 ``prepare_arrays`` records the host wall seconds of its stages (``clock``,
-``tdb``, ``eop``, ``geometry``, ``ephemeris``; ``get_TOAs`` adds ``parse``)
-in ``TOAs.stage_s``; each stage that runs a kernel ends with its result
-copied to the host, so the walls include the kernels.
+``tdb``, ``eop``, ``geometry``, ``ephemeris``, and ``nbody_build`` or
+``kernel_build`` when the ephemeris builds its window or pack there;
+``get_TOAs`` adds ``parse``) in ``TOAs.stage_s``; each stage that runs a
+kernel ends with its result copied to the host, so the walls include the
+kernels. ``TOAs.ephem`` names the ephemeris source, as pint_tpu's does.
 
 pint_tpu's prepared-TOA caches (the tim pickle, the content and prefix
 caches) are not on the compute path and are not ported (ROADMAP A17).
@@ -30,9 +33,9 @@ import numpy as np
 
 from pint_tpu_torch import C_M_PER_S, TENSOR_EPOCH_MJD
 from pint_tpu_torch.astro import clock as clockmod
+from pint_tpu_torch.astro import ephemeris
 from pint_tpu_torch.astro import time as ptime
 from pint_tpu_torch.astro.eop import get_eop
-from pint_tpu_torch.astro.ephemeris import get_ephemeris
 from pint_tpu_torch.astro.observatories import get_observatory
 from pint_tpu_torch.device import resolve_device
 from pint_tpu_torch.io.tim import TOALine, parse_tim
@@ -264,9 +267,12 @@ def prepare_arrays(utc: ptime.MJDEpoch, error_us: np.ndarray, freq: np.ndarray,
             site_pos[sel] = p
             site_vel[sel] = v
 
-    # 4. Earth, Sun (and planets) wrt the SSB at the geocentric TDB: K5
-    with stage("ephemeris"):
-        eph = get_ephemeris() if ephem in ("auto", "analytic", None) else get_ephemeris(ephem)
+    # 4. Earth, Sun (and planets) wrt the SSB at the geocentric TDB: the
+    # N-body window (K6), a Chebyshev pack (K7) or the series (K5); a window
+    # or pack built here is timed as its own stage, outside "ephemeris"
+    built: dict[str, float] = {}
+    with stage("ephemeris"), ephemeris.stage_sink(built):
+        eph = ephemeris.get_ephemeris(ephem)
         tdb_geo = ptime.tt_to_tdb(tt)
         tdb_jcent = (tdb_geo.mjd_float() - ptime.MJD_J2000) / 36525.0
         bodies = ("earth", "sun") + (PLANETS if planets else ())
@@ -279,6 +285,8 @@ def prepare_arrays(utc: ptime.MJDEpoch, error_us: np.ndarray, freq: np.ndarray,
         ssb_obs_vel[bary] = 0.0
         obs_sun_pos = sun_pos - ssb_obs_pos
         planet_pos = {p: served[p][0] - ssb_obs_pos for p in PLANETS} if planets else {}
+    stage_s.update(built)
+    stage_s["ephemeris"] -= sum(built.values())
 
     # 5. TDB with the topocentric term
     with stage("tdb"):

@@ -6,9 +6,15 @@ of ``profiles.SMOKE_PAR`` over fake TOAs made by pint_tpu (the TZR row
 last); ``pint_tpu_torch/data/flagship_n16384.npz`` that of
 ``profiles.flagship_smoke_dataset(16384, seed=17)`` (the flagship par,
 2,048 sub-band epochs with their EFAC/EQUAD/ECORR masks and ECORR epoch
-index). Write both anew with
+index), and ``flagship_n16384.tim`` the same TOAs as a .tim. All three are
+simulated under the analytic ephemeris (``PINT_TPU_NBODY=0``);
+``flagship_n16384_nbody.tim`` is the same dataset simulated under pint_tpu's
+default ephemeris, the N-body window (its cold build takes about a minute).
+Write them anew with
 
-    PINT_TPU_NBODY=0 JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write
+    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody ...]
+
+(all four without names).
 
 The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`) also feed
 the other ``tests/test_torch_*.py`` files.
@@ -41,6 +47,7 @@ ARCHIVE_SEED = 11
 FLAGSHIP_SEED = 17
 FLAGSHIP_RECIPE = {"par": "profiles.FLAGSHIP_SMOKE_PAR",
                    "dataset": "profiles.flagship_smoke_dataset", "nbody": 0}
+FLAGSHIP_NBODY_RECIPE = {**FLAGSHIP_RECIPE, "n": ARCHIVE_N, "seed": FLAGSHIP_SEED, "nbody": 1}
 
 
 def smoke_dataset(n: int, seed: int):
@@ -77,6 +84,27 @@ def flagship_dataset(n: int, seed: int = FLAGSHIP_SEED):
 
     model, toas = flagship_smoke_dataset(n, seed=seed)
     return model, toas, model.build_tensor(toas)
+
+
+def flagship_nbody_tim(path) -> None:
+    """Write the flagship dataset simulated under pint_tpu's default
+    ephemeris (``PINT_TPU_NBODY=1``: the N-body window) as a .tim, its
+    recipe in a comment line after the header's first line."""
+    import json
+
+    from pint_tpu.profiles import flagship_smoke_dataset
+
+    r = FLAGSHIP_NBODY_RECIPE
+    old = os.environ.get("PINT_TPU_NBODY")
+    os.environ["PINT_TPU_NBODY"] = "1"
+    try:
+        _, toas = flagship_smoke_dataset(r["n"], seed=r["seed"])
+    finally:
+        os.environ["PINT_TPU_NBODY"] = old if old is not None else "0"
+    toas.write_tim(str(path))
+    lines = Path(path).read_text().splitlines(keepends=True)
+    lines.insert(1, f"C Recipe: {json.dumps(r, sort_keys=True)}\n")
+    Path(path).write_text("".join(lines))
 
 
 def flagship_export(n: int = ARCHIVE_N, seed: int = FLAGSHIP_SEED):
@@ -173,6 +201,25 @@ def test_flagship_tim_matches_fresh_export(tmp_path):
     assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
 
 
+@pytest.mark.slow
+def test_flagship_nbody_tim_matches_fresh_export(tmp_path, monkeypatch):
+    """The committed N-body .tim parses to the lines of a fresh export
+    under pint_tpu's default ephemeris (a cold 12-year window build, ~1
+    minute), and records its recipe."""
+    import json
+
+    from pint_tpu.io.tim import parse_tim
+    from pint_tpu_torch.prepared import FLAGSHIP_NBODY_TIM
+
+    monkeypatch.setenv("PINT_TPU_CACHE_DIR", str(tmp_path))
+    flagship_nbody_tim(tmp_path / "fresh.tim")
+    fresh, committed = parse_tim(str(tmp_path / "fresh.tim")), parse_tim(str(FLAGSHIP_NBODY_TIM))
+    assert len(committed.toas) == ARCHIVE_N
+    assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
+    recipe = FLAGSHIP_NBODY_TIM.read_text().splitlines()[1]
+    assert json.loads(recipe.removeprefix("C Recipe: ")) == FLAGSHIP_NBODY_RECIPE
+
+
 def test_flagship_tim_prepares_to_the_archive(tmp_path, monkeypatch):
     """pint_tpu's prepare of the committed .tim gives the archive's columns:
     t (hi + lo) within 5 ps (the tim's 16 decimals of a day round each UTC
@@ -266,7 +313,9 @@ def test_port_imports_no_jax_and_nothing_of_pint_tpu():
         "import pint_tpu_torch.astro.clock, pint_tpu_torch.astro.observatories\n"
         "import pint_tpu_torch.astro.eop, pint_tpu_torch.astro.erot, pint_tpu_torch.astro.vsop87\n"
         "import pint_tpu_torch.astro.vsop87_planets, pint_tpu_torch.astro.ephemeris\n"
-        "import pint_tpu_torch.astro.device_prepare\n"
+        "import pint_tpu_torch.astro.device_prepare, pint_tpu_torch.astro.nbody\n"
+        "import pint_tpu_torch.astro.spk, pint_tpu_torch.astro.spk_write\n"
+        "import pint_tpu_torch.astro.kernel_ephemeris\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pint_tpu' or m.startswith('pint_tpu.'))\n"
@@ -305,24 +354,32 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert get_model(SMOKE_PAR, from_text=True, device="cpu").device.type == "cpu"
 
 
-def _write_archive() -> None:
-    from pint_tpu_torch.prepared import (FLAGSHIP_ARCHIVE, FLAGSHIP_TIM, SMOKE_ARCHIVE,
-                                         save_prepared)
+def _write_archive(which) -> None:
+    from pint_tpu_torch.prepared import (FLAGSHIP_ARCHIVE, FLAGSHIP_NBODY_TIM, FLAGSHIP_TIM,
+                                         SMOKE_ARCHIVE, save_prepared)
 
-    for path, (cols, meta) in ((SMOKE_ARCHIVE, export()), (FLAGSHIP_ARCHIVE, flagship_export())):
-        path.parent.mkdir(parents=True, exist_ok=True)
-        save_prepared(path, cols, meta)
-        print(f"wrote {path} ({path.stat().st_size} bytes, {meta['rows']} rows)")
-    _, toas, _ = flagship_dataset(ARCHIVE_N)
-    toas.write_tim(str(FLAGSHIP_TIM))
-    print(f"wrote {FLAGSHIP_TIM} ({FLAGSHIP_TIM.stat().st_size} bytes, {len(toas)} TOAs)")
+    for name, path, make in (("smoke", SMOKE_ARCHIVE, export),
+                             ("flagship", FLAGSHIP_ARCHIVE, flagship_export)):
+        if name in which:
+            cols, meta = make()
+            path.parent.mkdir(parents=True, exist_ok=True)
+            save_prepared(path, cols, meta)
+            print(f"wrote {path} ({path.stat().st_size} bytes, {meta['rows']} rows)")
+    if "flagship" in which:
+        _, toas, _ = flagship_dataset(ARCHIVE_N)
+        toas.write_tim(str(FLAGSHIP_TIM))
+        print(f"wrote {FLAGSHIP_TIM} ({FLAGSHIP_TIM.stat().st_size} bytes, {len(toas)} TOAs)")
+    if "nbody" in which:
+        flagship_nbody_tim(FLAGSHIP_NBODY_TIM)
+        print(f"wrote {FLAGSHIP_NBODY_TIM} ({FLAGSHIP_NBODY_TIM.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write"]:
-        sys.exit("usage: python tests/test_torch_fixture.py --write")
+    names = {"smoke", "flagship", "nbody"}
+    if sys.argv[1:2] != ["--write"] or not set(sys.argv[2:]) <= names:
+        sys.exit("usage: python tests/test_torch_fixture.py --write [smoke|flagship|nbody ...]")
     sys.path.insert(0, str(REPO))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    _write_archive()
+    _write_archive(set(sys.argv[2:]) or names)

@@ -135,16 +135,33 @@ def test_k5_wrappers_take_the_twin_on_the_cpu():
 
 @pytest.mark.parametrize("env", [{"PINT_TPU_NBODY": "1"}, {"PINT_TPU_EPHEM": "/x/de440.bsp"},
                                  {"PINT_TPU_KERNEL_EPHEM": "1"}])
-def test_port_refuses_the_ephemerides_of_slice_4(monkeypatch, env):
-    """Where pint_tpu would serve the N-body window, an SPK kernel or a
-    Chebyshev pack, the port raises instead of answering differently."""
-    from pint_tpu_torch.astro.ephemeris import get_ephemeris
+def test_port_refuses_the_ephemerides_of_slice_4(monkeypatch, tmp_path, env):
+    """Where pint_tpu falls back from the ephemerides of slice 4 (a window
+    that fails to build, to the analytic series; a missing SPK kernel, to
+    the analytic series with a ledger event; a pack snapshot that fails, to
+    the direct path), the port raises instead of answering differently."""
+    from pint_tpu_torch.astro import kernel_ephemeris, nbody
+    from pint_tpu_torch.astro.ephemeris import AnalyticEphemeris, get_ephemeris
+
+    def broken(*args, **kwargs):
+        raise OSError("no room")
 
     monkeypatch.setenv("PINT_TPU_NBODY", "0")
+    monkeypatch.setenv("PINT_TPU_CACHE_DIR", str(tmp_path))
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        get_ephemeris()
+    monkeypatch.setattr(nbody.NBodyEphemeris, "_build", broken)
+    monkeypatch.setattr(nbody.NBodyEphemeris, "_load_cached", lambda self, n: False)
+    monkeypatch.setattr(kernel_ephemeris, "pack_from_source", broken)
+    T = (np.array([57000.0, 57001.0]) - 51544.5) / 36525.0
+    if "PINT_TPU_EPHEM" in env:
+        with pytest.raises(FileNotFoundError, match="does not exist"):
+            get_ephemeris()
+        return
+    eph = AnalyticEphemeris()
+    match = "no room" if "PINT_TPU_NBODY" in env else "direct path"
+    with pytest.raises((OSError, RuntimeError), match=match):
+        eph.posvel_many(("earth", "sun"), T, device="cpu")
 
 
 def test_mask_clauses_select_as_pint_tpu():

@@ -256,10 +256,18 @@ def test_prepare_refuses_what_is_not_ported(tmp_path):
 
 
 def test_nbody_default_is_refused(flagship_files, monkeypatch):
-    """pint_tpu's default engages the N-body window; the port refuses it."""
+    """pint_tpu's default engages the N-body window, and so does the port's
+    get_TOAs: a window that cannot be built is refused (the error reaches the
+    caller) rather than served by the analytic series."""
+    from pint_tpu_torch.astro import nbody
     from pint_tpu_torch.toas import get_TOAs
 
+    def refused(self, refine_iters):
+        raise RuntimeError("window build refused")
+
     monkeypatch.delenv("PINT_TPU_NBODY")
-    with pytest.raises(NotImplementedError, match="PINT_TPU_NBODY=0"):
+    monkeypatch.setattr(nbody.NBodyEphemeris, "_load_cached", lambda self, n: False)
+    monkeypatch.setattr(nbody.NBodyEphemeris, "_build", refused)
+    with pytest.raises(RuntimeError, match="window build refused"):
         get_TOAs(flagship_files[1], device="cpu")
     assert os.environ.get("PINT_TPU_NBODY") is None
