@@ -108,15 +108,39 @@ setting, the window and pack caches in a temporary directory):
    writes from the window over MJD 56600-57400: the same prepare through
    ``KernelEphemeris``, K7 on the kernel's raw records, gated as phase 21.
 
+Then eccentric binaries, ``profiles.DD_SMOKE_PAR`` (BINARY DD, 10 free
+parameters) over ``pint_tpu_torch/data/dd_n16384.tim`` (``PINT_TPU_NBODY=0``
+set around phases 23-26):
+
+23. K1's Kepler instance against its twin on the .tim prepared by the port:
+   DD at the fit's shape (1 set, 10 lanes) and the grid's (9 (M2, SINI)
+   sets, 10 lanes), and at 1 set with every lane the Kepler term has, for
+   DD, BT and DDS (the same orbit): phase 9's bounds;
+24. ``get_model_and_toas`` + ``build_tensor`` of the DD par and .tim (K4 and
+   K5 twice each), then ``DownhillWLSFitter.fit_toas`` from a moved start (F0
+   +2e-10 Hz and pint_tpu's tests/test_binary.py perturbations: PB +1e-7 s,
+   A1 +2e-6 ls, T0 +2e-2 s, ECC +1e-6, OM +2e-6 rad), gated as phase 6
+   against the same prepare and fit through the twins;
+25. the 3x3 (M2, SINI) ``grid_chisq`` with the WLS statistic (K1 + K2), per
+   point within 1e-10 relative of the same grid through the twins from the
+   same fitted model, its minimum at the centre (the truth of the
+   simulation), and within 1e-9 relative of the twin path's grid from its
+   own fit (fits an ulp apart give grids ~1e-10 apart: one ulp of the
+   fitted RAJ moves the grid by ~2e-10, printed); K2 against its twin at
+   the grid's first step (B = 9, p = 10) as in phase 5;
+26. K1's Kepler instance times at both shapes, K2's at p = 10, and the
+   warm wall and busy share of one DD fit + grid, as in phase 8.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
 not count), and around each ``get_model_and_toas`` + ``build_tensor`` of
-phases 16, 19, 21 and 22 and each fit of phases 21 and 22.
+phases 16, 19, 21, 22 and 24 and each fit of phases 21 and 22.
 The SMOKE fit must launch K0 and K1, its grid K1 and K2; the flagship fit
 K0, K1 and K3, its grid K0, K1 and K3; the analytic prepare K4 and K5 twice
 each; the default prepare K4 and K6 twice each, the pack and SPK prepares K4
-and K7 twice each.
+and K7 twice each; the DD prepare K4 and K5 twice each, its fit K0 and K1,
+its grid K1 and K2.
 K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 6. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
@@ -148,6 +172,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 START_SHIFT = {"F0": 2e-10, "DM": 1e-3}
 FLAGSHIP_SHIFT = {"F0": 2e-10, "DM": 1e-3, "EPS1": 1e-7}
+# pint_tpu's tests/test_binary.py DD perturbations (apply_delta's units:
+# seconds, light-seconds, radians)
+DD_SHIFT = {"F0": 2e-10, "PB": 1e-7, "A1": 2e-6, "T0": 2e-2, "ECC": 1e-6, "OM": 2e-6}
 
 
 class SmokeFailure(RuntimeError):
@@ -387,28 +414,34 @@ def grid_params(model, ftr):
     return names, vals, params
 
 
-def phase_k1(model, tensor, params_b, fit_lanes, grid_lanes, device, tan_tol: float,
-             label: str = "") -> dict:
+def compare_k1(model, params, tensor, lanes, device, tan_tol: float, tag: str) -> dict:
+    """K1 against its twin at one shape: time residuals within 1 ps, pulse
+    numbers equal, f within 1e-15 relative, tangents within `tan_tol`
+    relative (per lane, to the lane's largest value)."""
     import torch
 
     from pint_tpu_torch.residuals import resid_tangent, resid_tangent_plain
 
-    stats = {}
-    for shape, params, lanes in (("fit", model.params, fit_lanes),
-                                 ("grid", params_b, grid_lanes)):
-        got = resid_tangent(model, params, tensor, lanes)
-        want = resid_tangent_plain(model, params, tensor, lanes)
-        sync(device)
-        tag = f"K1 {label}{shape} ({len(lanes)} lanes)"
-        dt = float(torch.max(torch.abs(got.frac / got.f - want.frac / want.f)))
-        check(dt <= 1e-12, f"{tag}: time residuals within 1 ps of the twin ({dt:.3g} s)")
-        check(torch.equal(got.pn, want.pn), f"{tag}: pulse numbers equal")
-        check(rel_err(got.f, want.f) <= 1e-15, f"{tag}: f within 1e-15 relative")
-        worst = max(max(rel_err(got.dfrac[:, j], want.dfrac[:, j]),
-                        rel_err(got.df[:, j], want.df[:, j])) for j in range(len(lanes)))
-        check(worst <= tan_tol, f"{tag}: tangents within {tan_tol:g} relative ({worst:.3g})")
-        stats[shape] = {"max_abs_err": dt, "tangent_rel_err": worst}
-    return stats
+    got = resid_tangent(model, params, tensor, lanes)
+    want = resid_tangent_plain(model, params, tensor, lanes)
+    sync(device)
+    dt = float(torch.max(torch.abs(got.frac / got.f - want.frac / want.f)))
+    check(dt <= 1e-12, f"{tag}: time residuals within 1 ps of the twin ({dt:.3g} s)")
+    check(torch.equal(got.pn, want.pn), f"{tag}: pulse numbers equal")
+    check(rel_err(got.f, want.f) <= 1e-15, f"{tag}: f within 1e-15 relative")
+    worst = max((max(rel_err(got.dfrac[:, j], want.dfrac[:, j]),
+                     rel_err(got.df[:, j], want.df[:, j])) for j in range(len(lanes))),
+                default=0.0)
+    check(worst <= tan_tol, f"{tag}: tangents within {tan_tol:g} relative ({worst:.3g})")
+    return {"max_abs_err": dt, "tangent_rel_err": worst}
+
+
+def phase_k1(model, tensor, params_b, fit_lanes, grid_lanes, device, tan_tol: float,
+             label: str = "") -> dict:
+    return {shape: compare_k1(model, params, tensor, lanes, device, tan_tol,
+                              f"K1 {label}{shape} ({len(lanes)} lanes)")
+            for shape, params, lanes in (("fit", model.params, fit_lanes),
+                                         ("grid", params_b, grid_lanes))}
 
 
 def phase_k2(model, tensor, params_b, free, w, device):
@@ -431,19 +464,20 @@ def phase_k2(model, tensor, params_b, free, w, device):
 # --- phases 6-7: the main path -------------------------------------------------------
 
 
-def fresh_fitter(tensor, device, flagship: bool = False):
+def fresh_fitter(tensor, device, which: str = "smoke"):
     """A fitter on `tensor`, its model moved off the solution by the start
-    shift: DownhillWLSFitter on SMOKE_PAR, or DownhillGLSFitter on the
-    flagship par."""
+    shift: DownhillWLSFitter on SMOKE_PAR ("smoke") or DD_SMOKE_PAR ("dd"),
+    or DownhillGLSFitter on the flagship par ("flagship")."""
     import torch
 
     from pint_tpu_torch.fitting import DownhillGLSFitter, DownhillWLSFitter
     from pint_tpu_torch.fitting.wls import apply_delta
     from pint_tpu_torch.models import get_model
-    from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR, SMOKE_PAR
+    from pint_tpu_torch.profiles import DD_SMOKE_PAR, FLAGSHIP_SMOKE_PAR, SMOKE_PAR
 
-    par, cls, shift = ((FLAGSHIP_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT) if flagship
-                       else (SMOKE_PAR, DownhillWLSFitter, START_SHIFT))
+    par, cls, shift = {"smoke": (SMOKE_PAR, DownhillWLSFitter, START_SHIFT),
+                       "flagship": (FLAGSHIP_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT),
+                       "dd": (DD_SMOKE_PAR, DownhillWLSFitter, DD_SHIFT)}[which]
     model = get_model(par, from_text=True, device=device)
     free = tuple(model.free_params)
     delta = torch.tensor([shift.get(n, 0.0) for n in free], dtype=torch.float64,
@@ -534,16 +568,16 @@ def check_grid(main: dict, twin: dict, label: str) -> float:
     return worst_g
 
 
-def profile_main_path(tensor, device, flagship: bool = False) -> dict:
+def profile_main_path(tensor, device, which: str = "smoke") -> dict:
     """The wall of one warm fit + grid without the profiler, then device time
     by kernel over one more under torch.profiler (CUDA activity only).
     `busy_share` is that summed kernel time over the unprofiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plain = run_main_path(fresh_fitter(tensor, device, flagship), device)
+    plain = run_main_path(fresh_fitter(tensor, device, which), device)
     wall = plain["fit_s"] + plain["grid_s"]
-    ftr = fresh_fitter(tensor, device, flagship)
+    ftr = fresh_fitter(tensor, device, which)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_main_path(ftr, device)
@@ -604,14 +638,24 @@ def k0_record(model, device) -> dict:
 # The ELL1 term adds 8 sin/cos and 1 log (~315), the dd orbital phase (~60)
 # and ~120 dual operations of the three Roemer polynomials, the inverse
 # expansion and the Shapiro term (~120 on the value, ~300 per lane).
+# The Kepler term (BT, DD): the Newton solve on the value alone, a sine for
+# Danby's start and 10 steps of a sine, a cosine, a division and 4 operations
+# (~945); the sines and cosines of 4 more angles (E, E/2, omega, omega + nu;
+# 8, ~280), 1 atan2 (~45), 4 square roots (~80), 1 log (~35), 8 divisions
+# (~120), the dd orbital phase (~60) and ~100 other operations (~1,665); per
+# lane ~110 dual operations (~280) and the tangents of the 8 divisions as
+# multiplies by the row's reciprocals (~25).
 K1_OPS_PER_ROW = 750
 K1_OPS_PER_LANE = 80
 K1_BIN_OPS_PER_ROW = 500
 K1_BIN_OPS_PER_LANE = 300
+K1_KEPLER_OPS_PER_ROW = 1665
+K1_KEPLER_OPS_PER_LANE = 305
 
 
 def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
-    from pint_tpu_torch.residuals import resid_tangent, resid_tangent_plain
+    from pint_tpu_torch.residuals import (BIN_ELL1, BIN_KEPLER, BIN_NONE, _structure,
+                                          resid_tangent, resid_tangent_plain)
 
     B = params["F0"].hi.shape[0] if params["F0"].hi.dim() else 1
     rows = tensor["t_hi"].shape[0]
@@ -621,14 +665,16 @@ def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
     plain, plain_call = measure(lambda: resid_tangent_plain(model, params, tensor, lanes),
                                 device, max(1, reps // 20))
     k = len(lanes)
-    binary = "BinaryELL1" in model
+    kind = _structure(model).bin_kind
     n_bytes = rows * 12 * 8 + B * (P_ROW_LEN + 2 * model["Spindown"].num_terms) * 8 \
         + B * n * (3 + 2 * k) * 8
     # the N TOA rows and the TZR row once per parameter set (the kernel's
     # per-block recompute of the TZR row and each lane chunk's recompute of
     # the primal are its own cost, not needed work)
-    per_row = K1_OPS_PER_ROW + (K1_BIN_OPS_PER_ROW if binary else 0)
-    per_lane = K1_OPS_PER_LANE + (K1_BIN_OPS_PER_LANE if binary else 0)
+    bin_row, bin_lane = {BIN_NONE: (0, 0), BIN_ELL1: (K1_BIN_OPS_PER_ROW, K1_BIN_OPS_PER_LANE),
+                         BIN_KEPLER: (K1_KEPLER_OPS_PER_ROW, K1_KEPLER_OPS_PER_LANE)}[kind]
+    per_row = K1_OPS_PER_ROW + bin_row
+    per_lane = K1_OPS_PER_LANE + bin_lane
     n_ops = B * rows * (per_row + per_lane * k)
     b, how = bound_ms(n_bytes, n_ops)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
@@ -655,7 +701,7 @@ def k2_record(r, M, w, device) -> dict:
 
 
 # parameter row of K1 before the DM and F terms (resid_tangent.cu P_DM0)
-P_ROW_LEN = 25
+P_ROW_LEN = 33
 
 
 def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
@@ -734,7 +780,9 @@ KERNELS = (
     ("dd_elementwise", "pint_tpu_torch/csrc/dd_elementwise.cu",
      "pint_tpu/ops/dd.py:142 (dd_add..dd_rint, inlined in every TPU program)"),
     ("resid_tangent", "pint_tpu_torch/csrc/resid_tangent.cu",
-     "pint_tpu/residuals.py:90 (resid) + pint_tpu/fitting/wls.py:180 (design jvp)"),
+     "pint_tpu/residuals.py:90 (resid) + pint_tpu/fitting/wls.py:180 (design jvp); the Kepler "
+     "term pint_tpu/models/binaries/kepler.py:27-67 (kepler_E, its JVP, true_anomaly) + "
+     "engines.py:59-130 (bt_delay, _dd_core, dd_delay, dds_delay)"),
     ("normal_eq", "pint_tpu_torch/csrc/normal_eq.cu",
      "pint_tpu/gridutils.py:132 (gn_step normal equations, grid program)"),
     ("ecorr_normal_eq", "pint_tpu_torch/csrc/ecorr_normal_eq.cu",
@@ -831,7 +879,7 @@ def flagship_phases(device, summary: dict) -> dict:
 
     print("phase 9: K1 with the ELL1 term against its twin (flagship)")
     tensor = load_prepared(FLAGSHIP_ARCHIVE, device=device)
-    start = fresh_fitter(tensor, device, flagship=True)
+    start = fresh_fitter(tensor, device, "flagship")
     model = start.model
     free = tuple(model.free_params)
     names, _, params_b = grid_params(model, start)
@@ -845,12 +893,12 @@ def flagship_phases(device, summary: dict) -> dict:
     k3 = phase_k3(model, tensor, start, params_b, grid_free, device)
 
     print("phase 11: DownhillGLSFitter.fit_toas (flagship)")
-    main = run_main_path(fresh_fitter(tensor, device, flagship=True), device)
+    main = run_main_path(fresh_fitter(tensor, device, "flagship"), device)
     fit_l, grid_l = main["fit_launches"], main["grid_launches"]
     for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
         check(fit_l[name] > 0, f"{name} launched {fit_l[name]} times by the GLS fit_toas")
     with twins():
-        twin = run_main_path(fresh_fitter(tensor, device, flagship=True), device)
+        twin = run_main_path(fresh_fitter(tensor, device, "flagship"), device)
     check_fit(main, twin, "flagship GLS")
 
     print("phase 12: grid_chisq 3x3 (M2, SINI), GLS statistic")
@@ -873,7 +921,7 @@ def flagship_phases(device, summary: dict) -> dict:
                                     if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms", "shape")})
     if device.type == "cuda":
-        summary["flagship_profile"] = profile_main_path(tensor, device, flagship=True)
+        summary["flagship_profile"] = profile_main_path(tensor, device, "flagship")
     res = main["fitter"].result
     summary["flagship"] = {
         "fit_wall_s": main["fit_s"], "grid_wall_s": main["grid_s"],
@@ -1032,16 +1080,16 @@ def phase_prepare_scale(device, tmp: Path) -> dict:
             "twin_stage_s": want.stage_s, "errs": errs}
 
 
-def flagship_tim_path(device, tmp: Path, tim=None) -> dict:
-    """get_model_and_toas + build_tensor of the flagship par and a .tim (the
-    analytic-ephemeris flagship .tim unless given), in a launch window of
-    their own."""
+def flagship_tim_path(device, tmp: Path, tim=None, par_text: str | None = None) -> dict:
+    """get_model_and_toas + build_tensor of the flagship par (or `par_text`)
+    and a .tim (the analytic-ephemeris flagship .tim unless given), in a
+    launch window of their own."""
     from pint_tpu_torch.models import get_model_and_toas
     from pint_tpu_torch.prepared import FLAGSHIP_TIM
     from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR
 
-    par = tmp / "flagship.par"
-    par.write_text(FLAGSHIP_SMOKE_PAR)
+    par = tmp / "model.par"
+    par.write_text(par_text or FLAGSHIP_SMOKE_PAR)
     out = {"launches": {}}
     with counted(out["launches"]):
         t0 = time.perf_counter()
@@ -1147,14 +1195,14 @@ def prepare_phases(device, summary: dict, flagship: dict) -> dict:
             twin = flagship_tim_path(device, tmp)
 
         print("phase 17: GLS fit and (M2, SINI) grid from the .tim's TOAs")
-        run = run_main_path(fresh_fitter(main["tensor"], device, flagship=True), device)
+        run = run_main_path(fresh_fitter(main["tensor"], device, "flagship"), device)
         fit_l, grid_l = run["fit_launches"], run["grid_launches"]
         for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
             for what, counts in (("fit_toas", fit_l), ("grid_chisq", grid_l)):
                 check(counts[name] > 0 or device.type != "cuda",
                       f"{name} launched {counts[name]} times by the {what}")
         with twins():
-            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, flagship=True), device)
+            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, "flagship"), device)
         check_fit(run, twin_run, "tim GLS")
         worst_g = check_grid(run, twin_run, "tim")
         raw, raw_name = sigma_diff(run["fitter"], flagship["fitter"])
@@ -1162,7 +1210,7 @@ def prepare_phases(device, summary: dict, flagship: dict) -> dict:
               "tim's six-decimal frequencies)")
         arch = load_prepared(FLAGSHIP_ARCHIVE, device=device)
         arch["freq_mhz"] = main["tensor"]["freq_mhz"].clone()
-        same_freq = run_main_path(fresh_fitter(arch, device, flagship=True), device)
+        same_freq = run_main_path(fresh_fitter(arch, device, "flagship"), device)
         worst, name = sigma_diff(run["fitter"], same_freq["fitter"])
         check(worst <= 1e-3, f"tim fit within 1e-3 sigma of the archive's fit with the tim's "
                              f"frequencies ({worst:.3g} sigma, {name})")
@@ -1416,7 +1464,7 @@ SNAPSHOT_LIMITS = {"earth_m": 10.0, "earth_m_s": 1e-3, "fit_sigma": 0.1}
 def fit_only(tensor, device) -> dict:
     """The flagship GLS fit from the moved start, in a launch window."""
     out = {"launches": {}}
-    ftr = fresh_fitter(tensor, device, flagship=True)
+    ftr = fresh_fitter(tensor, device, "flagship")
     with counted(out["launches"]):
         t0 = time.perf_counter()
         ftr.fit_toas()
@@ -1511,14 +1559,14 @@ def ephemeris_phases(device, summary: dict) -> dict:
                                                   "default ephemeris")}
 
         print("phase 20: GLS fit and (M2, SINI) grid from the default-ephemeris TOAs")
-        run = run_main_path(fresh_fitter(main["tensor"], device, flagship=True), device)
+        run = run_main_path(fresh_fitter(main["tensor"], device, "flagship"), device)
         fit_l, grid_l = run["fit_launches"], run["grid_launches"]
         for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq"):
             for what, counts in (("fit_toas", fit_l), ("grid_chisq", grid_l)):
                 check(counts[name] > 0 or device.type != "cuda",
                       f"{name} launched {counts[name]} times by the {what}")
         with twins():
-            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, flagship=True),
+            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, "flagship"),
                                      device)
         check_fit(run, twin_run, "default-ephemeris GLS")
         worst_g = check_grid(run, twin_run, "default-ephemeris")
@@ -1569,8 +1617,149 @@ def ephemeris_phases(device, summary: dict) -> dict:
                         "spk_prepare": sp["prepare"], "spk_fit": sp["fit"]}}
 
 
+# --- phases 23-26: eccentric binaries (K1's Kepler instance) ------------------------
+
+#: phase 25's bound between the DD grid and the twin path's grid from its own
+#: fit: about 5 ulp of the fitted RAJ (one ulp moves the grid by 2.1e-10
+#: relative on an H100)
+DD_GRID_OWN_FITS_TOL = 1e-9
+
+
+def fit_distance(main: dict, twin: dict) -> float:
+    """The largest relative distance between two fits' parameters."""
+    vals, ref = main["fitter"].values(), twin["fitter"].values()
+    return max(abs(vals[n] - ref[n]) / abs(ref[n]) for n in vals)
+
+
+def ulp_sensitivity(ftr, names, vals, chi2, param: str) -> float:
+    """The largest relative change of the grid's chi^2 when the fitted
+    `param` (a float64 leaf) moves up by one ulp."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.gridutils import grid_chisq
+
+    model = ftr.model
+    saved = model.params
+    v = saved[param]
+    model.params = dict(saved, **{param: torch.nextafter(v, v.new_full((), math.inf))})
+    try:
+        moved = grid_chisq(ftr, names, vals)
+    finally:
+        model.params = saved
+    return float(np.max(np.abs(moved - chi2) / chi2))
+
+
+def dd_phases(device, summary: dict) -> dict:
+    """Phases 23-26: profiles.DD_SMOKE_PAR from pint_tpu_torch/data/
+    dd_n16384.tim through K1's Kepler instance: K1 against its twin (DD at
+    the fit's and the grid's shapes and with every lane; BT and DDS), the
+    prepare, the WLS fit and the (M2, SINI) grid against the twin path, and
+    their times."""
+    import numpy as np
+
+    from pint_tpu_torch.fitting.design import linear_split
+    from pint_tpu_torch.gridutils import grid_chisq
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import DD_TIM
+    from pint_tpu_torch.profiles import DD_SMOKE_PAR, dd_smoke_par, grid_for
+    from pint_tpu_torch.residuals import lane_names
+
+    with tempfile.TemporaryDirectory() as tmpname, knobs(
+            PINT_TPU_NBODY="0", PINT_TPU_EPHEM=None, PINT_TPU_KERNEL_EPHEM=None):
+        tmp = Path(tmpname)
+        print("phase 23: K1's Kepler instance against its twin (dd_n16384.tim)")
+        main = flagship_tim_path(device, tmp, DD_TIM, DD_SMOKE_PAR)
+        tensor = main["tensor"]
+        start = fresh_fitter(tensor, device, "dd")
+        model = start.model
+        free = tuple(model.free_params)
+        names, _, params_b = grid_params(model, start)
+        grid_free = tuple(n for n in free if n not in names)
+        fit_lanes = linear_split(model, free)[0]
+        grid_lanes = linear_split(model, grid_free)[0]
+        check(len(fit_lanes) == 10 and len(grid_lanes) == 10 and names == ("M2", "SINI"),
+              f"DD: {len(free)} free parameters, {len(fit_lanes)} fit lanes, "
+              f"{len(grid_lanes)} grid lanes, grid over {names}")
+        stats = phase_k1(model, tensor, params_b, fit_lanes, grid_lanes, device, 1e-12, "DD ")
+        for binary in ("DD", "BT", "DDS"):
+            m = get_model(dd_smoke_par(binary), from_text=True, device=device)
+            every = lane_names(m.params)
+            stats[f"{binary}_every"] = compare_k1(m, m.params, tensor, every, device, 1e-12,
+                                                  f"K1 {binary} every lane ({len(every)} lanes)")
+
+        print("phase 24: get_model_and_toas + build_tensor and DownhillWLSFitter.fit_toas "
+              "(DD)")
+        pl = main["launches"]
+        want = 2 if device.type == "cuda" else 0
+        for name in ("site_geometry", "analytic_ephemeris"):
+            check(pl[name] == want, f"{name} launched {pl[name]} times (the TOAs and the TZR row)")
+        print("  stage walls (s): " + json.dumps(main["stage_s"])
+              + f"; get_model_and_toas + build_tensor {main['wall_s']:.3f} s")
+        with twins():
+            twin = flagship_tim_path(device, tmp, DD_TIM, DD_SMOKE_PAR)
+        compare_tensors(tensor, twin["tensor"], "DD prepare kernels vs twins")
+        run = run_main_path(fresh_fitter(tensor, device, "dd"), device)
+        fit_l, grid_l = run["fit_launches"], run["grid_launches"]
+        for name in ("dd_elementwise", "resid_tangent"):
+            check(fit_l[name] > 0 or device.type != "cuda",
+                  f"{name} launched {fit_l[name]} times by the DD fit_toas")
+        with twins():
+            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, "dd"), device)
+        check_fit(run, twin_run, "DD WLS")
+
+        print("phase 25: grid_chisq 3x3 (M2, SINI) around the DD fit")
+        # the twins' grid from the same fitted model: this grid's chi^2 moves
+        # by ~2e-10 relative when the fitted RAJ moves by one ulp (measured
+        # below), so two fits an ulp apart cannot hold 1e-10 between grids;
+        # the twin path's grid from its own fit is held to a few ulp of RAJ
+        gnames, gvals = grid_for(run["fitter"].model, run["fitter"])
+        with twins():
+            same_start = {"chi2": grid_chisq(run["fitter"], gnames, gvals)}
+        worst_g = check_grid(run, same_start, "DD (from the same fit)")
+        sens = ulp_sensitivity(run["fitter"], gnames, gvals, run["chi2"], "RAJ")
+        apart = float(np.max(np.abs(run["chi2"] - twin_run["chi2"]) / twin_run["chi2"]))
+        print(f"  one ulp of the fitted RAJ moves this grid by {sens:.3g} relative")
+        check(apart <= DD_GRID_OWN_FITS_TOL,
+              f"DD grid within {DD_GRID_OWN_FITS_TOL:g} relative of the twin path's grid from "
+              f"its own fit ({apart:.3g}; the fits {fit_distance(run, twin_run):.3g} "
+              f"relative apart)")
+        argmin = int(np.argmin(run["chi2"]))
+        check(argmin == 4, f"DD grid chi2 minimum at the centre point, the truth (argmin {argmin})")
+        for name in ("resid_tangent", "normal_eq"):
+            check(grid_l[name] > 0 or device.type != "cuda",
+                  f"{name} launched {grid_l[name]} times by the DD grid_chisq")
+        print("  K2 at the DD grid's first step (p = 10)")
+        w = 1.0 / start.resids.errors_s**2
+        r, M, k2_err = phase_k2(model, tensor, params_b, grid_free, w, device)
+
+        print("phase 26: K1's Kepler instance times, DD warm wall and busy share")
+        recs = {"resid_tangent": {
+            f"kepler_{shape}_{k}": v
+            for shape, params, lanes in (("fit", model.params, fit_lanes),
+                                         ("grid", params_b, grid_lanes))
+            for k, v in k1_record(model, tensor, params, lanes, device, 20).items()
+            if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "normal_eq": {f"dd_{k}": v for k, v in k2_record(r, M, w, device).items()}}
+        if device.type == "cuda":
+            summary["dd_profile"] = profile_main_path(tensor, device, "dd")
+    res = run["fitter"].result
+    summary["dd"] = {
+        "prepare_wall_s": main["wall_s"], "prepare_stage_s": main["stage_s"],
+        "twin_prepare_wall_s": twin["wall_s"], "fit_wall_s": run["fit_s"],
+        "grid_wall_s": run["grid_s"], "fit_iterations": res.iterations,
+        "fit_chi2_reduced": res.reduced_chi2, "grid_chi2": run["chi2"].tolist(),
+        "grid_argmin": argmin, "grid_rel_err": worst_g, "grid_rel_err_own_fits": apart,
+        "grid_raj_ulp_sensitivity": sens, "free": list(free),
+        "k1_stats": stats}
+    errs = {"resid_tangent": max(v["max_abs_err"] for v in stats.values()),
+            "normal_eq": k2_err}
+    return {"recs": recs, "errs": errs,
+            "windows": {"dd_prepare": pl, "dd_fit": fit_l, "dd_grid": grid_l}}
+
+
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-22 on `device_name`; returns the summary record."""
+    """Phases 2-26 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -1591,15 +1780,17 @@ def phases(device_name: str = "cuda") -> dict:
     flag = flagship_phases(device, summary)
     prep = prepare_phases(device, summary, flag)
     ephem = ephemeris_phases(device, summary)
+    dd = dd_phases(device, summary)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
-               **ephem["windows"]}
+               **ephem["windows"], **dd["windows"]}
     kernels = []
     for name, src, replaces in KERNELS:
         rec = {**smoke["recs"].get(name, {}), **flag["recs"].get(name, {}),
-               **prep["recs"].get(name, {}), **ephem["recs"].get(name, {})}
-        err = max(r["errs"].get(name, 0.0) for r in (smoke, flag, prep, ephem))
+               **prep["recs"].get(name, {}), **ephem["recs"].get(name, {}),
+               **dd["recs"].get(name, {})}
+        err = max(r["errs"].get(name, 0.0) for r in (smoke, flag, prep, ephem, dd))
         ptxas = summary.get("ptxas_instances", {}).get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(w[name] for w in windows.values()),

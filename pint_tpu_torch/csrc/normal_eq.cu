@@ -37,7 +37,7 @@ using pint::block_sum;
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_THREAD = 4;
 constexpr int TILE = THREADS * ROWS_PER_THREAD;
-constexpr int PMAX = 8;
+constexpr int PMAX = 12;  // the DD grid refits 10 parameters
 
 __host__ __device__ constexpr int q1(int p) { return p + 2; }
 __host__ __device__ constexpr int q2(int p) { return p * (p + 1) / 2 + p + 1; }
@@ -191,7 +191,8 @@ extern "C" int normal_eq(const double *r, const double *M, const double *w, int 
 #define PINT_CASE(P) \
   case P: e = launch<P>(r, M, w, B, n, centre, ridge, part1, part2, G, c, chi2, norm, s); break;
     PINT_CASE(0) PINT_CASE(1) PINT_CASE(2) PINT_CASE(3) PINT_CASE(4)
-    PINT_CASE(5) PINT_CASE(6) PINT_CASE(7) PINT_CASE(8)
+    PINT_CASE(5) PINT_CASE(6) PINT_CASE(7) PINT_CASE(8) PINT_CASE(9)
+    PINT_CASE(10) PINT_CASE(11) PINT_CASE(12)
 #undef PINT_CASE
     default: e = cudaErrorInvalidValue;
   }

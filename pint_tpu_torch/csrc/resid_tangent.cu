@@ -11,35 +11,46 @@
 //   Roemer -r.n and parallax                (astrometry.py)
 //   solar Shapiro -2 T ln((|s| - s.n)/AU)   (solar_system_shapiro.py)
 //   DM delay DMconst DM(t) / f_bary^2, f_bary = f (1 - v.n)  (dispersion.py)
-//   ELL1 binary delay at t - delay so far   (binary.py, binaries/engines.py):
-//     dd orbital phase norb0 = rint(dt/PB), rem = dt - PB norb0 in dd, the
-//     PBDOT term, phi = 2 pi (frac - rint(frac)); the third-order Roemer
-//     expansion and its two phi derivatives (sin/cos of phi .. 4 phi), the
-//     inverse-timing expansion, and -2 TSUN M2 log(1 - SINI sin phi)
+//   binary delay at t - delay so far        (binary.py, binaries/engines.py):
+//     the orbit (one function for every binary): dd orbital phase
+//     norb0 = rint(dt/PB), rem = dt - PB norb0 in dd, the PBDOT term,
+//     phi = 2 pi (frac - rint(frac)), from the epoch TASC or T0; then
+//     ELL1: the third-order Roemer expansion and its two phi derivatives
+//     (sin/cos of phi .. 4 phi), the inverse-timing expansion, and
+//     -2 TSUN M2 log(1 - SINI sin phi); or
+//     a Kepler orbit (binaries/kepler.py, engines.py bt_delay, _dd_core):
+//     E from Danby's start and 10 Newton steps on the primal doubles, one
+//     dual value from the implicit rule dE = (dM + sin E de)/(1 - e cos E);
+//     BT's closed form, or DD's true anomaly (atan2 on the centred branch),
+//     omega = OM + k nu, the inverse timing with its e sin E term, the
+//     Shapiro log and the aberration terms (DDS: DD with the host's
+//     SINI = 1 - exp(-SHAPMAX))
 //   spindown phase: dd Horner of F_k over t - delay - PEPOCH (spindown.py)
 //   spin frequency f(t)                     (spindown.py)
 //   minus the TZR row's phase, then dd rint (timing_model.py, residuals.py)
 // and writes the pulse number, the fractional phase (hi + lo) and f.
 //
 // Tangents: beside every value the thread carries K dual lanes, one per
-// free parameter (lane codes: 0 RAJ 1 DECJ 2 PMRA 3 PMDEC 4 PX 5 PB 6 A1
-// 7 TASC 8 EPS1 9 EPS2, 16 + k for F_k, 32 + k for DM_k). A double-double
+// free parameter (lane codes: the L_* enum below, the table LANE_CODES of
+// residuals.py: 0-4 astrometry, 5-9 PB A1 TASC EPS1 EPS2, 16 + k for F_k,
+// 32 + k for DM_k, 48-62 the Kepler-orbit and shared binary lanes). A double-double
 // value carries one float64 tangent: the derivative needs float64 precision
 // only, as jax's tangents through the float64 carriers do. Outputs d(frac)/dp
 // and d(f)/dp per lane; the caller forms d(r/f) (fitting/wls.py, gls.py,
 // gridutils.py). A block carries at most KCHUNK = 8 lanes (registers: every
 // dual value holds K + 1 doubles); more lanes are more blocks of the same
 // launch (blockIdx.z picks the chunk), each recomputing the primal, and
-// chunk 0 alone writes the primal outputs. The ELL1 term is a template
-// parameter (BIN): a model without a binary runs an instance that carries
-// none of its code or registers.
+// chunk 0 alone writes the primal outputs. The binary kind is a template
+// parameter (BIN: 0 none, 1 ELL1, 2 Kepler): a model runs an instance that
+// carries only its own binary's code and registers. BT and DD (DDS) are a
+// run-time flag of the Kepler instance (Config::bin_model).
 //
 // TZR row: every block's thread 0 evaluates the fiducial row (the tensor's
 // last) into shared memory before the block's rows subtract it, so one launch
 // does the whole pass and nothing crosses blocks.
 //
 // Bound: double-precision operations. Per row the dd Horner, the transcen-
-// dentals (cos, sin, log) and the K lanes cost several hundred float64
+// dentals (cos, sin, log; the Kepler term ~40 more) and the K lanes cost several hundred float64
 // operations against 96 bytes of row input and (3 + 2K) doubles of output:
 // far above the ~10 flop/byte ridge of an H100 in float64.
 #include "dd.cuh"
@@ -54,19 +65,27 @@ constexpr int KCHUNK = 8;  // lanes per block
 constexpr int LMAX = 32;   // lanes per launch
 constexpr int THREADS = 256;
 constexpr double TWO_PI = 6.283185307179586;  // 2.0 * math.pi
+constexpr int NEWTON_ITERS = 10;               // binaries/kepler.py
+constexpr int BIN_NONE = 0, BIN_ELL1 = 1, BIN_KEPLER = 2;
+constexpr int KEPLER_BT = 0;  // Config::bin_model; 1 is DD (and DDS)
 
 // parameter row layout, shared with pint_tpu_torch/residuals.py _pack_params
 enum : int {
   P_RAJ = 0, P_DECJ, P_PMRA, P_PMDEC, P_PX, P_POSEPOCH, P_DMEPOCH,
   P_PEPOCH_HI, P_PEPOCH_LO,
-  // the ELL1 block (zeros without a binary)
-  P_PB_HI, P_PB_LO, P_TASC_HI, P_TASC_LO, P_A1, P_A1DOT, P_EPS1, P_EPS2,
+  // the binary block (zeros without a binary); the epoch is TASC or T0
+  P_PB_HI, P_PB_LO, P_EPOCH_HI, P_EPOCH_LO, P_A1, P_A1DOT, P_EPS1, P_EPS2,
   P_EPS1DOT, P_EPS2DOT, P_PBDOT, P_XPBDOT, P_M2, P_SINI,
+  // the Kepler block; DSINI is d SINI / d SHAPMAX (DDS), the SHAPMAX seed
+  P_ECC, P_EDOT, P_OM, P_OMDOT, P_GAMMA, P_DR, P_DTH, P_A0, P_B0, P_DSINI,
   P_DM0  // then nd DM coefficients, then nf (hi, lo) F pairs
 };
+// lane codes: residuals.py LANE_CODES holds the same list
 enum : int {
   L_RAJ = 0, L_DECJ = 1, L_PMRA = 2, L_PMDEC = 3, L_PX = 4,
-  L_PB = 5, L_A1 = 6, L_TASC = 7, L_EPS1 = 8, L_EPS2 = 9, L_F0 = 16, L_DM0 = 32
+  L_PB = 5, L_A1 = 6, L_TASC = 7, L_EPS1 = 8, L_EPS2 = 9, L_F0 = 16, L_DM0 = 32,
+  L_T0 = 48, L_ECC, L_OM, L_OMDOT, L_EDOT, L_GAMMA, L_PBDOT, L_A1DOT, L_M2, L_SINI,
+  L_SHAPMAX, L_DR, L_DTH, L_A0, L_B0
 };
 
 struct Config {
@@ -78,6 +97,7 @@ struct Config {
   int nf;       // spin terms F0..F(nf-1)
   int n_par;    // parameter row length
   int n_lane;   // lanes of this launch
+  int bin_model;  // Kepler instance: KEPLER_BT or 1 (DD, DDS)
   int lane[LMAX];
   double au_ls, dmconst, tsun;
 };
@@ -197,6 +217,28 @@ __device__ __forceinline__ Dual<K> dsin(const Dual<K> &a) {
   const double cs = cos(a.v);
 #pragma unroll
   for (int j = 0; j < K; ++j) r.d[j] = cs * a.d[j];
+  return r;
+}
+
+template <int K>
+__device__ __forceinline__ Dual<K> dsqrt(const Dual<K> &a) {
+  Dual<K> r;
+  r.v = __dsqrt_rn(a.v);
+  const double two_r = __dmul_rn(2.0, r.v);
+#pragma unroll
+  for (int j = 0; j < K; ++j) r.d[j] = a.d[j] / two_r;
+  return r;
+}
+
+// atan2(y, x), tangent y' x / (y^2 + x^2) - x' y / (y^2 + x^2)
+template <int K>
+__device__ __forceinline__ Dual<K> datan2(const Dual<K> &y, const Dual<K> &x) {
+  Dual<K> r;
+  r.v = atan2(y.v, x.v);
+  const double den = __dadd_rn(__dmul_rn(y.v, y.v), __dmul_rn(x.v, x.v));
+  const double gy = __ddiv_rn(x.v, den), gx = __ddiv_rn(-y.v, den);
+#pragma unroll
+  for (int j = 0; j < K; ++j) r.d[j] = y.d[j] * gy + x.d[j] * gx;
   return r;
 }
 
@@ -360,37 +402,73 @@ __device__ Dual<K> ell1_drepp(const Ell1Harmonics<K> &h, const Dual<K> &e1, cons
   return dsub(r, dmulc(q, 1.0 / 12));
 }
 
-// The ELL1 delay at the time t - delay_so_far (binary.py PulsarBinary._orbits
-// and delay, binaries/engines.py ell1_delay). `dsf` is the delay so far
-// with its lanes.
+// `v` seeded with 1 on the lane `code` and with `d2` on the lane `code2`
 template <int K>
-__device__ Dual<K> ell1_delay(double t_hi, double t_lo, const Dual<K> &dsf,
-                              const double *__restrict__ P, const Lanes<K> &lane, double tsun) {
-  // dt = (t - TASC) - delay in dd; the TASC lane enters with -1
+__device__ __forceinline__ Dual<K> dseed2(double v, const Lanes<K> &lane, int code, int code2,
+                                          double d2) {
+  Dual<K> r;
+  r.v = v;
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    r.d[j] = (lane.code[j] == code) ? 1.0 : (lane.code[j] == code2) ? d2 : 0.0;
+  return r;
+}
+
+// The orbit at the time t - delay_so_far (binary.py PulsarBinary._orbits),
+// shared by every binary term: dt since the epoch, the orbital phase phi on
+// the centred branch, the orbit count and the period pb = PB + PBDOT dt.
+template <int K>
+struct Orbit {
+  Dual<K> dt, phi, pb;
+  double norb;
+};
+
+template <int K>
+__device__ Orbit<K> orbit(double t_hi, double t_lo, const Dual<K> &dsf,
+                          const double *__restrict__ P, const Lanes<K> &lane, int epoch_lane) {
+  // dt = (t - epoch) - delay in dd; the epoch's lane enters with -1
   DDual<K> dtx;
-  dtx.x = dd_add_fp(dd_sub(dd{t_hi, t_lo}, dd{P[P_TASC_HI], P[P_TASC_LO]}), -dsf.v);
+  dtx.x = dd_add_fp(dd_sub(dd{t_hi, t_lo}, dd{P[P_EPOCH_HI], P[P_EPOCH_LO]}), -dsf.v);
 #pragma unroll
-  for (int j = 0; j < K; ++j) dtx.d[j] = (0.0 - (lane.code[j] == L_TASC ? 1.0 : 0.0)) - dsf.d[j];
-  Dual<K> dt;
-  dt.v = dd_to_float(dtx.x);
+  for (int j = 0; j < K; ++j)
+    dtx.d[j] = (0.0 - (lane.code[j] == epoch_lane ? 1.0 : 0.0)) - dsf.d[j];
+  Orbit<K> o;
+  o.dt.v = dd_to_float(dtx.x);
 #pragma unroll
-  for (int j = 0; j < K; ++j) dt.d[j] = dtx.d[j];
+  for (int j = 0; j < K; ++j) o.dt.d[j] = dtx.d[j];
   const Dual<K> pb0 = dseed<K>(__dadd_rn(P[P_PB_HI], P[P_PB_LO]), lane, L_PB);
   // which orbit to measure from: rint carries no tangent
-  const double norb0 = rint(__ddiv_rn(dt.v, pb0.v));
+  const double norb0 = rint(__ddiv_rn(o.dt.v, pb0.v));
   Dual<K> rem;
   rem.v = dd_to_float(dd_sub(dtx.x, dd_mul_fp(dd{P[P_PB_HI], P[P_PB_LO]}, norb0)));
 #pragma unroll
   for (int j = 0; j < K; ++j) rem.d[j] = dtx.d[j] - pb0.d[j] * norb0;
   Dual<K> frac = ddiv(rem, pb0);
   const Dual<K> u = dadd(dconst<K>(norb0), frac);
-  const double pbdot_eff = __dadd_rn(P[P_PBDOT], P[P_XPBDOT]);
-  frac = dsub(frac, dmul(dmulc(u, __dmul_rn(0.5, pbdot_eff)), u));
-  const Dual<K> pb = dadd(pb0, dmulc(dt, P[P_PBDOT]));
+  const Dual<K> pbdot = dseed<K>(P[P_PBDOT], lane, L_PBDOT);
+  const Dual<K> pbdot_eff = dadd(pbdot, dconst<K>(P[P_XPBDOT]));
+  frac = dsub(frac, dmul(dmul(dmulc(pbdot_eff, 0.5), u), u));
+  o.pb = dadd(pb0, dmul(pbdot, o.dt));
   const double n2 = rint(frac.v);
-  const Dual<K> phi = dmulc(dsub(frac, dconst<K>(n2)), TWO_PI);
+  o.phi = dmulc(dsub(frac, dconst<K>(n2)), TWO_PI);
+  o.norb = __dadd_rn(norb0, n2);
+  return o;
+}
+
+// a1 = A1 + A1DOT dt (engines.py _a1)
+template <int K>
+__device__ __forceinline__ Dual<K> secular_a1(const Orbit<K> &o, const double *__restrict__ P,
+                                              const Lanes<K> &lane) {
+  return dadd(dseed<K>(P[P_A1], lane, L_A1), dmul(dseed<K>(P[P_A1DOT], lane, L_A1DOT), o.dt));
+}
+
+// The ELL1 delay (binaries/engines.py ell1_delay) on the orbit `o`.
+template <int K>
+__device__ Dual<K> ell1_term(const Orbit<K> &o, const double *__restrict__ P,
+                             const Lanes<K> &lane, double tsun) {
+  const Dual<K> &phi = o.phi, &dt = o.dt;
   // engine: secular A1, EPS1, EPS2
-  const Dual<K> a1 = dadd(dseed<K>(P[P_A1], lane, L_A1), dmulc(dt, P[P_A1DOT]));
+  const Dual<K> a1 = secular_a1(o, P, lane);
   const Dual<K> e1 = dadd(dseed<K>(P[P_EPS1], lane, L_EPS1), dmulc(dt, P[P_EPS1DOT]));
   const Dual<K> e2 = dadd(dseed<K>(P[P_EPS2], lane, L_EPS2), dmulc(dt, P[P_EPS2DOT]));
   Ell1Harmonics<K> h;
@@ -409,19 +487,133 @@ __device__ Dual<K> ell1_delay(double t_hi, double t_lo, const Dual<K> &dsf,
   const Dual<K> Drep = dmul(a1, ell1_drep(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
   const Dual<K> Drepp = dmul(a1, ell1_drepp(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
   // inverse timing: Dre (1 - x + x^2 + 0.5 nhat^2 Dre Drepp), x = nhat Drep
-  const Dual<K> nhat = ddiv(dconst<K>(TWO_PI), pb);
+  const Dual<K> nhat = ddiv(dconst<K>(TWO_PI), o.pb);
   const Dual<K> x = dmul(nhat, Drep);
   Dual<K> g = dadd(dsub(dconst<K>(1.0), x), dmul(x, x));
   g = dadd(g, dmul(dmul(dmulc(dmul(nhat, nhat), 0.5), Dre), Drepp));
   const Dual<K> delay_i = dmul(Dre, g);
   // Shapiro: -2 TSUN M2 log(1 - SINI sin phi)
-  const double tm2 = __dmul_rn(P[P_M2], tsun);
-  const Dual<K> delay_s =
-      dmulc(dlog(dsub(dconst<K>(1.0), dmulc(h.s1, P[P_SINI]))), __dmul_rn(-2.0, tm2));
+  const Dual<K> tm2 = dmulc(dseed<K>(P[P_M2], lane, L_M2), tsun);
+  const Dual<K> sini = dseed<K>(P[P_SINI], lane, L_SINI);
+  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), dlog(dsub(dconst<K>(1.0), dmul(sini, h.s1))));
   return dadd(delay_i, delay_s);
 }
 
-template <int K, bool BIN>
+// Kepler's equation E - e sin E = M (binaries/kepler.py kepler_E): Danby's
+// start and NEWTON_ITERS Newton steps on the primal doubles, in the twin's
+// order (sign(0) = 0, as jnp.sign), then one dual value from the implicit
+// rule dE = (dM + sin E de) / (1 - e cos E), so no lane rides the loop.
+// sin E and cos E come back as duals from the rule's own sine and cosine.
+template <int K>
+__device__ Dual<K> kepler_E(const Dual<K> &M, const Dual<K> &e, Dual<K> &sinE, Dual<K> &cosE) {
+  const double m = M.v, ev = e.v;
+  const double sm = sin(m);
+  const double sg = sm > 0.0 ? 1.0 : sm < 0.0 ? -1.0 : sm;
+  double E = __dadd_rn(m, __dmul_rn(__dmul_rn(0.85, ev), sg));
+  for (int it = 0; it < NEWTON_ITERS; ++it) {
+    const double f = __dsub_rn(__dsub_rn(E, __dmul_rn(ev, sin(E))), m);
+    const double fp = __dsub_rn(1.0, __dmul_rn(ev, cos(E)));
+    E = __dsub_rn(E, __ddiv_rn(f, fp));
+  }
+  Dual<K> r;
+  r.v = E;
+  const double sE = sin(E), cE = cos(E);
+  const double denom = __dsub_rn(1.0, __dmul_rn(ev, cE));
+#pragma unroll
+  for (int j = 0; j < K; ++j) r.d[j] = (M.d[j] + sE * e.d[j]) / denom;
+  // dsin(r) and dcos(r), without a second sine and cosine
+  sinE.v = sE;
+  cosE.v = cE;
+  const double msE = -sE;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    sinE.d[j] = cE * r.d[j];
+    cosE.d[j] = msE * r.d[j];
+  }
+  return r;
+}
+
+// True anomaly on E's branch (kepler.py true_anomaly): the centred branch
+// Ec = E - 2 pi rint(E / 2 pi), 2 atan2(sqrt(1+e) sin(Ec/2), sqrt(1-e) cos(Ec/2)),
+// re-attached
+template <int K>
+__device__ Dual<K> true_anomaly(const Dual<K> &E, const Dual<K> &e) {
+  const double n = rint(__ddiv_rn(E.v, TWO_PI));
+  const double two_pi_n = __dmul_rn(TWO_PI, n);
+  const Dual<K> Ec = dsub(E, dconst<K>(two_pi_n));
+  const Dual<K> half = dmulc(Ec, 0.5);
+  const Dual<K> y = dmul(dsqrt(dadd(dconst<K>(1.0), e)), dsin(half));
+  const Dual<K> x = dmul(dsqrt(dsub(dconst<K>(1.0), e)), dcos(half));
+  return dadd(dmulc(datan2(y, x), 2.0), dconst<K>(two_pi_n));
+}
+
+// BT (engines.py bt_delay) and DD (engines.py _dd_core; DDS is DD with the
+// host's SINI and its SHAPMAX seed) on the orbit `o`.
+template <int K>
+__device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
+                               const Lanes<K> &lane, int model, double tsun) {
+  const Dual<K> one = dconst<K>(1.0);
+  const Dual<K> e = dadd(dseed<K>(P[P_ECC], lane, L_ECC),
+                         dmul(dseed<K>(P[P_EDOT], lane, L_EDOT), o.dt));
+  const Dual<K> a1 = secular_a1(o, P, lane);
+  const Dual<K> gamma = dseed<K>(P[P_GAMMA], lane, L_GAMMA);
+  const Dual<K> om = dseed<K>(P[P_OM], lane, L_OM);
+  const Dual<K> omdot = dseed<K>(P[P_OMDOT], lane, L_OMDOT);
+  Dual<K> sinE, cosE;
+  const Dual<K> E = kepler_E(o.phi, e, sinE, cosE);
+  if (model == KEPLER_BT) {
+    const Dual<K> omega = dadd(om, dmul(omdot, o.dt));
+    const Dual<K> sw = dsin(omega), cw = dcos(omega);
+    const Dual<K> root = dsqrt(dsub(one, dmul(e, e)));
+    const Dual<K> a1sw = dmul(a1, sw), a1cwr = dmul(dmul(a1, cw), root);
+    const Dual<K> L1 = dmul(a1sw, dsub(cosE, e));
+    const Dual<K> L2 = dmul(dadd(a1cwr, gamma), sinE);
+    const Dual<K> num = dsub(dmul(a1cwr, cosE), dmul(a1sw, sinE));
+    const Dual<K> D =
+        dsub(one, ddiv(dmulc(num, TWO_PI), dmul(dsub(one, dmul(e, cosE)), o.pb)));
+    return dmul(dadd(L1, L2), D);
+  }
+  const Dual<K> nu = true_anomaly(E, e);
+  const Dual<K> nu_full = dadd(nu, dconst<K>(__dmul_rn(TWO_PI, o.norb)));
+  // omega = OM + k nu, k = OMDOT pb / 2 pi
+  const Dual<K> k = ddivc(dmul(omdot, o.pb), TWO_PI);
+  const Dual<K> omega = dadd(om, dmul(k, nu_full));
+  const Dual<K> sw = dsin(omega), cw = dcos(omega);
+  const Dual<K> er = dmul(e, dadd(one, dseed<K>(P[P_DR], lane, L_DR)));
+  const Dual<K> eth = dmul(e, dadd(one, dseed<K>(P[P_DTH], lane, L_DTH)));
+  const Dual<K> alpha = dmul(a1, sw);
+  const Dual<K> beta = dmul(dmul(a1, dsqrt(dsub(one, dmul(eth, eth)))), cw);
+  const Dual<K> bg = dadd(beta, gamma);
+  // Dre = Roemer + Einstein in proper time, and its two derivatives
+  const Dual<K> Dre = dadd(dmul(alpha, dsub(cosE, er)), dmul(bg, sinE));
+  const Dual<K> Drep = dadd(dmul(dneg(alpha), sinE), dmul(bg, cosE));
+  const Dual<K> Drepp = dsub(dmul(dneg(alpha), cosE), dmul(bg, sinE));
+  const Dual<K> one_m_ecosE = dsub(one, dmul(e, cosE));
+  const Dual<K> nhat = ddiv(ddiv(dconst<K>(TWO_PI), o.pb), one_m_ecosE);
+  // inverse timing with the e sin E term
+  const Dual<K> nD = dmul(nhat, Drep);
+  const Dual<K> nhat2 = dmul(nhat, nhat);
+  Dual<K> g = dadd(dsub(one, nD), dmul(nD, nD));
+  g = dadd(g, dmul(dmul(dmulc(nhat2, 0.5), Dre), Drepp));
+  const Dual<K> esin = ddiv(dmul(dmulc(e, 0.5), sinE), one_m_ecosE);
+  g = dsub(g, dmul(dmul(dmul(esin, nhat2), Dre), Drep));
+  const Dual<K> delay_i = dmul(Dre, g);
+  // Shapiro: -2 TSUN M2 log(1 - e cos E - SINI (sin w (cos E - e) + sqrt(1 - e^2) cos w sin E))
+  const Dual<K> tm2 = dmulc(dseed<K>(P[P_M2], lane, L_M2), tsun);
+  const Dual<K> sini = dseed2<K>(P[P_SINI], lane, L_SINI, L_SHAPMAX, P[P_DSINI]);
+  const Dual<K> orbit_s = dadd(dmul(sw, dsub(cosE, e)),
+                               dmul(dmul(dsqrt(dsub(one, dmul(e, e))), cw), sinE));
+  const Dual<K> arg = dsub(one_m_ecosE, dmul(sini, orbit_s));
+  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), dlog(arg));
+  // aberration: A0 (sin(w + nu) + e sin w) + B0 (cos(w + nu) + e cos w)
+  const Dual<K> wpnu = dadd(omega, nu_full);
+  const Dual<K> delay_a =
+      dadd(dmul(dseed<K>(P[P_A0], lane, L_A0), dadd(dsin(wpnu), dmul(e, sw))),
+           dmul(dseed<K>(P[P_B0], lane, L_B0), dadd(dcos(wpnu), dmul(e, cw))));
+  return dadd(dadd(delay_i, delay_s), delay_a);
+}
+
+template <int K, int BIN>
 __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restrict__ P,
                                 const Config &c, const Lanes<K> &lane) {
   const double t_hi = rows.t_hi[i], t_lo = rows.t_lo[i];
@@ -474,7 +666,13 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     if (isfinite(fb.v)) dmd = ddiv(dmulc(dm, c.dmconst), dmul(fb, fb));
     total = dadd(total, dmd);
   }
-  if constexpr (BIN) total = dadd(total, ell1_delay<K>(t_hi, t_lo, total, P, lane, c.tsun));
+  if constexpr (BIN == BIN_ELL1) {
+    const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_TASC);
+    total = dadd(total, ell1_term<K>(o, P, lane, c.tsun));
+  } else if constexpr (BIN == BIN_KEPLER) {
+    const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_T0);
+    total = dadd(total, kepler_term<K>(o, P, lane, c.bin_model, c.tsun));
+  }
   // spindown (spindown.py): dt = (t - delay) - PEPOCH in dd
   const int f_base = P_DM0 + c.nd;
   DDual<K> dt;
@@ -524,7 +722,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
 }
 
 // grid: (row blocks, parameter sets, lane chunks of K)
-template <int K, bool BIN>
+template <int K, int BIN>
 __global__ void __launch_bounds__(THREADS)
 resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
                      double *__restrict__ pn, double *__restrict__ frac,
@@ -573,7 +771,7 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   }
 }
 
-template <int K, bool BIN>
+template <int K, int BIN>
 cudaError_t launch(const Rows &rows, const double *params, const Config &c, int n_batch,
                    double *pn, double *frac, double *f, double *dfrac, double *df,
                    cudaStream_t stream) {
@@ -585,7 +783,7 @@ cudaError_t launch(const Rows &rows, const double *params, const Config &c, int 
 }
 
 // the narrowest instance that holds k lanes (a chunk of KCHUNK past 4)
-template <bool BIN>
+template <int BIN>
 cudaError_t launch_lanes(int k, const Rows &rows, const double *params, const Config &c,
                          int n_batch, double *pn, double *frac, double *f, double *dfrac,
                          double *df, cudaStream_t s) {
@@ -597,7 +795,8 @@ cudaError_t launch_lanes(int k, const Rows &rows, const double *params, const Co
 
 }  // namespace
 
-// ints: n_rows n_out has_tzr has_ast nd nf n_par k has_bin lane[0..LMAX)
+// ints: n_rows n_out has_tzr has_ast nd nf n_par k bin_kind bin_model lane[0..LMAX)
+// (bin_kind: 0 none, 1 ELL1, 2 Kepler; bin_model: 0 BT, 1 DD or DDS)
 // consts: au_ls dmconst tsun
 // dfrac, df: (n_batch, slots, n_out) with slots = k rounded up to whole
 // chunks of the lane width (2 for k <= 2, 4 for k <= 4, else 8)
@@ -616,19 +815,25 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   c.n_par = ints[6];
   const int k = ints[7];
   c.n_lane = k;
-  const int has_bin = ints[8];
+  const int bin_kind = ints[8];
+  c.bin_model = ints[9];
   if (k < 0 || k > LMAX || c.nf < 1 || c.nd < 0 || c.nd > 16 || c.n_out < 0 ||
-      n_batch < 1 || n_batch > 65535 || c.n_par != P_DM0 + c.nd + 2 * c.nf)
+      n_batch < 1 || n_batch > 65535 || c.n_par != P_DM0 + c.nd + 2 * c.nf ||
+      bin_kind < BIN_NONE || bin_kind > BIN_KEPLER || c.bin_model < 0 || c.bin_model > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[9 + j] : -1;
+  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[10 + j] : -1;
   c.au_ls = consts[0];
   c.dmconst = consts[1];
   c.tsun = consts[2];
   if (c.n_out == 0) return 0;
   const Rows rows{t_hi, t_lo, freq, pos, vel, sun};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      has_bin ? launch_lanes<true>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s)
-              : launch_lanes<false>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  cudaError_t e;
+  if (bin_kind == BIN_ELL1)
+    e = launch_lanes<BIN_ELL1>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  else if (bin_kind == BIN_KEPLER)
+    e = launch_lanes<BIN_KEPLER>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+  else
+    e = launch_lanes<BIN_NONE>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
   return static_cast<int>(e);
 }

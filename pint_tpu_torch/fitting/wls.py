@@ -46,6 +46,7 @@ SVD_THRESHOLD = 1e-14
 # projected back onto the boundary
 _EPS_DOM = 1e-12
 _PARAM_DOMAIN = {
+    "ECC": (0.0, 1.0 - _EPS_DOM),
     "SINI": (-1.0 + _EPS_DOM, 1.0 - _EPS_DOM),
     "EPS1": (-0.7, 0.7),
     "EPS2": (-0.7, 0.7),

@@ -44,7 +44,7 @@ from pint_tpu_torch.residuals import phase_resid_tangents
 _RIDGE = 1e-6
 
 #: the most design columns K2 is instantiated for (csrc/normal_eq.cu PMAX)
-K2_PMAX = 8
+K2_PMAX = 12
 
 
 def normal_eq_plain(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor, ridge: float,

@@ -1,13 +1,14 @@
 """PulsarBinary: the binary-orbit delay component (counterpart of
-``pint_tpu/models/binary.py``, for ``BINARY ELL1``; the other binary models
-are ROADMAP A8).
+``pint_tpu/models/binary.py``, for ``BINARY`` BT, DD, DDS and ELL1; DDGR,
+DDK, ELL1H, ELL1K and the FB orbital-frequency form are ROADMAP A8).
 
 The precision-critical step is the orbital phase: over ~1e4 orbits float64
 loses ~1e-10 orbits, right at the ns delay budget. With dt = t - TASC -
 delay (double-double) and norb0 = rint(dt/PB), the remainder dt - PB norb0
 is formed in double-double and only then collapsed to float64, so the
 orbital phase keeps ~1e-15 orbits whatever the time span. PBDOT is a small
-correction evaluated in float64. The engine (``binaries/engines.py``) sees
+correction evaluated in float64. The epoch is T0 for the Kepler-orbit
+models and TASC for ELL1. The engine (``binaries/engines.py``) sees
 the time t - delay_so_far: the astrometric, solar Shapiro and DM delays
 before it in DEFAULT_ORDER.
 """
@@ -18,10 +19,12 @@ import math
 
 import torch
 
-from pint_tpu_torch import SECS_PER_DAY
+from pint_tpu_torch import SECS_PER_DAY, SECS_PER_JULIAN_YEAR
 from pint_tpu_torch.models.base import DelayComponent, leaf_to_f64
 from pint_tpu_torch.models.binaries import engines as eng
-from pint_tpu_torch.models.parameter import ParamSpec
+from pint_tpu_torch.models.parameter import DEG_TO_RAD, ParamSpec
+
+DEG_PER_YEAR_TO_RAD_PER_SEC = DEG_TO_RAD / SECS_PER_JULIAN_YEAR
 
 
 def _common_specs() -> list[ParamSpec]:
@@ -36,6 +39,27 @@ def _common_specs() -> list[ParamSpec]:
     ]
 
 
+def _eccentric_specs() -> list[ParamSpec]:
+    return [
+        ParamSpec("T0", kind="epoch", unit="MJD", description="Epoch of periastron"),
+        ParamSpec("ECC", unit="", default=0.0, aliases=("E",), description="Eccentricity"),
+        ParamSpec("EDOT", unit="1/s", default=0.0, unit_scale=True),
+        ParamSpec("OM", kind="deg", unit="deg", default=0.0, description="Longitude of periastron"),
+        ParamSpec("OMDOT", scale=DEG_PER_YEAR_TO_RAD_PER_SEC, unit="deg/yr", default=0.0,
+                  description="Periastron advance"),
+        ParamSpec("GAMMA", unit="s", default=0.0, description="Einstein delay amplitude"),
+    ]
+
+
+def _dd_extra_specs() -> list[ParamSpec]:
+    return [
+        ParamSpec("A0", unit="s", default=0.0, description="Aberration A0"),
+        ParamSpec("B0", unit="s", default=0.0, description="Aberration B0"),
+        ParamSpec("DR", unit="", default=0.0, description="Relativistic deformation dr"),
+        ParamSpec("DTH", unit="", default=0.0, description="Relativistic deformation dth"),
+    ]
+
+
 def _ell1_specs() -> list[ParamSpec]:
     return [
         ParamSpec("TASC", kind="epoch", unit="MJD", description="Epoch of ascending node"),
@@ -47,7 +71,15 @@ def _ell1_specs() -> list[ParamSpec]:
 
 
 #: the binary models the port evaluates: engine, epoch parameter, extra specs
+#: and the common specs a model drops (pint_tpu binary.py BINARY_MODELS)
 BINARY_MODELS: dict[str, dict] = {
+    "BT": {"engine": eng.bt_delay, "epoch": "T0", "specs": _eccentric_specs},
+    "DD": {"engine": eng.dd_delay, "epoch": "T0",
+           "specs": lambda: _eccentric_specs() + _dd_extra_specs()},
+    "DDS": {"engine": eng.dds_delay, "epoch": "T0",
+            "specs": lambda: _eccentric_specs() + _dd_extra_specs() + [
+                ParamSpec("SHAPMAX", unit="", default=0.0, description="-ln(1 - sin i)")],
+            "drop": ("SINI",)},
     "ELL1": {"engine": eng.ell1_delay, "epoch": "TASC", "specs": _ell1_specs},
 }
 
@@ -68,7 +100,8 @@ class PulsarBinary(DelayComponent):
         cfg = BINARY_MODELS[self.model_name]
         self.engine = cfg["engine"]
         self.epoch_name = cfg["epoch"]
-        self._spec_list = _common_specs() + cfg["specs"]()
+        drop = set(cfg.get("drop", ()))
+        self._spec_list = [s for s in _common_specs() + cfg["specs"]() if s.name not in drop]
         super().__init__()
 
     def param_specs(self):  # instance-configured; shadows the classmethod
@@ -84,6 +117,7 @@ class PulsarBinary(DelayComponent):
         if "PB" not in params:
             raise ValueError(f"BINARY {self.model_name} requires PB")
         checks = {
+            "ECC": (lambda v: 0.0 <= v < 1.0, "Eccentricity ECC must be in [0, 1)"),
             "SINI": (lambda v: 0.0 <= v <= 1.0, "SINI must be between zero and one"),
             "A1": (lambda v: v >= 0.0, "Projected semi-major axis A1 cannot be negative"),
             "M2": (lambda v: v >= 0.0, "Companion mass M2 cannot be negative"),

@@ -52,7 +52,9 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
     names = list(pf.names())
     checks = [
         ("BINARY", "BINARY" in pf and pf.get("BINARY").upper() not in BINARY_MODELS,
-         "A8 (binaries other than ELL1)"),
+         "A8 (BINARY DDGR, DDK, ELL1H, ELL1K)"),
+        ("FB0", "BINARY" in pf and any(n.startswith("FB") and n[2:].isdigit() for n in names),
+         "A8 (the FB orbital-frequency form)"),
         ("ELONG", "ELONG" in pf or "LAMBDA" in pf, "A9 (AstrometryEcliptic)"),
         ("DMX_", any(n.startswith("DMX_") for n in names), "A9 (DMX)"),
         ("DMJUMP", "DMJUMP" in pf, "A9 (DMJUMP)"),

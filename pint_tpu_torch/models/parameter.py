@@ -62,8 +62,9 @@ def parse_dms(s: str) -> float:
 
 
 # kinds: "float" (f64, scaled), "dd" (exact pair), "epoch" (dd seconds since
-# the tensor epoch), "hms"/"dms" (angles -> rad), "bool"/"str" (static config)
-KINDS = ("float", "dd", "epoch", "hms", "dms", "bool", "str")
+# the tensor epoch), "hms"/"dms"/"deg" (angles -> rad), "bool"/"str" (static
+# config)
+KINDS = ("float", "dd", "epoch", "hms", "dms", "deg", "bool", "str")
 
 
 @dataclass
@@ -104,6 +105,8 @@ class ParamSpec:
             return parse_hms(token)
         if self.kind == "dms":
             return parse_dms(token)
+        if self.kind == "deg":
+            return float(token) * DEG_TO_RAD
         if self.kind == "bool":
             return token.upper() in ("1", "Y", "YES", "T", "TRUE")
         return token
@@ -121,11 +124,13 @@ class ParamSpec:
             return float(token) * (np.pi / 12.0) / 3600.0
         if self.kind == "dms":
             return float(token) * DEG_TO_RAD / 3600.0
+        if self.kind == "deg":
+            return float(token) * DEG_TO_RAD
         return float(token)
 
     @property
     def is_fittable(self) -> bool:
-        return self.kind in ("float", "dd", "epoch", "hms", "dms")
+        return self.kind in ("float", "dd", "epoch", "hms", "dms", "deg")
 
     @property
     def is_dd(self) -> bool:

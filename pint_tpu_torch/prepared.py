@@ -52,6 +52,9 @@ FLAGSHIP_TIM = Path(__file__).resolve().parent / "data" / "flagship_n16384.tim"
 #: the same dataset simulated under pint_tpu's default ephemeris (the N-body
 #: window), the input of the default-ephemeris prepare
 FLAGSHIP_NBODY_TIM = Path(__file__).resolve().parent / "data" / "flagship_n16384_nbody.tim"
+#: profiles.DD_SMOKE_PAR over 16,384 fake TOAs, simulated by pint_tpu under
+#: the analytic ephemeris: the input of the eccentric-binary path
+DD_TIM = Path(__file__).resolve().parent / "data" / "dd_n16384.tim"
 
 
 def carried(names) -> list[str]:

@@ -64,6 +64,48 @@ TZRSITE gbt
 TZRFRQ 1400
 """
 
+#: eccentric-binary smoke par (B1534-like, pint_tpu's tests/test_binary.py
+#: DD_PAR): astrometry, spin, DM and BINARY DD with OMDOT free and a fixed
+#: PBDOT, M2 and SINI at the centre of grid_for's (M2, SINI) grid (sin
+#: 87.375 deg); 10 free parameters. The model of
+#: pint_tpu_torch/data/dd_n16384.tim (prepared.DD_TIM)
+DD_SMOKE_PAR = """
+PSR FAKE-DD
+RAJ 15:37:09.9 1
+DECJ 11:55:55.5 1
+F0 26.38213 1
+F1 -1.7e-15 1
+PEPOCH 55500
+POSEPOCH 55500
+DM 11.6
+BINARY DD
+PB 0.420737298879 1
+A1 3.729464 1
+T0 55500.2 1
+ECC 0.27367752 1
+OM 283.0 1
+OMDOT 1.7557 1
+PBDOT -1.366e-13
+GAMMA 2.056e-3
+M2 0.25
+SINI 0.99895068
+TZRMJD 55500.5
+TZRSITE gbt
+TZRFRQ 1400
+"""
+
+
+def dd_smoke_par(binary: str = "DD") -> str:
+    """DD_SMOKE_PAR under ``BINARY`` BT, DD or DDS; DDS takes SHAPMAX =
+    -ln(1 - SINI) in SINI's place (the same orbit)."""
+    if binary == "DD":
+        return DD_SMOKE_PAR
+    par = DD_SMOKE_PAR.replace("BINARY DD\n", f"BINARY {binary}\n")
+    if binary == "DDS":
+        sini = next(float(ln.split()[1]) for ln in par.splitlines() if ln.startswith("SINI "))
+        par = par.replace(f"SINI {sini!r}", f"SHAPMAX {float(-np.log1p(-sini))!r}")
+    return par
+
 
 def spin_grid(model, ftr):
     """3x3 (F0, F1) grid around the model values, +-1 sigma when the fitter

@@ -2,7 +2,8 @@
 ``pint_tpu/residuals.py``), and kernel K1.
 
 K1 (`resid_tangent`, csrc/resid_tangent.cu) evaluates the whole forward
-chain per TOA (astrometry, solar Shapiro, DM, the ELL1 binary, spindown):
+chain per TOA (astrometry, solar Shapiro, DM, the ELL1 or a Kepler-orbit
+binary (BT, DD, DDS), spindown):
 pulse number, fractional phase and spin frequency, plus forward-mode
 tangents of the fractional phase and the frequency for up to `MAX_LANES`
 free parameters, eight lanes per block (more lanes are more blocks in the
@@ -29,15 +30,19 @@ from pint_tpu_torch.models.base import leaf_to_f64
 from pint_tpu_torch.models.timing_model import TimingModel
 from pint_tpu_torch.ops.dd import DD, dd_add_fp, dd_rint, dd_to_float
 
-#: tangent lane codes of csrc/resid_tangent.cu; F<k> is 16 + k, DM<k> 32 + k
+#: tangent lane codes of csrc/resid_tangent.cu (its L_* enum, in the same
+#: order); F<k> is 16 + k, DM<k> 32 + k
 LANE_CODES = {"RAJ": 0, "DECJ": 1, "PMRA": 2, "PMDEC": 3, "PX": 4,
-              "PB": 5, "A1": 6, "TASC": 7, "EPS1": 8, "EPS2": 9}
+              "PB": 5, "A1": 6, "TASC": 7, "EPS1": 8, "EPS2": 9,
+              "T0": 48, "ECC": 49, "OM": 50, "OMDOT": 51, "EDOT": 52, "GAMMA": 53,
+              "PBDOT": 54, "A1DOT": 55, "M2": 56, "SINI": 57, "SHAPMAX": 58, "DR": 59,
+              "DTH": 60, "A0": 61, "B0": 62}
 MAX_LANES = 32
 #: lanes one block carries (resid_tangent.cu KCHUNK)
 LANE_CHUNK = 8
 
 
-def lane_code(name: str) -> int:
+def _lane(name: str) -> int | None:
     if name in LANE_CODES:
         return LANE_CODES[name]
     if name.startswith("F") and name[1:].isdigit():
@@ -46,10 +51,21 @@ def lane_code(name: str) -> int:
         return 32
     if name.startswith("DM") and name[2:].isdigit() and 0 < int(name[2:]) < 16:
         return 32 + int(name[2:])
+    return None
+
+
+def lane_names(names) -> tuple[str, ...]:
+    """The names among `names` that have a tangent lane in K1, in order."""
+    return tuple(n for n in names if _lane(n) is not None)
+
+
+def lane_code(name: str) -> int:
+    code = _lane(name)
+    if code is not None:
+        return code
     raise NotImplementedError(
         f"{name} as a fit parameter has no tangent lane in kernel K1 "
-        "(csrc/resid_tangent.cu); lanes exist for RAJ, DECJ, PMRA, PMDEC, PX, "
-        "PB, A1, TASC, EPS1, EPS2, F<k>, DM<k>")
+        f"(csrc/resid_tangent.cu); lanes exist for {', '.join(LANE_CODES)}, F<k>, DM<k>")
 
 
 class ResidTangent(NamedTuple):
@@ -119,29 +135,66 @@ def resid_tangent_plain(model: TimingModel, params: dict, tensor: dict,
 
 _ROW_KEYS = ("t_hi", "t_lo", "freq_mhz", "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls")
 # the binary block of the parameter row, after RAJ DECJ PMRA PMDEC PX
-# POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo (resid_tangent.cu P_PB_HI ...)
-_BIN_DD = ("PB", "TASC")
+# POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo (resid_tangent.cu P_PB_HI ...): PB and
+# the epoch (TASC or T0) as dd pairs, then float64 values; SINI of DDS is
+# 1 - exp(-SHAPMAX), and DSINI its derivative, the SHAPMAX lane's seed
 _BIN_F64 = ("A1", "A1DOT", "EPS1", "EPS2", "EPS1DOT", "EPS2DOT", "PBDOT", "XPBDOT",
-            "M2", "SINI")
+            "M2", "SINI", "ECC", "EDOT", "OM", "OMDOT", "GAMMA", "DR", "DTH", "A0", "B0",
+            "DSINI")
+#: binary kinds of the kernel (resid_tangent.cu BIN) and the Kepler models
+BIN_NONE, BIN_ELL1, BIN_KEPLER = 0, 1, 2
+KEPLER_MODELS = {"BT": 0, "DD": 1, "DDS": 1}
 
 
-def _structure(model: TimingModel):
-    """(has_ast, has_bin, nd, nf): the kernel's view of the model's
-    components (noise components do not enter the phase)."""
-    allowed = {"AstrometryEquatorial", "SolarSystemShapiro", "DispersionDM", "BinaryELL1",
-               "Spindown", "AbsPhase", "ScaleToaError", "EcorrNoise"}
+class Structure(NamedTuple):
+    """The kernel's view of a model's components."""
+
+    has_ast: bool
+    bin_kind: int   # BIN_NONE, BIN_ELL1 or BIN_KEPLER
+    bin_model: int  # for BIN_KEPLER: 0 BT, 1 DD (DDS is DD with SINI from SHAPMAX)
+    nd: int
+    nf: int
+
+
+def _structure(model: TimingModel) -> Structure:
+    """The components of `model` as kernel K1 sees them (noise components do
+    not enter the phase)."""
+    binaries = {"BinaryELL1": BIN_ELL1, **{f"Binary{m}": BIN_KEPLER for m in KEPLER_MODELS}}
+    allowed = {"AstrometryEquatorial", "SolarSystemShapiro", "DispersionDM", "Spindown",
+               "AbsPhase", "ScaleToaError", "EcorrNoise", *binaries}
     extra = set(model.component_names) - allowed
     if extra:
         raise NotImplementedError(f"kernel K1 does not evaluate {sorted(extra)}")
     if "Spindown" not in model:
         raise NotImplementedError("kernel K1 needs a Spindown component")
     nd = model["DispersionDM"].num_terms if "DispersionDM" in model else 0
-    return (model.astrometry is not None, "BinaryELL1" in model, nd,
-            model["Spindown"].num_terms)
+    kind, flag = BIN_NONE, 0
+    for name in model.component_names:
+        if name in binaries:
+            kind = binaries[name]
+            flag = KEPLER_MODELS.get(name.removeprefix("Binary"), 0)
+    return Structure(model.astrometry is not None, kind, flag, nd, model["Spindown"].num_terms)
 
 
-def _pack_params(model: TimingModel, params: dict, B: int, has_bin: bool, nd: int,
-                 nf: int, device) -> torch.Tensor:
+def _binary_values(model: TimingModel, params: dict) -> dict:
+    """The binary block's values by name (leaves as the parameters hold
+    them; missing ones are absent). DDS's SINI = 1 - exp(-SHAPMAX) is formed
+    here, one value per parameter set, with libm.exp as the twin does, and
+    its derivative exp(-SHAPMAX) rides along as DSINI."""
+    comp = next(c for c in model.components if c.name.startswith("Binary"))
+    vals = {n: params[n] for n in ("PB", comp.epoch_name, *_BIN_F64) if n in params}
+    vals["EPOCH"] = vals.pop(comp.epoch_name)
+    if comp.model_name == "DDS":
+        from pint_tpu_torch.models.binaries.engines import dds_sini
+        from pint_tpu_torch.ops import libm
+
+        vals["SINI"] = dds_sini(params["SHAPMAX"])
+        vals["DSINI"] = libm.exp(-params["SHAPMAX"])
+    return vals
+
+
+def _pack_params(model: TimingModel, params: dict, B: int, st: Structure,
+                 device) -> torch.Tensor:
     """(B, n_par) float64 parameter rows in the layout of resid_tangent.cu."""
     def col(v):
         v = torch.as_tensor(v, dtype=torch.float64, device=device)
@@ -159,13 +212,14 @@ def _pack_params(model: TimingModel, params: dict, B: int, has_bin: bool, nd: in
         col(leaf_to_f64(params["DMEPOCH"])) if "DMEPOCH" in params else zero,
         col(params["PEPOCH"].hi), col(params["PEPOCH"].lo),
     ]
-    for n in _BIN_DD:
-        v = params[n] if has_bin else DD(zero, zero)
+    vals = _binary_values(model, params) if st.bin_kind else {}
+    for n in ("PB", "EPOCH"):
+        v = vals.get(n, DD(zero, zero))
         cols += [col(v.hi), col(v.lo)]
-    cols += [col(params[n]) if has_bin else zero for n in _BIN_F64]
-    for k in range(nd):
+    cols += [col(vals[n]) if n in vals else zero for n in _BIN_F64]
+    for k in range(st.nd):
         cols.append(col(leaf_to_f64(params[f"DM{k}" if k else "DM"])))
-    for k in range(nf):
+    for k in range(st.nf):
         v = params[f"F{k}"]
         if isinstance(v, DD):
             cols += [col(v.hi), col(v.lo)]
@@ -206,7 +260,7 @@ def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> 
     if k > MAX_LANES:
         raise ValueError(f"kernel K1 carries at most {MAX_LANES} tangent lanes; got {k}")
     codes = [lane_code(n) for n in lanes]
-    has_ast, has_bin, nd, nf = _structure(model)
+    st = _structure(model)
     rows = [tensor[key].contiguous() for key in _ROW_KEYS]
     n_rows = rows[0].shape[0]
     for t, key in zip(rows, _ROW_KEYS):
@@ -215,13 +269,13 @@ def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> 
     has_tzr = model.has_abs_phase
     n_out = n_rows - int(has_tzr)
     B = batch_size(params)
-    P = _pack_params(model, params, B, has_bin, nd, nf, dev)
+    P = _pack_params(model, params, B, st, dev)
     slots = _lane_slots(k)
     out = [torch.empty((B, n_out), dtype=torch.float64, device=dev) for _ in range(3)]
     tan = [torch.empty((B, slots, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
-    ints = (ctypes.c_int * (9 + MAX_LANES))(
-        n_rows, n_out, int(has_tzr), int(has_ast), nd, nf, P.shape[1], k, int(has_bin),
-        *(codes + [-1] * (MAX_LANES - k)))
+    ints = (ctypes.c_int * (10 + MAX_LANES))(
+        n_rows, n_out, int(has_tzr), int(st.has_ast), st.nd, st.nf, P.shape[1], k,
+        st.bin_kind, st.bin_model, *(codes + [-1] * (MAX_LANES - k)))
     consts = (ctypes.c_double * 3)(AU_LS, DMCONST, TSUN_S)
     from pint_tpu_torch.ops import build
 

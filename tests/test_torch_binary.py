@@ -144,6 +144,28 @@ def test_apply_delta_projects_onto_domains_bitwise(pair):
     assert float(pinned["SINI"]) == 1.0 - 1e-12 and float(pinned["M2"]) == 0.0
 
 
+def test_apply_delta_projects_ecc_bitwise():
+    """Every fitter step clamps ECC onto [0, 1 - 1e-12] exactly as
+    pint_tpu's apply_delta with project_domain=True (DD_SMOKE_PAR)."""
+    from pint_tpu.fitting.wls import apply_delta as jax_apply
+    from pint_tpu.io.par import parse_parfile
+    from pint_tpu.models.builder import build_model
+    from pint_tpu_torch.fitting.wls import apply_delta
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.profiles import DD_SMOKE_PAR
+
+    jm = build_model(parse_parfile(DD_SMOKE_PAR, from_text=True))
+    tm = get_model(DD_SMOKE_PAR, from_text=True, device="cpu")
+    free = ("ECC", "OM", "T0", "PB")
+    for step in (0.3, -0.5, 0.9, 5.0, -5.0, 1e-7):
+        delta = np.array([step, 1e-3, 2e-2, 1e-7])
+        want = params_numpy(jax_apply(jm.params, free, delta, project_domain=True))
+        assert params_numpy(apply_delta(tm.params, free, torch.tensor(delta))) == want
+    pinned = apply_delta(tm.params, ("ECC",), torch.tensor([5.0]))
+    assert float(pinned["ECC"]) == 1.0 - 1e-12
+    assert float(apply_delta(tm.params, ("ECC",), torch.tensor([-5.0]))["ECC"]) == 0.0
+
+
 def test_wls_step_pins_sini_as_pint_tpu(pair):
     """A WLS Gauss-Newton step on the ELL1 model with SINI free from 0.9:
     the Shapiro log steepens towards SINI = 1, so the linear step overshoots

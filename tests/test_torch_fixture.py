@@ -10,14 +10,16 @@ index), and ``flagship_n16384.tim`` the same TOAs as a .tim. All three are
 simulated under the analytic ephemeris (``PINT_TPU_NBODY=0``);
 ``flagship_n16384_nbody.tim`` is the same dataset simulated under pint_tpu's
 default ephemeris, the N-body window (its cold build takes about a minute).
+``dd_n16384.tim`` holds ``profiles.DD_SMOKE_PAR`` (an eccentric DD binary)
+over fake TOAs made by pint_tpu under the analytic ephemeris (`DD_RECIPE`).
 Write them anew with
 
-    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody ...]
+    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd ...]
 
-(all four without names).
+(all five without names).
 
-The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`) also feed
-the other ``tests/test_torch_*.py`` files.
+The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`, `dd_pair`)
+also feed the other ``tests/test_torch_*.py`` files.
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ FLAGSHIP_SEED = 17
 FLAGSHIP_RECIPE = {"par": "profiles.FLAGSHIP_SMOKE_PAR",
                    "dataset": "profiles.flagship_smoke_dataset", "nbody": 0}
 FLAGSHIP_NBODY_RECIPE = {**FLAGSHIP_RECIPE, "n": ARCHIVE_N, "seed": FLAGSHIP_SEED, "nbody": 1}
+#: how the eccentric-binary .tim is made (recorded in its comment line)
+DD_RECIPE = {"par": "profiles.DD_SMOKE_PAR", "n": ARCHIVE_N, "seed": 41, "start_mjd": 55000.0,
+             "end_mjd": 56000.0, "freq_mhz": [1400.0, 2300.0], "error_us": 1.0, "obs": "gbt",
+             "noise": True, "nbody": 0}
 
 
 def smoke_dataset(n: int, seed: int):
@@ -105,6 +111,57 @@ def flagship_nbody_tim(path) -> None:
     lines = Path(path).read_text().splitlines(keepends=True)
     lines.insert(1, f"C Recipe: {json.dumps(r, sort_keys=True)}\n")
     Path(path).write_text("".join(lines))
+
+
+@functools.lru_cache(maxsize=2)
+def dd_dataset(n: int, seed: int = DD_RECIPE["seed"]):
+    """(pint_tpu model, toas, build_tensor dict) of profiles.DD_SMOKE_PAR over
+    `n` fake TOAs made as `DD_RECIPE` says (alternating frequencies, white
+    noise from `seed`), once per (n, seed) in a process: callers must not
+    modify it."""
+    from pint_tpu.io.par import parse_parfile
+    from pint_tpu.models.builder import build_model
+    from pint_tpu.simulation import make_fake_toas_uniform
+    from pint_tpu_torch.profiles import DD_SMOKE_PAR
+
+    r = DD_RECIPE
+    model = build_model(parse_parfile(DD_SMOKE_PAR, from_text=True))
+    freqs = np.where(np.arange(n) % 2 == 0, *r["freq_mhz"])
+    toas = make_fake_toas_uniform(r["start_mjd"], r["end_mjd"], n, model, obs=r["obs"],
+                                  freq_mhz=freqs, error_us=r["error_us"], add_noise=r["noise"],
+                                  rng=np.random.default_rng(seed))
+    return model, toas, model.build_tensor(toas)
+
+
+def dd_tim(path) -> None:
+    """Write the `DD_RECIPE` dataset as a .tim (pint_tpu's ``TOAs.write_tim``),
+    its recipe in a comment line after the header's first line."""
+    import json
+
+    r = DD_RECIPE
+    _, toas, _ = dd_dataset(r["n"], r["seed"])
+    toas.write_tim(str(path))
+    lines = Path(path).read_text().splitlines(keepends=True)
+    lines.insert(1, f"C Recipe: {json.dumps(r, sort_keys=True)}\n")
+    Path(path).write_text("".join(lines))
+
+
+def dd_pair(n: int = 1024, binary: str = "DD"):
+    """(pint_tpu model, toas, tensor, port model, port tensor) on the CPU of
+    the DD dataset, both models parsed from ``profiles.dd_smoke_par(binary)``
+    (BT, DD or DDS over the same TOAs)."""
+    from pint_tpu.io.par import parse_parfile
+    from pint_tpu.models.builder import build_model
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import tensor_from_numpy
+    from pint_tpu_torch.profiles import dd_smoke_par
+
+    model, toas, tens = dd_dataset(n)
+    if binary != "DD":
+        model = build_model(parse_parfile(dd_smoke_par(binary), from_text=True))
+    tm = get_model(dd_smoke_par(binary), from_text=True, device="cpu")
+    tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
+    return model, toas, tens, tm, tt
 
 
 def flagship_export(n: int = ARCHIVE_N, seed: int = FLAGSHIP_SEED):
@@ -220,6 +277,22 @@ def test_flagship_nbody_tim_matches_fresh_export(tmp_path, monkeypatch):
     assert json.loads(recipe.removeprefix("C Recipe: ")) == FLAGSHIP_NBODY_RECIPE
 
 
+def test_dd_tim_matches_fresh_export(tmp_path):
+    """The committed eccentric-binary .tim parses to the lines of a fresh
+    export of `DD_RECIPE`, and records the recipe."""
+    import json
+
+    from pint_tpu.io.tim import parse_tim
+    from pint_tpu_torch.prepared import DD_TIM
+
+    dd_tim(tmp_path / "fresh.tim")
+    fresh, committed = parse_tim(str(tmp_path / "fresh.tim")), parse_tim(str(DD_TIM))
+    assert len(committed.toas) == DD_RECIPE["n"]
+    assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
+    recipe = DD_TIM.read_text().splitlines()[1]
+    assert json.loads(recipe.removeprefix("C Recipe: ")) == DD_RECIPE
+
+
 def test_flagship_tim_prepares_to_the_archive(tmp_path, monkeypatch):
     """pint_tpu's prepare of the committed .tim gives the archive's columns:
     t (hi + lo) within 5 ps (the tim's 16 decimals of a day round each UTC
@@ -315,7 +388,7 @@ def test_port_imports_no_jax_and_nothing_of_pint_tpu():
         "import pint_tpu_torch.astro.vsop87_planets, pint_tpu_torch.astro.ephemeris\n"
         "import pint_tpu_torch.astro.device_prepare, pint_tpu_torch.astro.nbody\n"
         "import pint_tpu_torch.astro.spk, pint_tpu_torch.astro.spk_write\n"
-        "import pint_tpu_torch.astro.kernel_ephemeris\n"
+        "import pint_tpu_torch.astro.kernel_ephemeris, pint_tpu_torch.models.binaries.kepler\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pint_tpu' or m.startswith('pint_tpu.'))\n"
@@ -355,8 +428,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def _write_archive(which) -> None:
-    from pint_tpu_torch.prepared import (FLAGSHIP_ARCHIVE, FLAGSHIP_NBODY_TIM, FLAGSHIP_TIM,
-                                         SMOKE_ARCHIVE, save_prepared)
+    from pint_tpu_torch.prepared import (DD_TIM, FLAGSHIP_ARCHIVE, FLAGSHIP_NBODY_TIM,
+                                         FLAGSHIP_TIM, SMOKE_ARCHIVE, save_prepared)
 
     for name, path, make in (("smoke", SMOKE_ARCHIVE, export),
                              ("flagship", FLAGSHIP_ARCHIVE, flagship_export)):
@@ -372,12 +445,15 @@ def _write_archive(which) -> None:
     if "nbody" in which:
         flagship_nbody_tim(FLAGSHIP_NBODY_TIM)
         print(f"wrote {FLAGSHIP_NBODY_TIM} ({FLAGSHIP_NBODY_TIM.stat().st_size} bytes)")
+    if "dd" in which:
+        dd_tim(DD_TIM)
+        print(f"wrote {DD_TIM} ({DD_TIM.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    names = {"smoke", "flagship", "nbody"}
+    names = {"smoke", "flagship", "nbody", "dd"}
     if sys.argv[1:2] != ["--write"] or not set(sys.argv[2:]) <= names:
-        sys.exit("usage: python tests/test_torch_fixture.py --write [smoke|flagship|nbody ...]")
+        sys.exit("usage: python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd ...]")
     sys.path.insert(0, str(REPO))
     import jax
 

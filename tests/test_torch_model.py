@@ -119,7 +119,7 @@ def test_float32_anywhere_in_the_chain_raises(pair):
 
 
 @pytest.mark.parametrize("line, item", [
-    ("BINARY DD", "A8"), ("TNDMAMP -13", "A9"), ("JUMP -f L 0.1 1", "A9"),
+    ("BINARY DDK", "A8"), ("BINARY DDGR", "A8"), ("TNDMAMP -13", "A9"), ("JUMP -f L 0.1 1", "A9"),
     ("DMX_0001 0.01 1", "A9"), ("PLANET_SHAPIRO Y", "A18"),
 ])
 def test_unported_components_name_their_roadmap_item(line, item):
@@ -134,5 +134,9 @@ def test_tangent_lanes_cover_the_nonlinear_parameters():
     from pint_tpu_torch.residuals import lane_code
 
     assert [lane_code(n) for n in ("RAJ", "DECJ", "PX", "F0", "F1")] == [0, 1, 4, 16, 17]
-    with pytest.raises(NotImplementedError, match="K1"):
-        lane_code("M2")
+    kepler = ("T0", "ECC", "OM", "OMDOT", "EDOT", "GAMMA", "PBDOT", "A1DOT", "M2", "SINI",
+              "SHAPMAX", "DR", "DTH", "A0", "B0")
+    assert [lane_code(n) for n in kepler] == list(range(48, 63))
+    for name in ("H3", "KIN"):
+        with pytest.raises(NotImplementedError, match="K1"):
+            lane_code(name)

@@ -135,7 +135,7 @@ def test_k5_wrappers_take_the_twin_on_the_cpu():
 
 @pytest.mark.parametrize("env", [{"PINT_TPU_NBODY": "1"}, {"PINT_TPU_EPHEM": "/x/de440.bsp"},
                                  {"PINT_TPU_KERNEL_EPHEM": "1"}])
-def test_port_refuses_the_ephemerides_of_slice_4(monkeypatch, tmp_path, env):
+def test_port_raises_where_pint_tpu_falls_back(monkeypatch, tmp_path, env):
     """Where pint_tpu falls back from the ephemerides of slice 4 (a window
     that fails to build, to the analytic series; a missing SPK kernel, to
     the analytic series with a ledger event; a pack snapshot that fails, to

@@ -255,7 +255,7 @@ def test_prepare_refuses_what_is_not_ported(tmp_path):
         prepare_TOAs([TOALine("x", 1400.0, 57000, 0.25, 0.0, 1.0, "nowhere")], device="cpu")
 
 
-def test_nbody_default_is_refused(flagship_files, monkeypatch):
+def test_nbody_window_build_failure_raises(flagship_files, monkeypatch):
     """pint_tpu's default engages the N-body window, and so does the port's
     get_TOAs: a window that cannot be built is refused (the error reaches the
     caller) rather than served by the analytic series."""
