@@ -131,6 +131,40 @@ set around phases 23-26):
 26. K1's Kepler instance times at both shapes, K2's at p = 10, and the
    warm wall and busy share of one DD fit + grid, as in phase 8.
 
+Then a NANOGrav-shaped par, ``profiles.NANOGRAV_SMOKE_PAR`` (ecliptic
+astrometry, 64 DMX windows, a JUMP, FD1-3, ELL1, EFAC/EQUAD/ECORR and
+power-law red noise; 80 free parameters, 2,048 ECORR epochs, 60 Fourier
+columns) over ``pint_tpu_torch/data/nanograv_n16384.tim``
+(``PINT_TPU_NBODY=0`` set around phases 27-33; its prepare runs first):
+
+27. K1's NANOGrav instance against its twin at the GLS fit's shape (1 set,
+   all 80 lanes: pint_tpu's GLS step takes the tangent of every free
+   parameter, DMX, FD and the JUMP included) and the grid's (9 sets, 12
+   lanes): phase 9's bounds;
+28. K8 ``linear_columns`` against its twin: the grid's 68 closed-form
+   columns (64 DMX, 3 FD, the JUMP) of 9 sets, and the Fourier bases of the
+   fit (60 columns) and of the DM-noise variant (120), within 1e-13;
+29. K3 with the dense basis against its twin: the fit's step (B = 1, p =
+   80, kd = 60), the grid's first step (B = 9), both chi^2 calls (p = 0)
+   and the DM-noise variant's step (kd = 120), within 1e-12 relative and
+   bitwise repeatable;
+30. the prepare (K4 and K5 twice each) against the twins' prepare;
+31. ``DownhillGLSFitter.fit_toas`` from a moved start (F0 +2e-10 Hz, EPS1
+   +1e-7, DMX_0001 +1e-4, JUMP1 +1e-6 s, FD1 +1e-6 s) against the twin path,
+   gated as phase 11, except that a parameter and its uncertainty may sit
+   from the twin's fit ten times as far as the twin path's own fit moves
+   when its normal matrices change by 1e-15 of their diagonals (the
+   norm-scaled rounding of a sum run in another order), where that is more
+   than 1e-10 relative (DMX, FD and the JUMP are nearly degenerate over two
+   receivers: normal matrices that differ by ~1e-15 give fits ~1e-10 sigma
+   apart);
+32. the 3x3 (M2, SINI) grid against the twins' grid from the same fitted
+   model, within 1e-10 or ten times the grid's own movement when its
+   refits' normal matrices change by 1e-15 of their diagonals, and within
+   1e-8 of the twin path's grid from its own fit;
+33. K1, K8 and K3 times at the fit's and the grid's shapes, and the warm
+   wall and busy share of one fit + grid.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
@@ -140,8 +174,9 @@ The SMOKE fit must launch K0 and K1, its grid K1 and K2; the flagship fit
 K0, K1 and K3, its grid K0, K1 and K3; the analytic prepare K4 and K5 twice
 each; the default prepare K4 and K6 twice each, the pack and SPK prepares K4
 and K7 twice each; the DD prepare K4 and K5 twice each, its fit K0 and K1,
-its grid K1 and K2.
-K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 6. At the
+its grid K1 and K2; the NANOGrav prepare K4 and K5 twice each, its fit K0,
+K1, K3 and K8's Fourier pass, its grid K1, K8's two passes and K3.
+K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 7. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs; where the profiler reads no
@@ -149,8 +184,9 @@ device time of such a call, CUDA events around calls queued behind a spin
 kernel, so that the host's enqueue is not timed), and ``call_ms`` the
 CUDA-event time per call, which includes the host's time to enqueue it.
 ``bound_ms`` is the larger of the bytes the function must move over
-3.35 TB/s and its float64 operations over 34 TFLOP/s (H100 SXM, NVIDIA data
-sheet, float64 outside the tensor cores). The output ends with the
+3.35 TB/s and its float64 operations over their peak rate: 67 TFLOP/s for
+the multiply-adds of K2's and K3's Grams, a matrix product the tensor cores
+can do, 34 TFLOP/s for the rest (H100 SXM, NVIDIA data sheet). The output ends with the
 ``kernels`` record (with each library's ptxas registers and spills), the
 card's name and power limit, and the result line.
 """
@@ -170,11 +206,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+# float64 on the tensor cores (DMMA), the rate of the Grams' multiply-adds
+FP64_MMA_OPS_PER_S = 67e12
 START_SHIFT = {"F0": 2e-10, "DM": 1e-3}
 FLAGSHIP_SHIFT = {"F0": 2e-10, "DM": 1e-3, "EPS1": 1e-7}
 # pint_tpu's tests/test_binary.py DD perturbations (apply_delta's units:
 # seconds, light-seconds, radians)
 DD_SHIFT = {"F0": 2e-10, "PB": 1e-7, "A1": 2e-6, "T0": 2e-2, "ECC": 1e-6, "OM": 2e-6}
+NANOGRAV_SHIFT = {"F0": 2e-10, "EPS1": 1e-7, "DMX_0001": 1e-4, "JUMP1": 1e-6, "FD1": 1e-6}
 
 
 class SmokeFailure(RuntimeError):
@@ -187,8 +226,13 @@ def check(ok: bool, what: str) -> None:
     print(f"  ok: {what}")
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP64_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, n_mma_ops: float = 0.0) -> tuple[float, str]:
+    """The least time of a function, in ms, and what bounds it: its bytes
+    over the memory rate, or its float64 operations, each type over its peak
+    rate (`n_mma_ops`: the multiply-adds of a matrix product, which the
+    tensor cores can do)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP64_OPS_PER_S + n_mma_ops / FP64_MMA_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -288,13 +332,19 @@ def twins():
     """Route the main path through the plain-torch twins, on the card."""
     from pint_tpu_torch import gridutils, residuals
     from pint_tpu_torch.astro import device_prepare as dp
-    from pint_tpu_torch.fitting import gls, wls, woodbury
+    from pint_tpu_torch.fitting import design, gls, wls, woodbury
+    from pint_tpu_torch.models import noise
     from pint_tpu_torch.ops import dd
 
     saved = (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
              gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
-             dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval)
+             dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
+             gridutils.linear_columns, design.fourier_basis)
     residuals.resid_tangent = residuals.resid_tangent_plain
+    # K8's twin forms f_bary itself: the kernel's fb argument is dropped
+    wls.linear_columns = gridutils.linear_columns = \
+        lambda *args: design.linear_columns_plain(*args[:7])
+    design.fourier_basis = noise.fourier_basis_plain
     wls.dd_elementwise = dd.dd_elementwise_plain
     gridutils.normal_eq = gridutils.normal_eq_plain
     gls.ecorr_normal_eq = gridutils.ecorr_normal_eq = woodbury.ecorr_normal_eq_plain
@@ -305,7 +355,8 @@ def twins():
     finally:
         (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
          gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
-         dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval) = saved
+         dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
+         gridutils.linear_columns, design.fourier_basis) = saved
 
 
 @contextlib.contextmanager
@@ -464,21 +515,26 @@ def phase_k2(model, tensor, params_b, free, w, device):
 # --- phases 6-7: the main path -------------------------------------------------------
 
 
-def fresh_fitter(tensor, device, which: str = "smoke"):
+def fresh_fitter(tensor, device, which: str = "smoke", par: str | None = None):
     """A fitter on `tensor`, its model moved off the solution by the start
     shift: DownhillWLSFitter on SMOKE_PAR ("smoke") or DD_SMOKE_PAR ("dd"),
-    or DownhillGLSFitter on the flagship par ("flagship")."""
+    or DownhillGLSFitter on the flagship par ("flagship") or
+    NANOGRAV_SMOKE_PAR ("nanograv"); `par` (text) in place of that par."""
     import torch
 
     from pint_tpu_torch.fitting import DownhillGLSFitter, DownhillWLSFitter
     from pint_tpu_torch.fitting.wls import apply_delta
     from pint_tpu_torch.models import get_model
-    from pint_tpu_torch.profiles import DD_SMOKE_PAR, FLAGSHIP_SMOKE_PAR, SMOKE_PAR
+    from pint_tpu_torch.profiles import (DD_SMOKE_PAR, FLAGSHIP_SMOKE_PAR, NANOGRAV_SMOKE_PAR,
+                                         SMOKE_PAR)
 
-    par, cls, shift = {"smoke": (SMOKE_PAR, DownhillWLSFitter, START_SHIFT),
-                       "flagship": (FLAGSHIP_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT),
-                       "dd": (DD_SMOKE_PAR, DownhillWLSFitter, DD_SHIFT)}[which]
-    model = get_model(par, from_text=True, device=device)
+    default, cls, shift = {
+        "smoke": (SMOKE_PAR, DownhillWLSFitter, START_SHIFT),
+        "flagship": (FLAGSHIP_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT),
+        "dd": (DD_SMOKE_PAR, DownhillWLSFitter, DD_SHIFT),
+        "nanograv": (NANOGRAV_SMOKE_PAR, DownhillGLSFitter, NANOGRAV_SHIFT),
+    }[which]
+    model = get_model(par or default, from_text=True, device=device)
     free = tuple(model.free_params)
     delta = torch.tensor([shift.get(n, 0.0) for n in free], dtype=torch.float64,
                          device=device)
@@ -489,6 +545,7 @@ def fresh_fitter(tensor, device, which: str = "smoke"):
 def counters():
     from pint_tpu_torch.astro.device_prepare import (analytic_ephemeris, chebyshev_eval,
                                                      nbody_serve, site_geometry)
+    from pint_tpu_torch.fitting.design import fourier_basis, linear_columns
     from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq
     from pint_tpu_torch.gridutils import normal_eq
     from pint_tpu_torch.ops.dd import dd_elementwise
@@ -497,7 +554,8 @@ def counters():
     return {"dd_elementwise": dd_elementwise, "resid_tangent": resid_tangent,
             "normal_eq": normal_eq, "ecorr_normal_eq": ecorr_normal_eq,
             "site_geometry": site_geometry, "analytic_ephemeris": analytic_ephemeris,
-            "nbody_serve": nbody_serve, "chebyshev_eval": chebyshev_eval}
+            "nbody_serve": nbody_serve, "chebyshev_eval": chebyshev_eval,
+            "linear_columns": linear_columns, "fourier_basis": fourier_basis}
 
 
 @contextlib.contextmanager
@@ -537,10 +595,26 @@ def run_main_path(ftr, device) -> dict:
     return out
 
 
-def check_fit(main: dict, twin: dict, label: str) -> None:
+def fit_bounds(ref, moved) -> tuple[dict, dict]:
+    """Per parameter of the fitter `ref`: how far another fit may sit from
+    it, absolute, and its uncertainty, relative: 1e-10 of the value (of
+    the uncertainty), or ten times the distance of `moved`, the same fit
+    through normal matrices perturbed by 1e-15 of their diagonals
+    (`perturbed_normal_eq`), where that is larger."""
+    vals, unc = ref.values(), ref.result.uncertainties
+    mv, mu = moved.values(), moved.result.uncertainties
+    return ({n: max(1e-10 * abs(vals[n]), 10 * abs(mv[n] - vals[n])) for n in vals},
+            {n: max(1e-10, 10 * abs(mu[n] - unc[n]) / unc[n]) for n in vals})
+
+
+def check_fit(main: dict, twin: dict, label: str, moved=None) -> None:
     """The fit gates: converged, chi^2/dof in [0.8, 1.2], params within
     1e-10 relative and 1e-6 of their uncertainty of the twin path's fit,
-    uncertainties within 1e-10 relative."""
+    uncertainties within 1e-10 relative. With `moved` (the twin path's fit
+    through perturbed normal matrices), a parameter and its uncertainty may
+    instead sit within ten times that fit's distance from the twin's
+    (`fit_bounds`): where the normal matrix is ill conditioned, the 1e-15
+    that two paths' sums differ by moves the fit by that much."""
     ftr, ref = main["fitter"], twin["fitter"]
     res = ftr.result
     check(res.converged, f"{label} fit converged in {res.iterations} iterations")
@@ -550,11 +624,26 @@ def check_fit(main: dict, twin: dict, label: str) -> None:
     worst_p = max(abs(vals[n] - ref_vals[n]) / abs(ref_vals[n]) for n in vals)
     worst_s = max(abs(vals[n] - ref_vals[n]) / ref_unc[n] for n in vals)
     worst_u = max(abs(res.uncertainties[n] - ref_unc[n]) / ref_unc[n] for n in vals)
-    check(worst_p <= 1e-10, f"{label} fit params within 1e-10 relative of the twin fit "
-                            f"({worst_p:.3g})")
+    if moved is None:
+        check(worst_p <= 1e-10, f"{label} fit params within 1e-10 relative of the twin fit "
+                                f"({worst_p:.3g})")
+        check(worst_u <= 1e-10, f"{label} uncertainties within 1e-10 relative ({worst_u:.3g})")
+    else:
+        tol_p, tol_u = fit_bounds(ref, moved["fitter"])
+        s = ref.result.singular_values
+        shift = max(abs(moved["fitter"].values()[n] - ref_vals[n]) / ref_unc[n] for n in vals)
+        print(f"  {label}: the twin fit's normal matrix condition number "
+              f"{float(s[0] / s[-1]):.4g}; a change of its normal matrices by 1e-15 of their "
+              f"diagonals moves it by up to {shift:.3g} sigma; params at most {worst_p:.3g} "
+              f"relative, {worst_s:.3g} sigma from the twin fit")
+        over = [n for n in vals if abs(vals[n] - ref_vals[n]) > tol_p[n]]
+        check(not over, f"{label} fit params within 1e-10 relative or 10x the perturbed "
+                        f"fit's distance of the twin fit (over: {over})")
+        over = [n for n in vals if abs(res.uncertainties[n] - ref_unc[n]) > tol_u[n] * ref_unc[n]]
+        check(not over, f"{label} uncertainties within 1e-10 relative or 10x the perturbed "
+                        f"fit's ({worst_u:.3g}; over: {over})")
     check(worst_s <= 1e-6, f"{label} fit params within 1e-6 of their uncertainty of the twin "
                            f"fit ({worst_s:.3g} sigma)")
-    check(worst_u <= 1e-10, f"{label} uncertainties within 1e-10 relative ({worst_u:.3g})")
 
 
 def check_grid(main: dict, twin: dict, label: str) -> float:
@@ -568,16 +657,16 @@ def check_grid(main: dict, twin: dict, label: str) -> float:
     return worst_g
 
 
-def profile_main_path(tensor, device, which: str = "smoke") -> dict:
+def profile_main_path(tensor, device, which: str = "smoke", par: str | None = None) -> dict:
     """The wall of one warm fit + grid without the profiler, then device time
     by kernel over one more under torch.profiler (CUDA activity only).
     `busy_share` is that summed kernel time over the unprofiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plain = run_main_path(fresh_fitter(tensor, device, which), device)
+    plain = run_main_path(fresh_fitter(tensor, device, which, par), device)
     wall = plain["fit_s"] + plain["grid_s"]
-    ftr = fresh_fitter(tensor, device, which)
+    ftr = fresh_fitter(tensor, device, which, par)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_main_path(ftr, device)
@@ -598,14 +687,16 @@ def profile_main_path(tensor, device, which: str = "smoke") -> dict:
 
 # substrings of the kernels' names in a profile (K2 and K3 are three passes)
 K0_KERNEL, K1_KERNEL, K2_KERNEL, K3_KERNEL = ("dd_elementwise_kernel", "resid_tangent_kernel",
-                                              "pass_", "_pass<")
+                                              "pass_", "_pass(")
 K4_KERNEL, K5_KERNELS = "site_geometry_kernel", ("analytic_ephemeris_kernel",
                                                  "central_difference_kernel")
 K6_KERNEL, K7_KERNEL = "nbody_serve_kernel", "chebyshev_eval_kernel"
+K8_KERNELS = ("linear_columns_kernel", "fourier_basis_kernel")
 KERNEL_PATTERNS = {"dd_elementwise": K0_KERNEL, "resid_tangent": K1_KERNEL,
                    "normal_eq": K2_KERNEL, "ecorr_normal_eq": K3_KERNEL,
                    "site_geometry": K4_KERNEL, "analytic_ephemeris": K5_KERNELS[0],
-                   "nbody_serve": K6_KERNEL, "chebyshev_eval": K7_KERNEL}
+                   "nbody_serve": K6_KERNEL, "chebyshev_eval": K7_KERNEL,
+                   "linear_columns": K8_KERNELS[0], "fourier_basis": K8_KERNELS[1]}
 
 
 def k0_record(model, device) -> dict:
@@ -651,6 +742,11 @@ K1_BIN_OPS_PER_ROW = 500
 K1_BIN_OPS_PER_LANE = 300
 K1_KEPLER_OPS_PER_ROW = 1665
 K1_KEPLER_OPS_PER_LANE = 305
+# The NANOGrav terms (NG instances): the obliquity rotation (6), the DMX
+# delay (a division, ~20), FD's log and Horner over three terms (~45) and
+# the jump phase (~3); per lane ~20 dual operations
+K1_NG_OPS_PER_ROW = 75
+K1_NG_OPS_PER_LANE = 20
 
 
 def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
@@ -665,7 +761,9 @@ def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
     plain, plain_call = measure(lambda: resid_tangent_plain(model, params, tensor, lanes),
                                 device, max(1, reps // 20))
     k = len(lanes)
-    kind = _structure(model).bin_kind
+    st = _structure(model)
+    kind = st.bin_kind
+    ng = st.ecliptic or st.n_dmx or st.n_fd or st.n_jump
     n_bytes = rows * 12 * 8 + B * (P_ROW_LEN + 2 * model["Spindown"].num_terms) * 8 \
         + B * n * (3 + 2 * k) * 8
     # the N TOA rows and the TZR row once per parameter set (the kernel's
@@ -673,8 +771,8 @@ def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
     # the primal are its own cost, not needed work)
     bin_row, bin_lane = {BIN_NONE: (0, 0), BIN_ELL1: (K1_BIN_OPS_PER_ROW, K1_BIN_OPS_PER_LANE),
                          BIN_KEPLER: (K1_KEPLER_OPS_PER_ROW, K1_KEPLER_OPS_PER_LANE)}[kind]
-    per_row = K1_OPS_PER_ROW + bin_row
-    per_lane = K1_OPS_PER_LANE + bin_lane
+    per_row = K1_OPS_PER_ROW + bin_row + (K1_NG_OPS_PER_ROW if ng else 0)
+    per_lane = K1_OPS_PER_LANE + bin_lane + (K1_NG_OPS_PER_LANE if ng else 0)
     n_ops = B * rows * (per_row + per_lane * k)
     b, how = bound_ms(n_bytes, n_ops)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
@@ -693,8 +791,9 @@ def k2_record(r, M, w, device) -> dict:
     A = (M * torch.sqrt(w)).transpose(-1, -2).contiguous()  # (B, N, p)
     lib, lib_call = measure(lambda: torch.matmul(A.transpose(-1, -2), A), device, 200)
     n_bytes = (B * n * (p + 1) + n) * 8 + B * (p * p + 2 * p + 1) * 8
-    n_ops = B * n * (p * p + 8 * p + 7)
-    b, how = bound_ms(n_bytes, n_ops)
+    # the Gram's multiply-adds (p^2 per row) and the centring, weighting and
+    # equilibration around it
+    b, how = bound_ms(n_bytes, B * n * (8 * p + 7), B * n * p * p)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
             "call_ms": call, "plain_call_ms": plain_call, "library_call_ms": lib_call,
             "shape": f"B={B} N={n} p={p}"}
@@ -705,8 +804,10 @@ P_ROW_LEN = 33
 
 
 def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
-    """K3 at one of the flagship shapes; the library yardstick is the batched
-    cuBLAS Gram (Mn sqrt(w)) (Mn sqrt(w))^T alone, on the twin's Mn."""
+    """K3 at one shape; `ms` is the device time of K3's own passes, `call_device_ms`
+    that of the whole call (with the kd x kd Cholesky and triangular solves
+    of a dense basis). The library yardstick is the batched cuBLAS Gram
+    X W X^T of the augmented rows X = [Mn, r, Fd] alone, on the twin's Mn."""
     import torch
 
     from pint_tpu_torch.fitting.woodbury import (_step_inputs, ecorr_normal_eq,
@@ -714,32 +815,43 @@ def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
 
     args = (r, M, w, basis, ridge, centre, weighted_norm)
     B, p, n = M.shape
-    ms, call = measure(lambda: ecorr_normal_eq(*args), device, 200, K3_KERNEL)
-    plain, plain_call = measure(lambda: ecorr_normal_eq_plain(*args), device, 10)
-    A = (_step_inputs(r, M, w, centre, weighted_norm)[1] * torch.sqrt(w)).contiguous()
-    lib, lib_call = measure(lambda: torch.matmul(A, A.transpose(-1, -2)), device, 200)
+    ms, call = measure(lambda: ecorr_normal_eq(*args), device, 50, K3_KERNEL)
+    whole, _ = measure(lambda: ecorr_normal_eq(*args), device, 50)
+    plain, plain_call = measure(lambda: ecorr_normal_eq_plain(*args), device, 5)
+    rr, Mn, _ = _step_inputs(r, M, w, centre, weighted_norm)
+    kd = basis.kd
+    parts = [Mn, rr[:, None]] + ([basis.dense.T.expand(B, kd, n)] if kd else [])
+    X = (torch.cat(parts, dim=1) * torch.sqrt(w)).contiguous()
+    lib, lib_call = measure(lambda: torch.matmul(X, X.transpose(-1, -2)), device, 50)
     ke, nnz = basis.ke, basis.epochs.rows.shape[0]
+    V = p + 1 + kd
     q = (p + 1) * (p + 2) // 2
-    # read r, M, w, phi and the CSR once; write G, c, chi2, ahat, norm
-    n_bytes = (B * n * (p + 1) + n + ke) * 8 + (ke + 1 + nnz) * 4 \
-        + B * (p * p + 2 * p + 1 + ke) * 8
-    # the step inputs: the weighted means (2 per value of r and M, when
-    # centring), the column norms (3 per value of M), each value centred and
-    # divided (2); then the augmented Gram over rows (2 multiplies, 1 add per
-    # entry), the epoch sums (2 per column and row), the epoch correction (2
-    # multiplies, 1 add and 1 division per entry) and 1/phi, De and ahat
-    n_ops = B * (n * (p + 1) * (2 * int(centre) + 2) + n * p * 3 + n * 3 * q
-                 + nnz * 2 * (p + 2) + ke * (4 * q + 3))
-    b, how = bound_ms(n_bytes, n_ops)
+    # read r, M, w, Fd, phi and the CSR once; write G, c, chi2, ahat, norm
+    n_bytes = (B * n * (p + 1) + n * (1 + kd) + ke + kd) * 8 + (ke + 1 + nnz) * 4 \
+        + B * (p * p + 2 * p + 1 + ke + kd) * 8
+    # the step inputs: weighted means (2 per value of r and M, when
+    # centring), column norms (3 per value of M), each value centred and
+    # divided (2); the epoch sums (2 per value and row); each row and epoch
+    # weighted once (1 per value); then the matrix products: the augmented
+    # Gram over rows and epochs (a multiply-add per entry and row or epoch;
+    # the Fd block once) and the fold (one per entry and basis column)
+    gram = V * (V + 1) // 2
+    per_set = gram - kd * (kd + 1) // 2
+    n_ops = (B * (n * (p + 1) * (2 * int(centre) + 2) + n * p * 3 + nnz * 2 * (p + 1)
+                  + (n + ke) * (p + 1))
+             + nnz * 2 * kd + (n + ke) * kd)
+    n_mma = B * ((n + ke) * 2 * per_set + q * 2 * kd) + (n + ke) * kd * (kd + 1)
+    b, how = bound_ms(n_bytes, n_ops, n_mma)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
-            "call_ms": call, "plain_call_ms": plain_call, "library_call_ms": lib_call,
-            "shape": f"B={B} N={n} p={p} ke={ke}"}
+            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
+            "library_call_ms": lib_call, "shape": f"B={B} N={n} p={p} ke={ke} kd={kd}"}
 
 
-def phase_k3(model, tensor, ftr, params_b, grid_free, device) -> dict:
+def phase_k3(model, tensor, ftr, params_b, grid_free, device, extra=None) -> dict:
     """K3 against its twin on the GLS step's raw design (B = 1) and the
     grid's first step (B = 9), and on the chi^2 calls of each (no columns),
-    and bitwise against itself on a second run."""
+    and on the `extra` cases ({label: arguments}), and bitwise against
+    itself on a second run."""
     import torch
 
     from pint_tpu_torch.fitting.gls import _RIDGE as GLS_RIDGE
@@ -758,7 +870,7 @@ def phase_k3(model, tensor, ftr, params_b, grid_free, device) -> dict:
               "fit chi2": (r0[None], r0.new_zeros((1, 0, r0.shape[0])), w, basis, 0.0, False,
                            False),
               "grid chi2": (r, r.new_zeros((r.shape[0], 0, r.shape[1])), w, basis, 0.0, True,
-                            False)}
+                            False), **(extra or {})}
     out = {}
     for label, args in inputs.items():
         got = ecorr_normal_eq(*args)
@@ -766,7 +878,8 @@ def phase_k3(model, tensor, ftr, params_b, grid_free, device) -> dict:
         want = ecorr_normal_eq_plain(*args)
         sync(device)
         B, p = args[1].shape[:2]
-        tag = f"K3 {label} (B={B}, p={p})"
+        kd = args[3].kd if args[3] is not None else 0
+        tag = f"K3 {label} (B={B}, p={p}, kd={kd})"
         for name, g, wv in zip(("G", "c", "chi2", "ahat", "norm"), got, want):
             err = max(rel_err(g[b], wv[b]) for b in range(B))
             check(err <= 1e-12, f"{tag}: {name} within 1e-12 relative per set ({err:.3g})")
@@ -782,13 +895,16 @@ KERNELS = (
     ("resid_tangent", "pint_tpu_torch/csrc/resid_tangent.cu",
      "pint_tpu/residuals.py:90 (resid) + pint_tpu/fitting/wls.py:180 (design jvp); the Kepler "
      "term pint_tpu/models/binaries/kepler.py:27-67 (kepler_E, its JVP, true_anomaly) + "
-     "engines.py:59-130 (bt_delay, _dd_core, dd_delay, dds_delay)"),
+     "engines.py:59-130 (bt_delay, _dd_core, dd_delay, dds_delay); the NANOGrav terms "
+     "pint_tpu/models/astrometry.py:122-168 (AstrometryEcliptic), dispersion.py:122-203 "
+     "(DispersionDMX), frequency_dependent.py (FD), phase_misc.py:58-95 (PhaseJump)"),
     ("normal_eq", "pint_tpu_torch/csrc/normal_eq.cu",
      "pint_tpu/gridutils.py:132 (gn_step normal equations, grid program)"),
     ("ecorr_normal_eq", "pint_tpu_torch/csrc/ecorr_normal_eq.cu",
      "pint_tpu/fitting/gls.py:77 (gls_step Woodbury pieces) + gls.py:193 (gls_chi2) + "
-     "pint_tpu/gridutils.py:132-170 (correlated grid step: centring, equilibration, Woodbury "
-     "normal equations, chi2), algebra of fitting/woodbury.py:79-218"),
+     "pint_tpu/gridutils.py:112-170 (correlated grid step: centring, equilibration, Woodbury "
+     "normal equations, chi2), algebra of fitting/woodbury.py:79-218 with the dense basis "
+     "(s_factor, s_solve, basis_rmatvec, basis_matvec, s_logdet: woodbury.py:92-160)"),
     ("site_geometry", "pint_tpu_torch/csrc/site_geometry.cu",
      "pint_tpu/astro/device_prepare.py:91 (prepare_geometry: astro/erot.py "
      "itrf_to_gcrs_posvel)"),
@@ -801,6 +917,10 @@ KERNELS = (
     ("chebyshev_eval", "pint_tpu_torch/csrc/chebyshev_eval.cu",
      "pint_tpu/astro/device_prepare.py:233 (prepare_kernel_eval: astro/kernel_ephemeris.py "
      "eval_rows, record gather + Chebyshev recurrence + analytic velocity)"),
+    ("linear_columns", "pint_tpu_torch/csrc/linear_columns.cu",
+     "pint_tpu/fitting/design.py:48 (linear_columns: DM, DMX, FD, JUMP closed forms, in the "
+     "wls_step, gls_step and grid programs) + pint_tpu/models/noise.py:246-259 "
+     "(fourier_basis, PLRedNoise/PLDMNoise basis_and_weights :309-320, :477-484)"),
 )
 
 
@@ -1758,8 +1878,293 @@ def dd_phases(device, summary: dict) -> dict:
             "windows": {"dd_prepare": pl, "dd_fit": fit_l, "dd_grid": grid_l}}
 
 
+#: phase 32: the NANOGrav grid's distance from the twin path's grid of its
+#: own fit
+NANOGRAV_GRID_OWN_FITS_TOL = 1e-8
+
+
+def perturbed_normal_eq(plain, eps: float = 1e-15):
+    """`plain` (K3's twin) with every normal matrix G it returns moved by
+    eps * S_ij * sqrt(G_ii G_jj), S a fixed symmetric pattern of +-1: the
+    size of the difference two paths whose sums run in other orders show (a
+    sum's rounding scales with the norms of its terms, not with the sum)."""
+    import numpy as np
+    import torch
+
+    def perturbed(*args, **kw):
+        G, *rest = plain(*args, **kw)
+        p = G.shape[-1]
+        sign = torch.as_tensor(np.random.default_rng(5).choice([-1.0, 1.0], (p, p)),
+                               device=G.device)
+        sign = torch.triu(sign) + torch.triu(sign, 1).T
+        d = torch.sqrt(torch.abs(torch.diagonal(G, dim1=-2, dim2=-1)))
+        return (G + eps * sign * d[..., :, None] * d[..., None, :], *rest)
+
+    return perturbed
+
+
+def grid_sensitivity(ftr, names, vals, chi2, eps: float = 1e-15) -> float:
+    """How far the grid `chi2` (the twins') moves when every normal matrix of
+    its refit steps is perturbed by `eps` of its diagonal (`perturbed_normal_eq`),
+    through the twins: the size of the differences two paths must show where
+    the refit amplifies them."""
+    import numpy as np
+
+    from pint_tpu_torch import gridutils
+
+    with twins():
+        plain = gridutils.ecorr_normal_eq
+        gridutils.ecorr_normal_eq = perturbed_normal_eq(plain, eps)
+        try:
+            moved = gridutils.grid_chisq(ftr, names, vals)
+        finally:
+            gridutils.ecorr_normal_eq = plain
+    return float(np.max(np.abs(moved - chi2) / chi2))
+
+
+def perturbed_fit(tensor, device, which: str, par: str | None = None) -> dict:
+    """The twin path's fit with every GLS normal matrix perturbed by 1e-15
+    of its diagonal (`perturbed_normal_eq`): the witness of how far two fits of an
+    ill-conditioned model may sit apart (`fit_bounds`)."""
+    from pint_tpu_torch.fitting import gls
+
+    with twins():
+        ftr = fresh_fitter(tensor, device, which, par)
+        plain = gls.ecorr_normal_eq
+        gls.ecorr_normal_eq = perturbed_normal_eq(plain)
+        try:
+            ftr.fit_toas()
+        finally:
+            gls.ecorr_normal_eq = plain
+    return {"fitter": ftr}
+
+
+def k8_record(model, params, tensor, device, reps: int) -> dict:
+    """K8 at the grid's first step (the linear columns of B parameter sets)
+    and at the fit's Fourier basis. No single torch call forms timing
+    columns or a Fourier design, so there is no library yardstick."""
+    from pint_tpu_torch.fitting.design import (fourier_basis, linear_columns,
+                                               linear_columns_plain, linear_split)
+    from pint_tpu_torch.models.noise import fourier_basis_plain, fourier_freqs
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.residuals import resid_tangent
+
+    _, lin, owners = linear_split(model, tuple(model.free_params))
+    out = resid_tangent(model, params, tensor)
+    p1 = {k: (DD(v.hi[:, None], v.lo[:, None]) if isinstance(v, DD) else v[:, None])
+          for k, v in params.items()}
+    sl = slice(None, -1)
+    args = (model, p1, tensor, out.f, sl, lin, owners)
+    ms, call = measure(lambda: linear_columns(*args, out.fb), device, reps, K8_KERNELS[0])
+    plain, plain_call = measure(lambda: linear_columns_plain(*args), device, max(1, reps // 10))
+    B, n = out.f.shape
+    L, n_rows = len(lin), tensor["t_hi"].shape[0]
+    n_dmx = sum(1 for x in lin if x.startswith("DMX_"))
+    # read fb, f, t and the one-hot columns and masks the columns use; write
+    # the (B, L, N) columns. ~3 operations per DMX/DM value, ~45 per FD value
+    # (a log and the powers), ~2 per JUMP value, each at two rows (the TZR's)
+    n_bytes = (B * (n_rows + n) + 2 * n_rows + n_rows * n_dmx + n_rows) * 8 + B * L * n * 8
+    n_ops = B * n * 2 * sum(45 if x.startswith("FD") else 3 for x in lin)
+    b, how = bound_ms(n_bytes, n_ops)
+    t = tensor["t_hi"][sl]
+    freqs = fourier_freqs(model["PLRedNoise"].nf, tensor["noise_tspan"][0, 0])
+    fms, fcall = measure(lambda: fourier_basis(t, freqs), device, reps, K8_KERNELS[1])
+    fplain, _ = measure(lambda: fourier_basis_plain(t, freqs), device, max(1, reps // 10))
+    nf = freqs.shape[0]
+    # read t, write (2 nf, N); a sine and a cosine (~70 operations) per pair
+    fb_, fhow = bound_ms((n + nf) * 8 + 2 * nf * n * 8, nf * n * 72)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+            "call_ms": call, "plain_call_ms": plain_call,
+            "shape": f"columns B={B} N={n} L={L} (DMX {n_dmx})",
+            "fourier_ms": fms, "fourier_call_ms": fcall, "fourier_plain_ms": fplain,
+            "fourier_bound_ms": fb_, "fourier_bound_by": fhow,
+            "fourier_shape": f"N={n} columns={2 * nf}",
+            "library_note": "no torch call forms closed-form timing columns or a Fourier design"}
+
+
+def phase_k8(model, dm_model, tensor, params_b, device) -> float:
+    """K8 against its twin: the grid's first-step linear columns and the
+    Fourier bases of the fit (red noise) and of the DM-noise variant."""
+    import torch
+
+    import pint_tpu_torch.fitting.design as design
+    from pint_tpu_torch.fitting.design import linear_columns, linear_columns_plain, linear_split
+    from pint_tpu_torch.models.noise import fourier_basis_plain
+    from pint_tpu_torch.ops.dd import DD
+    from pint_tpu_torch.residuals import resid_tangent
+
+    _, lin, owners = linear_split(model, tuple(model.free_params))
+    out = resid_tangent(model, params_b, tensor)
+    p1 = {k: (DD(v.hi[:, None], v.lo[:, None]) if isinstance(v, DD) else v[:, None])
+          for k, v in params_b.items()}
+    args = (model, p1, tensor, out.f, slice(None, -1), lin, owners)
+    got, want = linear_columns(*args, out.fb), linear_columns_plain(*args)
+    sync(device)
+    err = max(rel_err(got[:, j], want[:, j]) for j in range(len(lin)))
+    check(err <= 1e-13, f"K8 {len(lin)} linear columns x {got.shape[0]} sets within 1e-13 "
+                        f"relative of the twin per column ({err:.3g}; bitwise "
+                        f"{torch.equal(got, want)})")
+    worst = err
+    kernel = design.fourier_basis
+    for label, m in (("red noise", model), ("red + DM noise", dm_model)):
+        design.fourier_basis = fourier_basis_plain
+        try:
+            want_b = m.noise_basis_and_weights(m.params, tensor)
+        finally:
+            design.fourier_basis = kernel
+        got_b = m.noise_basis_and_weights(m.params, tensor)
+        sync(device)
+        e = rel_err(got_b.dense, want_b.dense)
+        check(e <= 1e-13 and got_b.kd == want_b.kd,
+              f"K8 Fourier basis ({label}, {got_b.kd} columns) within 1e-13 relative of the twin "
+              f"({e:.3g})")
+        worst = max(worst, e)
+    return worst
+
+
+def nanograv_phases(device, summary: dict, n_dmx: int = 64, nf: int = 30, tim=None) -> dict:
+    """Phases 27-33: profiles.nanograv_smoke_par(n_dmx, nf) (at the defaults
+    NANOGRAV_SMOKE_PAR: ecliptic astrometry, 64 DMX windows, a JUMP, FD1-3,
+    ELL1, ECORR and red noise; 80 free) from `tim` (default
+    pint_tpu_torch/data/nanograv_n16384.tim, flagship epochs of 8 TOAs): K1's
+    NANOGrav instance, K8 and the dense-basis K3 against their twins, the
+    prepare, the GLS fit and the (M2, SINI) grid against the twin path, and
+    their times."""
+    import numpy as np
+
+    from pint_tpu_torch.fitting.design import linear_split
+    from pint_tpu_torch.fitting.gls import _RIDGE as GLS_RIDGE
+    from pint_tpu_torch.fitting.wls import time_resid_design
+    from pint_tpu_torch.gridutils import grid_chisq
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import NANOGRAV_TIM
+    from pint_tpu_torch.profiles import grid_for, nanograv_smoke_par
+
+    tim, par = tim or NANOGRAV_TIM, nanograv_smoke_par(n_dmx, nf)
+    with tempfile.TemporaryDirectory() as tmpname, knobs(
+            PINT_TPU_NBODY="0", PINT_TPU_EPHEM=None, PINT_TPU_KERNEL_EPHEM=None):
+        tmp = Path(tmpname)
+        main = flagship_tim_path(device, tmp, tim, par)
+        tensor = main["tensor"]
+        start = fresh_fitter(tensor, device, "nanograv", par)
+        model = start.model
+        free = tuple(model.free_params)
+        names, _, params_b = grid_params(model, start)
+        grid_free = tuple(n for n in free if n not in names)
+        grid_lanes, grid_lin, _ = linear_split(model, grid_free)
+        basis = model.noise_basis_and_weights(model.params, tensor)
+        n_toas = tensor["t_hi"].shape[0] - 1  # the last row is the TZR's
+        # free: 12 K1 lanes, the DMX windows, the JUMP and FD1-3
+        want_shape = (n_dmx + 16, n_dmx + 4, n_toas // 8, 2 * nf)
+        check((len(free), len(grid_lin), basis.ke, basis.kd) == want_shape
+              and len(grid_lanes) == 12,
+              f"NANOGrav: {len(free)} free parameters, grid {len(grid_lanes)} lanes + "
+              f"{len(grid_lin)} linear columns, {basis.ke} ECORR epochs, {basis.kd} Fourier "
+              f"columns")
+        print("phase 27: K1's NANOGrav instance against its twin (nanograv_n16384.tim)")
+        stats = phase_k1(model, tensor, params_b, free, grid_lanes, device, 1e-12, "NANOGrav ")
+
+        print("phase 28: K8 linear_columns against its twin")
+        dm_model = get_model(nanograv_smoke_par(n_dmx, nf, dm_noise=True), from_text=True,
+                             device=device)
+        k8_err = phase_k8(model, dm_model, tensor, params_b, device)
+
+        print("phase 29: K3 with the dense basis against its twin")
+        res = start.resids
+        w = 1.0 / res.errors_s**2
+        r0, M = time_resid_design(model, free, model.params, tensor, res.weights, True,
+                                  hybrid=False)
+        dm_basis = dm_model.noise_basis_and_weights(dm_model.params, tensor)
+        check(dm_basis.kd == 4 * nf,
+              f"the DM-noise variant's basis has {dm_basis.kd} columns")
+        k3 = phase_k3(model, tensor, start, params_b, grid_free, device, extra={
+            "fit, red + DM noise": (r0[None], M.T[None].contiguous(), w, dm_basis, GLS_RIDGE,
+                                    False, False)})
+
+        print("phase 30: get_model_and_toas + build_tensor (NANOGrav)")
+        pl = main["launches"]
+        want = 2 if device.type == "cuda" else 0
+        for name in ("site_geometry", "analytic_ephemeris"):
+            check(pl[name] == want, f"{name} launched {pl[name]} times (the TOAs and the TZR row)")
+        print("  stage walls (s): " + json.dumps(main["stage_s"])
+              + f"; get_model_and_toas + build_tensor {main['wall_s']:.3f} s")
+        with twins():
+            twin = flagship_tim_path(device, tmp, tim, par)
+        compare_tensors(tensor, twin["tensor"], "NANOGrav prepare kernels vs twins")
+
+        print("phase 31: DownhillGLSFitter.fit_toas (NANOGrav, 80 free)")
+        run = run_main_path(fresh_fitter(tensor, device, "nanograv", par), device)
+        fit_l, grid_l = run["fit_launches"], run["grid_launches"]
+        on_card = device.type == "cuda"
+        for name in ("dd_elementwise", "resid_tangent", "ecorr_normal_eq", "fourier_basis"):
+            check(fit_l[name] > 0 or not on_card,
+                  f"{name} launched {fit_l[name]} times by the NANOGrav fit_toas")
+        with twins():
+            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, "nanograv", par),
+                                     device)
+        moved = perturbed_fit(twin["tensor"], device, "nanograv", par)
+        check_fit(run, twin_run, "NANOGrav GLS", moved)
+
+        print("phase 32: grid_chisq 3x3 (M2, SINI), GLS statistic (NANOGrav)")
+        for name in ("resid_tangent", "linear_columns", "fourier_basis", "ecorr_normal_eq"):
+            check(grid_l[name] > 0 or not on_card,
+                  f"{name} launched {grid_l[name]} times by the NANOGrav grid_chisq")
+        gnames, gvals = grid_for(run["fitter"].model, run["fitter"])
+        with twins():
+            same_start = {"chi2": grid_chisq(run["fitter"], gnames, gvals)}
+        sens = grid_sensitivity(run["fitter"], gnames, gvals, same_start["chi2"])
+        chi2 = run["chi2"]
+        worst_g = float(np.max(np.abs(chi2 - same_start["chi2"]) / same_start["chi2"]))
+        print(f"  a change of the refits' normal matrices by 1e-15 of their diagonals moves "
+              f"this grid by {sens:.3g} relative")
+        check(chi2.shape == (3, 3) and bool(np.all(np.isfinite(chi2))),
+              "NANOGrav grid chi2 finite, 3x3")
+        check(worst_g <= max(1e-10, 10 * sens),
+              f"NANOGrav grid within max(1e-10, 10 x {sens:.3g}) relative of the twins' grid "
+              f"from the same fit ({worst_g:.3g})")
+        apart = float(np.max(np.abs(chi2 - twin_run["chi2"]) / twin_run["chi2"]))
+        check(apart <= NANOGRAV_GRID_OWN_FITS_TOL,
+              f"NANOGrav grid within {NANOGRAV_GRID_OWN_FITS_TOL:g} relative of the twin path's "
+              f"grid from its own fit ({apart:.3g}; the fits {fit_distance(run, twin_run):.3g} "
+              f"relative apart)")
+
+        print("phase 33: NANOGrav kernel times, warm wall and busy share")
+        recs = {
+            "resid_tangent": {
+                f"nanograv_{shape}_{k}": v
+                for shape, params, lanes in (("fit", model.params, free),
+                                             ("grid", params_b, grid_lanes))
+                for k, v in k1_record(model, tensor, params, lanes, device, 10).items()
+                if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "ecorr_normal_eq": {f"dense_{k}": v
+                                for k, v in k3_record(*k3["grid"]["args"], device).items()},
+            "linear_columns": k8_record(model, params_b, tensor, device, 50),
+        }
+        fit3 = k3_record(*k3["fit"]["args"], device)
+        recs["ecorr_normal_eq"].update({f"dense_fit_{k}": v for k, v in fit3.items()})
+        if on_card:
+            summary["nanograv_profile"] = profile_main_path(tensor, device, "nanograv", par)
+    res = run["fitter"].result
+    summary["nanograv"] = {
+        "prepare_wall_s": main["wall_s"], "prepare_stage_s": main["stage_s"],
+        "twin_prepare_wall_s": twin["wall_s"], "fit_wall_s": run["fit_s"],
+        "grid_wall_s": run["grid_s"], "fit_iterations": res.iterations,
+        "fit_chi2_reduced": res.reduced_chi2, "grid_chi2": chi2.tolist(),
+        "grid_rel_err": worst_g, "grid_sensitivity": sens, "grid_rel_err_own_fits": apart,
+        "fit_distance": fit_distance(run, twin_run),
+        "fit_distance_perturbed": fit_distance(moved, twin_run),
+        "normal_matrix_condition": float(twin_run["fitter"].result.singular_values[0]
+                                         / twin_run["fitter"].result.singular_values[-1]),
+        "k1_stats": stats, "k8_err": k8_err}
+    errs = {"resid_tangent": max(v["max_abs_err"] for v in stats.values()),
+            "ecorr_normal_eq": max(v["chi2_abs_err"] for v in k3.values()),
+            "linear_columns": k8_err}
+    return {"recs": recs, "errs": errs,
+            "windows": {"nanograv_prepare": pl, "nanograv_fit": fit_l, "nanograv_grid": grid_l}}
+
+
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-26 on `device_name`; returns the summary record."""
+    """Phases 2-33 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -1781,20 +2186,23 @@ def phases(device_name: str = "cuda") -> dict:
     prep = prepare_phases(device, summary, flag)
     ephem = ephemeris_phases(device, summary)
     dd = dd_phases(device, summary)
+    ng = nanograv_phases(device, summary)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
-               **ephem["windows"], **dd["windows"]}
+               **ephem["windows"], **dd["windows"], **ng["windows"]}
     kernels = []
+    parts = (smoke, flag, prep, ephem, dd, ng)
     for name, src, replaces in KERNELS:
-        rec = {**smoke["recs"].get(name, {}), **flag["recs"].get(name, {}),
-               **prep["recs"].get(name, {}), **ephem["recs"].get(name, {}),
-               **dd["recs"].get(name, {})}
-        err = max(r["errs"].get(name, 0.0) for r in (smoke, flag, prep, ephem, dd))
+        rec = {k: v for r in parts for k, v in r["recs"].get(name, {}).items()}
+        err = max(r["errs"].get(name, 0.0) for r in parts)
         ptxas = summary.get("ptxas_instances", {}).get(name, {})
+        # K8's two passes (columns, Fourier) count under its name
+        counted_as = (name, "fourier_basis") if name == "linear_columns" else (name,)
+        launches = {k: sum(w[c] for c in counted_as) for k, w in windows.items()}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": sum(w[name] for w in windows.values()),
-                        **{f"launches_{k}": w[name] for k, w in windows.items()},
+                        "launches": sum(launches.values()),
+                        **{f"launches_{k}": v for k, v in launches.items()},
                         "max_abs_err": err, **rec,
                         "ptxas": {fn: {"registers": r, "spill_store_bytes": sp}
                                   for fn, (r, sp) in ptxas.items()}})

@@ -1,55 +1,68 @@
 // K3 ecorr_normal_eq: the Woodbury normal equations of the GLS fit and of
-// the correlated chi^2 grid, with the ECORR epochs kept implicit.
+// the correlated chi^2 grid, with the ECORR epochs kept implicit and a dense
+// (Fourier) noise basis beside them.
 //
 // Replaces: the Woodbury algebra of pint_tpu/fitting/woodbury.py (seg_sum,
-// s_factor, cinv_apply, woodbury_chi2 with an ECORR-only basis) as XLA
-// fused it into the TPU programs gls_step (fitting/gls.py:77), gls_chi2
-// (gls.py:193) and the correlated branch of grid (gridutils.py:143-170),
+// s_factor, s_solve, cinv_apply, woodbury_chi2, basis_rmatvec) as XLA fused
+// it into the TPU programs gls_step (fitting/gls.py:77), gls_chi2
+// (gls.py:193) and the correlated branch of grid (gridutils.py:112-170),
 // with the step inputs those programs form first:
 //   centre (the grid): r and every column lose their weighted mean
 //     sum(w x)/sum(w) (gridutils.py:103-107, 132-134);
 //   norm_j = sqrt(sum w M_j^2) (weighted, the grid, gridutils.py:135-137)
 //     or sqrt(sum M_j^2) (the GLS step, gls.py:109-111), 1 where the sum
 //     is 0; Mn = M / norm.
-// Then, in block-Schur form, per parameter set b (a grid point; B = 1 for
-// the fit):
+// The covariance is diag(1/w) + U phi_e U^T + Fd phi_d Fd^T, U the epoch
+// membership. With the augmented row vector V_i = [Mn_i, r_i, Fd_i] (p + 1
+// + kd values) and the epoch sums v_e = sum_{i in e} w_i V_i = [y_e, s_e,
+// B_e], eliminating the epochs gives, per parameter set b,
 //   De_e = 1/phi_e + sum_{i in e} w_i
-//   y_e  = sum_{i in e} w_i Mn_i,   s_e = sum_{i in e} w_i r_i
-//   G    = Mn^T W Mn - sum_e y_e y_e^T / De_e + ridge I
-//   c    = -(Mn^T W r - sum_e y_e s_e / De_e)
-//   chi2 = r^T W r - sum_e s_e^2 / De_e,       ahat_e = s_e / De_e
-// M (B, p, N) is the raw design, column before row; w (N,) is shared by
-// the sets; the epochs come as a CSR (offsets (ke + 1), row ids).
+//   S1   = sum_i w_i V_i V_i^T - sum_e v_e v_e^T / De_e
+// whose blocks are Mn^T W Mn - sum y y^T/De, Mn^T W r - sum y s/De, the
+// same for r^T W r; Z = Fd^T W Mn - B^T De^-1 Y; z = Fd^T W r - B^T De^-1 s;
+// and Fd^T W Fd - B^T De^-1 B. Then Rd = diag(1/phi_d) + that last block,
+// its Cholesky factor L (torch.linalg.cholesky, a kd x kd matrix, once per
+// call: it depends on w and Fd alone), Wz = L^-1 [Z | z] (a triangular
+// solve), and
+//   G    = [S1]_MM - Wz_M^T Wz_M + ridge I
+//   c    = -([S1]_Mr - Wz_M^T Wz_r)
+//   chi2 = [S1]_rr - Wz_r^T Wz_r
+//   ahat = [(s_e - B_e ahat_d) / De_e ; ahat_d = L^-T Wz_r]   (cat_ahat)
+// M (B, p, N) is the raw design, column before row; w (N,) and Fd (kd, N)
+// are shared by the sets; the epochs come as a CSR (offsets (ke + 1), row
+// ids). Without a dense basis (kd = 0) the Wz terms vanish; without epochs
+// (ke = 0) the epoch sums do.
 //
 // Determinism (ROADMAP C3): no atomics, every sum in a fixed order, so a
-// result is bitwise the same run after run. Up to six passes on one stream:
-//   1. mean_pass (centre only): per 1024-row tile, block sums of w, w r and
-//      w M_j;
-//   2. norm_pass (p > 0): every block folds pass 1's partials in tile order
-//      into the means, then writes its tile's sums of w (M_j - m_j)^2 or
-//      (M_j - m_j)^2;
-//   3. stats_pass: one block per set folds both, in tile order, into the
-//      means (0 without centring) and the norms;
-//   4. epoch_pass: one thread per (epoch, set) adds its rows in CSR order,
-//      each value centred and divided by its norm as it is read: De, y, s,
-//      ahat (the order of the twin's seg_sum);
-//   5. tile_pass: one block per (tile, set): a tile of 64 rows or of 64
-//      epochs is staged in shared memory (rows centred and divided as they
-//      are staged), and thread q sums entry q of the upper triangle of the
-//      augmented Gram [Mn, r]^T W [Mn, r] over the tile (rows), or of
-//      sum_e v v^T / De with v = [y, s] (epochs), in order;
-//   6. fold_pass: one block per set folds the tiles' partials in tile order,
-//      rows minus epochs, and writes G (symmetric), c and chi2.
+// result is bitwise the same run after run. Passes on one stream:
+//   1. mean_pass (centre only): one block per (value, set) sums w and w x
+//      over the rows in a fixed strided order and a fixed block reduction;
+//   2. norm_pass (p > 0): one block per (column, set), the same for the
+//      sums of w (M_j - m_j)^2 or (M_j - m_j)^2;
+//   3. epoch_pass (ke > 0): one thread per (epoch, value, set) adds its
+//      epoch's rows in CSR order (the order of the twin's seg_sum), each
+//      value centred and divided as it is read: y, s and, for set 0, B and
+//      De;
+//   4. gram_pass: one 16 x 16 block per tile of the upper triangle of S1,
+//      per set and per segment of the rows (or of the epochs, weights
+//      1/De): the block stages 64 rows of its two column slabs at a time in
+//      shared memory (centred and divided as they are staged), each thread
+//      sums its entry over the chunk in row order and adds the chunk's sum
+//      to its segment's partial; the set-independent Fd block only for set
+//      0. Segments are as long as it takes to give the card ~4 blocks per
+//      SM, so a narrow Gram (the flagship's p = 14) still fills it;
+//   5. s1_pass: one thread per entry and set folds the segments' partials
+//      in order, rows minus epochs, into S1 (symmetric);
+//   (the host factors Rd and solves for Wz and ahat_d)
+//   6. fold_pass: one block per set writes G (symmetric), c and chi2;
+//   7. ahat_pass (ke > 0): one thread per (epoch, set).
 //
-// Instances: P = 0 .. 20 design columns. The fitters take whatever set of
-// parameters the user frees (the flagship fit frees 14, and freezing one
-// makes 13), so every width up to the register budget of pass 5 must work;
-// the instances are small and build in seconds.
-//
-// Bound: device-memory bytes. The work is ~N (p + 1)(p + 2)/2 multiply-adds
-// per set against N (p + 1) + N doubles read, under ~p/2 operations per byte:
-// below the H100's float64 ridge (~10 per byte) for p <= 20. Pass 5 re-reads
-// each tile once from shared memory per entry, never from device memory.
+// Bound: float64 operations. The Gram is ~N (p + 1 + kd)^2 / 2 multiply-
+// adds per set (about 1e9 at the NANOGrav grid's B = 9, p = 80, kd = 60),
+// against N (p + 1) doubles read per set: far above the H100's float64
+// ridge at that width (the flagship's p = 14 is below it, bound by bytes).
+// The tiles keep each staged value in shared memory for 16 products, one
+// entry per thread; this simple design is right first, and fast later.
 #include "block_sum.cuh"
 #include "dd.cuh"
 
@@ -60,286 +73,254 @@ namespace {
 using pint::block_sum;
 
 constexpr int THREADS = 256;
-constexpr int TILE = 64;            // rows, or epochs, per pass-5 block
-constexpr int STILE = THREADS * 4;  // rows per pass-1/2 block
-constexpr int PMAX = 20;  // (PMAX + 1)(PMAX + 2)/2 = 231 entries <= THREADS
-
-__host__ __device__ constexpr int n_entries(int p) { return (p + 1) * (p + 2) / 2; }
-__host__ __device__ constexpr int at_least_1(int p) { return p > 0 ? p : 1; }
-
-// entry q of the upper triangle of a (p + 1) x (p + 1) matrix, row by row
-__device__ __forceinline__ void entry(int p, int q, int &a, int &b) {
-  a = 0;
-  while (q >= p + 1 - a) {
-    q -= p + 1 - a;
-    ++a;
-  }
-  b = a + q;
-}
-
-// Set b's weighted means [r, M_0 .. M_{P-1}] into shared `mean`, folded from
-// pass 1's partials in tile order (zeros without centring).
-template <int P>
-__device__ __forceinline__ void fold_means(const double *__restrict__ mpart, int b,
-                                           int s_tiles, int centre, double *mean) {
-  for (int x = threadIdx.x; x < P + 1; x += THREADS) {
-    double m = 0.0;
-    if (centre) {
-      double sw = 0.0, s = 0.0;
-      for (int t = 0; t < s_tiles; ++t) {
-        const double *pt = mpart + ((size_t)b * s_tiles + t) * (P + 2);
-        sw = __dadd_rn(sw, pt[0]);
-        s = __dadd_rn(s, pt[1 + x]);
-      }
-      m = __ddiv_rn(s, sw);
-    }
-    mean[x] = m;
-  }
-  __syncthreads();
-}
-
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-mean_pass(const double *__restrict__ r, const double *__restrict__ M,
-          const double *__restrict__ w, int n, double *__restrict__ mpart) {
-  constexpr int Q = P + 2;
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const double *rb = r + (size_t)b * n;
-  const double *Mb = M + (size_t)b * P * n;
-  double acc[Q];
-#pragma unroll
-  for (int q = 0; q < Q; ++q) acc[q] = 0.0;
-  for (int i = tile * STILE + threadIdx.x; i < min(n, (tile + 1) * STILE); i += THREADS) {
-    const double wi = w[i];
-    acc[0] = __dadd_rn(acc[0], wi);
-    acc[1] = __dadd_rn(acc[1], __dmul_rn(wi, rb[i]));
-#pragma unroll
-    for (int j = 0; j < P; ++j) acc[2 + j] = __dadd_rn(acc[2 + j], __dmul_rn(wi, Mb[(size_t)j * n + i]));
-  }
-  __shared__ double tot[Q];
-  block_sum<THREADS, Q>(acc, tot);
-  if (threadIdx.x < Q) mpart[((size_t)b * gridDim.x + tile) * Q + threadIdx.x] = tot[threadIdx.x];
-}
-
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-norm_pass(const double *__restrict__ M, const double *__restrict__ w, int n, int centre,
-          int weighted, const double *__restrict__ mpart, double *__restrict__ npart) {
-  const int tile = blockIdx.x, b = blockIdx.y;
-  __shared__ double mean[P + 1];
-  fold_means<P>(mpart, b, gridDim.x, centre, mean);
-  const double *Mb = M + (size_t)b * P * n;
-  double acc[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) acc[j] = 0.0;
-  for (int i = tile * STILE + threadIdx.x; i < min(n, (tile + 1) * STILE); i += THREADS) {
-    const double wi = w[i];
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const double x = __dsub_rn(Mb[(size_t)j * n + i], mean[1 + j]);
-      acc[j] = __dadd_rn(acc[j], weighted ? __dmul_rn(__dmul_rn(wi, x), x) : __dmul_rn(x, x));
-    }
-  }
-  __shared__ double tot[P];
-  block_sum<THREADS, P>(acc, tot);
-  if (threadIdx.x < P) npart[((size_t)b * gridDim.x + tile) * P + threadIdx.x] = tot[threadIdx.x];
-}
-
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-stats_pass(const double *__restrict__ mpart, const double *__restrict__ npart, int s_tiles,
-           int centre, double *__restrict__ mean, double *__restrict__ norm) {
-  const int b = blockIdx.x;
-  __shared__ double m[P + 1];
-  fold_means<P>(mpart, b, s_tiles, centre, m);
-  const int x = threadIdx.x;
-  if (x < P + 1) mean[(size_t)b * (P + 1) + x] = m[x];
-  if (x < P) {
-    double s = 0.0;
-    for (int t = 0; t < s_tiles; ++t) s = __dadd_rn(s, npart[((size_t)b * s_tiles + t) * P + x]);
-    norm[(size_t)b * P + x] = s == 0.0 ? 1.0 : __dsqrt_rn(s);
-  }
-}
-
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-epoch_pass(const double *__restrict__ r, const double *__restrict__ M,
-           const double *__restrict__ w, const int *__restrict__ offsets,
-           const int *__restrict__ rows, const double *__restrict__ phi,
-           const double *__restrict__ mean, const double *__restrict__ norm, int n, int ke,
-           double *__restrict__ esum, double *__restrict__ ahat) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x, b = blockIdx.y;
-  if (e >= ke) return;
-  const double *rb = r + (size_t)b * n;
-  const double *Mb = M + (size_t)b * P * n;
-  const double *mb = mean + (size_t)b * (P + 1);
-  const double *nb = norm + (size_t)b * P;
-  double sw = 0.0, s = 0.0, y[at_least_1(P)];
-#pragma unroll
-  for (int j = 0; j < P; ++j) y[j] = 0.0;
-  for (int k = offsets[e]; k < offsets[e + 1]; ++k) {
-    const int i = rows[k];
-    const double wi = w[i];
-    sw = __dadd_rn(sw, wi);
-    s = __dadd_rn(s, __dmul_rn(wi, __dsub_rn(rb[i], mb[0])));
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const double mn = __ddiv_rn(__dsub_rn(Mb[(size_t)j * n + i], mb[1 + j]), nb[j]);
-      y[j] = __dadd_rn(y[j], __dmul_rn(wi, mn));
-    }
-  }
-  const double De = __dadd_rn(__ddiv_rn(1.0, phi[e]), sw);
-  double *out = esum + ((size_t)b * ke + e) * (P + 2);
-#pragma unroll
-  for (int j = 0; j < P; ++j) out[j] = y[j];
-  out[P] = s;
-  out[P + 1] = De;
-  ahat[(size_t)b * ke + e] = __ddiv_rn(s, De);
-}
-
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-tile_pass(const double *__restrict__ r, const double *__restrict__ M,
-          const double *__restrict__ w, const double *__restrict__ esum,
-          const double *__restrict__ mean, const double *__restrict__ norm, int n, int ke,
-          int row_tiles, double *__restrict__ part) {
-  constexpr int V = P + 1;  // the augmented vector [Mn_0 .. Mn_{P-1}, r] or [y, s]
-  constexpr int Q = n_entries(P);
-  __shared__ double v[V][TILE];
-  __shared__ double wt[TILE];  // w_i (rows) or 1/De_e (epochs)
-  __shared__ double mv[V], nv[at_least_1(P)];  // means [M_0 .. M_{P-1}, r], norms
-  const int t = blockIdx.x, b = blockIdx.y;
-  const bool rows_tile = t < row_tiles;
-  for (int x = threadIdx.x; x < V; x += THREADS)
-    mv[x] = mean[(size_t)b * V + (x < P ? 1 + x : 0)];
-  for (int x = threadIdx.x; x < P; x += THREADS) nv[x] = norm[(size_t)b * P + x];
-  __syncthreads();
-  const int first = (rows_tile ? t : t - row_tiles) * TILE;
-  const int count = min(TILE, (rows_tile ? n : ke) - first);
-  for (int x = threadIdx.x; x < (V + 1) * TILE; x += THREADS) {
-    const int a = x / TILE, i = x % TILE;
-    if (i >= count) continue;
-    double val;
-    if (rows_tile) {
-      const size_t row = (size_t)first + i;
-      if (a < P) val = __ddiv_rn(__dsub_rn(M[((size_t)b * P + a) * n + row], mv[a]), nv[a]);
-      else if (a == P) val = __dsub_rn(r[(size_t)b * n + row], mv[P]);
-      else val = w[row];
-    } else {
-      const double *es = esum + ((size_t)b * ke + first + i) * (P + 2);
-      val = a < V ? es[a] : __ddiv_rn(1.0, es[P + 1]);
-    }
-    if (a < V) v[a][i] = val;
-    else wt[i] = val;
-  }
-  __syncthreads();
-  const int q = threadIdx.x;
-  if (q >= Q) return;
-  int a, c;
-  entry(P, q, a, c);
-  double acc = 0.0;
-  for (int i = 0; i < count; ++i)
-    acc = __dadd_rn(acc, __dmul_rn(__dmul_rn(wt[i], v[a][i]), v[c][i]));
-  part[((size_t)b * gridDim.x + t) * Q + q] = acc;
-}
-
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-fold_pass(const double *__restrict__ part, int row_tiles, int n_parts, double ridge,
-          double *__restrict__ G, double *__restrict__ cvec, double *__restrict__ chi2) {
-  constexpr int Q = n_entries(P);
-  const int b = blockIdx.x, q = threadIdx.x;
-  if (q >= Q) return;
-  const double *pb = part + (size_t)b * n_parts * Q + q;
-  double rows = 0.0, epochs = 0.0;
-  for (int t = 0; t < row_tiles; ++t) rows = __dadd_rn(rows, pb[(size_t)t * Q]);
-  for (int t = row_tiles; t < n_parts; ++t) epochs = __dadd_rn(epochs, pb[(size_t)t * Q]);
-  const double S = __dsub_rn(rows, epochs);
-  int a, c;
-  entry(P, q, a, c);
-  if (c < P) {
-    G[((size_t)b * P + a) * P + c] = a == c ? __dadd_rn(S, ridge) : S;
-    G[((size_t)b * P + c) * P + a] = a == c ? __dadd_rn(S, ridge) : S;
-  } else if (a < P) {
-    cvec[(size_t)b * P + a] = -S;
-  } else {
-    chi2[b] = S;
-  }
-}
+constexpr int T = 16;    // gram_pass tile edge (T x T threads)
+constexpr int CH = 64;   // rows, or epochs, staged per gram_pass chunk
+constexpr int PMAX = 256, KDMAX = 512;
+constexpr int TARGET_BLOCKS = 528;  // gram_pass blocks to aim for: 4 per SM
 
 struct Args {
-  const double *r, *M, *w;
+  const double *r, *M, *w, *Fd;
   const int *offsets, *rows;
-  const double *phi;
-  int B, n, ke, centre, weighted;
-  double ridge;
-  double *mpart, *npart, *mean, *esum, *part, *G, *c, *chi2, *ahat, *norm;
+  const double *ephi;
+  int B, p, n, ke, kd, centre, weighted;
+  int seg_len, row_segs, n_segs;  // gram_pass segments: rows, then epochs
+  double *mean, *norm, *esum, *De, *part, *S1;
 };
 
-template <int P>
-cudaError_t launch(const Args &a, cudaStream_t s) {
-  const int s_tiles = (a.n + STILE - 1) / STILE;
-  const int row_tiles = (a.n + TILE - 1) / TILE, epoch_tiles = (a.ke + TILE - 1) / TILE;
-  const int n_parts = row_tiles + epoch_tiles;
-  cudaError_t e;
-  if (a.centre) {
-    mean_pass<P><<<dim3(s_tiles, a.B), THREADS, 0, s>>>(a.r, a.M, a.w, a.n, a.mpart);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+__host__ __device__ inline int tiles_of(int V) { return (V + T - 1) / T; }
+
+// rows (and epochs) per gram_pass segment: whole chunks, enough segments
+// for TARGET_BLOCKS blocks
+inline int segment_length(int n, int ke, int V, int B) {
+  const long pairs = (long)tiles_of(V) * (tiles_of(V) + 1) / 2 * B;
+  const long want = (n + ke) * pairs / TARGET_BLOCKS + 1;
+  return (int)(((want + CH - 1) / CH) * CH);
+}
+
+// value x of the augmented row vector [Mn_0 .. Mn_{p-1}, r, Fd_0 ..] of set
+// b at row i, centred and divided as the twin forms it
+__device__ __forceinline__ double row_value(const Args &a, int b, int x, int i) {
+  if (x < a.p)
+    return __ddiv_rn(__dsub_rn(a.M[((size_t)b * a.p + x) * a.n + i], a.mean[(size_t)b * (a.p + 1) + 1 + x]),
+                     a.norm[(size_t)b * a.p + x]);
+  if (x == a.p) return __dsub_rn(a.r[(size_t)b * a.n + i], a.mean[(size_t)b * (a.p + 1)]);
+  return a.Fd[(size_t)(x - a.p - 1) * a.n + i];
+}
+
+// pass 1: set b's weighted mean of value x (0: r, 1 + j: M_j)
+__global__ void __launch_bounds__(THREADS) mean_pass(Args a) {
+  const int x = blockIdx.x, b = blockIdx.y;
+  const double *v = x == 0 ? a.r + (size_t)b * a.n : a.M + ((size_t)b * a.p + x - 1) * a.n;
+  double acc[2] = {0.0, 0.0};
+  for (int i = threadIdx.x; i < a.n; i += THREADS) {
+    acc[0] = __dadd_rn(acc[0], a.w[i]);
+    acc[1] = __dadd_rn(acc[1], __dmul_rn(a.w[i], v[i]));
   }
-  if constexpr (P > 0) {
-    norm_pass<P><<<dim3(s_tiles, a.B), THREADS, 0, s>>>(a.M, a.w, a.n, a.centre, a.weighted,
-                                                        a.mpart, a.npart);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  __shared__ double tot[2];
+  block_sum<THREADS, 2>(acc, tot);
+  if (threadIdx.x == 0) a.mean[(size_t)b * (a.p + 1) + x] = __ddiv_rn(tot[1], tot[0]);
+}
+
+// pass 2: set b's norm of column j
+__global__ void __launch_bounds__(THREADS) norm_pass(Args a) {
+  const int j = blockIdx.x, b = blockIdx.y;
+  const double *v = a.M + ((size_t)b * a.p + j) * a.n;
+  const double m = a.mean[(size_t)b * (a.p + 1) + 1 + j];
+  double acc[1] = {0.0};
+  for (int i = threadIdx.x; i < a.n; i += THREADS) {
+    const double x = __dsub_rn(v[i], m);
+    acc[0] = __dadd_rn(acc[0], a.weighted ? __dmul_rn(__dmul_rn(a.w[i], x), x) : __dmul_rn(x, x));
   }
-  stats_pass<P><<<a.B, THREADS, 0, s>>>(a.mpart, a.npart, s_tiles, a.centre, a.mean, a.norm);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (a.ke > 0) {
-    epoch_pass<P><<<dim3((a.ke + THREADS - 1) / THREADS, a.B), THREADS, 0, s>>>(
-        a.r, a.M, a.w, a.offsets, a.rows, a.phi, a.mean, a.norm, a.n, a.ke, a.esum, a.ahat);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  __shared__ double tot[1];
+  block_sum<THREADS, 1>(acc, tot);
+  if (threadIdx.x == 0) a.norm[(size_t)b * a.p + j] = tot[0] == 0.0 ? 1.0 : __dsqrt_rn(tot[0]);
+}
+
+// pass 3: epoch sums of w V (value x < V) and, for x == V, De (set 0)
+__global__ void __launch_bounds__(THREADS) epoch_pass(Args a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x, x = blockIdx.y, b = blockIdx.z;
+  const int V = a.p + 1 + a.kd;
+  if (e >= a.ke || (b > 0 && x > a.p)) return;
+  double acc = 0.0;
+  for (int k = a.offsets[e]; k < a.offsets[e + 1]; ++k) {
+    const int i = a.rows[k];
+    acc = __dadd_rn(acc, x < V ? __dmul_rn(a.w[i], row_value(a, b, x, i)) : a.w[i]);
   }
-  tile_pass<P><<<dim3(n_parts, a.B), THREADS, 0, s>>>(a.r, a.M, a.w, a.esum, a.mean, a.norm,
-                                                      a.n, a.ke, row_tiles, a.part);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  fold_pass<P><<<a.B, THREADS, 0, s>>>(a.part, row_tiles, n_parts, a.ridge, a.G, a.c, a.chi2);
-  return cudaGetLastError();
+  if (x < V) a.esum[((size_t)b * a.ke + e) * V + x] = acc;
+  else a.De[e] = __dadd_rn(__ddiv_rn(1.0, a.ephi[e]), acc);
+}
+
+// pass 4: one T x T tile (ta <= tc) of set b's partial over one segment
+__global__ void __launch_bounds__(T * T) gram_pass(Args a) {
+  const int V = a.p + 1 + a.kd, nt = tiles_of(V);
+  int ta = 0, rest = blockIdx.x;  // the blockIdx.x-th tile of the upper triangle
+  while (rest >= nt - ta) {
+    rest -= nt - ta;
+    ++ta;
+  }
+  const int tc = ta + rest, b = blockIdx.y, seg = blockIdx.z;
+  if (b > 0 && ta * T > a.p) return;  // the Fd block: set 0's
+  const bool epochs = seg >= a.row_segs;
+  const int count = epochs ? a.ke : a.n;
+  const int lo = (epochs ? seg - a.row_segs : seg) * a.seg_len;
+  const int hi = min(count, lo + a.seg_len);
+  __shared__ double sa[CH][T + 1], sc[CH][T + 1], sw[CH];
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * T + tx;
+  const int A = ta * T + ty, C = tc * T + tx;
+  double total = 0.0;
+  for (int first = lo; first < hi; first += CH) {
+    for (int q = tid; q < CH * T; q += T * T) {
+      const int k = q / T, col = q % T, i = first + k;
+      double va = 0.0, vc = 0.0;
+      if (i < hi) {
+        const int xa = ta * T + col, xc = tc * T + col;
+        if (!epochs) {
+          if (xa < V) va = row_value(a, b, xa, i);
+          if (xc < V) vc = row_value(a, b, xc, i);
+        } else {
+          if (xa < V) va = a.esum[((size_t)(xa > a.p ? 0 : b) * a.ke + i) * V + xa];
+          if (xc < V) vc = a.esum[((size_t)(xc > a.p ? 0 : b) * a.ke + i) * V + xc];
+        }
+      }
+      sa[k][col] = va;
+      sc[k][col] = vc;
+    }
+    for (int k = tid; k < CH; k += T * T) {
+      const int i = first + k;
+      sw[k] = i >= hi ? 0.0 : !epochs ? a.w[i] : __ddiv_rn(1.0, a.De[i]);
+    }
+    __syncthreads();
+    double acc = 0.0;
+    const int m = min(CH, hi - first);
+    for (int k = 0; k < m; ++k) acc = __dadd_rn(acc, __dmul_rn(__dmul_rn(sw[k], sa[k][ty]), sc[k][tx]));
+    total = __dadd_rn(total, acc);
+    __syncthreads();
+  }
+  if (A < V && C < V && A <= C) a.part[(((size_t)b * a.n_segs + seg) * V + A) * V + C] = total;
+}
+
+// pass 5: S1 = the rows' partials minus the epochs', in segment order
+__global__ void __launch_bounds__(THREADS) s1_pass(Args a) {
+  const int V = a.p + 1 + a.kd, b = blockIdx.y;
+  const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (long)V * V) return;
+  const int A = (int)(q / V), C = (int)(q % V);
+  if (A > C || (b > 0 && A > a.p)) return;
+  double rows = 0.0, epochs = 0.0;
+  for (int s = 0; s < a.n_segs; ++s) {
+    const double v = a.part[(((size_t)b * a.n_segs + s) * V + A) * V + C];
+    if (s < a.row_segs) rows = __dadd_rn(rows, v);
+    else epochs = __dadd_rn(epochs, v);
+  }
+  const double S = __dsub_rn(rows, epochs);
+  a.S1[((size_t)b * V + A) * V + C] = S;
+  a.S1[((size_t)b * V + C) * V + A] = S;
+}
+
+// pass 6: G, c, chi2 of set b from S1 and Wz (kd, p + 1)
+__global__ void __launch_bounds__(THREADS)
+fold_pass(const double *__restrict__ S1, const double *__restrict__ Wz, int p, int kd,
+          double ridge, double *__restrict__ G, double *__restrict__ cvec,
+          double *__restrict__ chi2) {
+  const int b = blockIdx.x, V = p + 1 + kd, Q = (p + 1) * (p + 2) / 2;
+  for (int q = threadIdx.x; q < Q; q += THREADS) {
+    int i = 0, rest = q;  // entry q of the (p + 1) x (p + 1) upper triangle
+    while (rest >= p + 1 - i) {
+      rest -= p + 1 - i;
+      ++i;
+    }
+    const int j = i + rest;
+    double corr = 0.0;
+    for (int k = 0; k < kd; ++k) {
+      const double *wk = Wz + ((size_t)b * kd + k) * (p + 1);
+      corr = __dadd_rn(corr, __dmul_rn(wk[i], wk[j]));
+    }
+    const double S = __dsub_rn(S1[((size_t)b * V + i) * V + j], corr);
+    if (j < p) {
+      const double g = i == j ? __dadd_rn(S, ridge) : S;
+      G[((size_t)b * p + i) * p + j] = g;
+      G[((size_t)b * p + j) * p + i] = g;
+    } else if (i < p) {
+      cvec[(size_t)b * p + i] = -S;
+    } else {
+      chi2[b] = S;
+    }
+  }
+}
+
+// pass 7: the epoch amplitudes (s_e - B_e ahat_d) / De_e
+__global__ void __launch_bounds__(THREADS)
+ahat_pass(const double *__restrict__ esum, const double *__restrict__ De,
+          const double *__restrict__ ad, int p, int ke, int kd, double *__restrict__ ahat) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x, b = blockIdx.y, V = p + 1 + kd;
+  if (e >= ke) return;
+  double bz = 0.0;
+  for (int k = 0; k < kd; ++k)
+    bz = __dadd_rn(bz, __dmul_rn(esum[(size_t)e * V + p + 1 + k], ad[(size_t)b * kd + k]));
+  const double s = esum[((size_t)b * ke + e) * V + p];
+  ahat[(size_t)b * (ke + kd) + e] = __ddiv_rn(kd > 0 ? __dsub_rn(s, bz) : s, De[e]);
 }
 
 }  // namespace
 
-// r (B, n), M (B, p, n), w (n,), offsets (ke + 1,) int32, rows (offsets[ke],)
-// int32, phi (ke,); centre, weighted: 0 or 1. Scratch: mpart (B, s_tiles,
-// p + 2) and npart (B, s_tiles, p) with s_tiles = ecorr_normal_eq_stat_tiles(n),
-// mean (B, p + 1), esum (B, ke, p + 2) and part (B, parts, (p + 1)(p + 2)/2)
-// with parts = ecorr_normal_eq_parts(n, ke). Outputs G (B, p, p), c (B, p),
-// chi2 (B,), ahat (B, ke), norm (B, p).
-extern "C" int ecorr_normal_eq(const double *r, const double *M, const double *w,
-                               const int *offsets, const int *rows, const double *phi, int B,
-                               int p, int n, int ke, int centre, int weighted, double ridge,
-                               double *mpart, double *npart, double *mean, double *esum,
-                               double *part, double *G, double *c, double *chi2, double *ahat,
-                               double *norm, void *stream) {
-  if (p < 0 || p > PMAX || B < 1 || B > 65535 || n < 1 || ke < 0)
+// Passes 1-5. r (B, n), M (B, p, n), w (n,), Fd (kd, n), offsets (ke + 1,)
+// int32, rows (offsets[ke],) int32, ephi (ke,); centre, weighted: 0 or 1.
+// Outputs mean (B, p + 1) (r first), norm (B, p), esum (B, ke, V) and De
+// (ke,) (scratch for passes 6-7), S1 (B, V, V), V = p + 1 + kd (the Fd
+// block of sets b > 0 unwritten); part is scratch of
+// ecorr_gram_part_size(B, p, n, ke, kd) doubles.
+extern "C" long ecorr_gram_part_size(int B, int p, int n, int ke, int kd) {
+  const int V = p + 1 + kd, len = segment_length(n, ke, V, B);
+  const long segs = (n + len - 1) / len + (ke + len - 1) / len;
+  return (long)B * segs * V * V;
+}
+
+extern "C" int ecorr_gram(const double *r, const double *M, const double *w, const double *Fd,
+                          const int *offsets, const int *rows, const double *ephi, int B,
+                          int p, int n, int ke, int kd, int centre, int weighted, double *mean,
+                          double *norm, double *esum, double *De, double *part, double *S1,
+                          void *stream) {
+  if (p < 0 || p > PMAX || kd < 0 || kd > KDMAX || B < 1 || B > 65535 || n < 1 || ke < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{r,     M,     w,     offsets, rows, phi,  B, n,    ke,   centre, weighted,
-               ridge, mpart, npart, mean,    esum, part, G, c,    chi2, ahat,   norm};
+  const int V = p + 1 + kd, nt = tiles_of(V), len = segment_length(n, ke, V, B);
+  const int row_segs = (n + len - 1) / len, n_segs = row_segs + (ke + len - 1) / len;
+  const Args a{r,    M,        w,      Fd,   offsets, rows, ephi, B,    p, n, ke, kd, centre,
+               weighted, len, row_segs, n_segs, mean, norm, esum, De,   part, S1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  switch (p) {
-#define PINT_CASE(P) \
-  case P: e = launch<P>(a, s); break;
-    PINT_CASE(0) PINT_CASE(1) PINT_CASE(2) PINT_CASE(3) PINT_CASE(4) PINT_CASE(5)
-    PINT_CASE(6) PINT_CASE(7) PINT_CASE(8) PINT_CASE(9) PINT_CASE(10) PINT_CASE(11)
-    PINT_CASE(12) PINT_CASE(13) PINT_CASE(14) PINT_CASE(15) PINT_CASE(16) PINT_CASE(17)
-    PINT_CASE(18) PINT_CASE(19) PINT_CASE(20)
-#undef PINT_CASE
-    default: e = cudaErrorInvalidValue;
+  if (centre) {
+    mean_pass<<<dim3(p + 1, B), THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  } else {
+    if ((e = cudaMemsetAsync(mean, 0, sizeof(double) * B * (p + 1), s)) != cudaSuccess) return e;
   }
-  return static_cast<int>(e);
+  if (p > 0) {
+    norm_pass<<<dim3(p, B), THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (ke > 0) {
+    epoch_pass<<<dim3((ke + THREADS - 1) / THREADS, V + 1, B), THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  gram_pass<<<dim3(nt * (nt + 1) / 2, B, n_segs), dim3(T, T), 0, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  s1_pass<<<dim3((V * V + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ecorr_normal_eq_parts(int n, int ke) {
-  return (n + TILE - 1) / TILE + (ke + TILE - 1) / TILE;
+// Passes 6-7. Wz (B, kd, p + 1), ad (B, kd); outputs G (B, p, p), c (B, p),
+// chi2 (B,), and the epoch part of ahat (B, ke + kd).
+extern "C" int ecorr_fold(const double *S1, const double *Wz, const double *esum,
+                          const double *De, const double *ad, int B, int p, int ke, int kd,
+                          double ridge, double *G, double *c, double *chi2, double *ahat,
+                          void *stream) {
+  if (p < 0 || p > PMAX || kd < 0 || kd > KDMAX || B < 1 || B > 65535 || ke < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fold_pass<<<B, THREADS, 0, s>>>(S1, Wz, p, kd, ridge, G, c, chi2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || ke == 0) return static_cast<int>(e);
+  ahat_pass<<<dim3((ke + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(esum, De, ad, p, ke, kd,
+                                                                      ahat);
+  return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" int ecorr_normal_eq_stat_tiles(int n) { return (n + STILE - 1) / STILE; }

@@ -7,10 +7,13 @@
 //
 // One thread per TOA row and parameter set (grid: rows x batch). Per row, in
 // the order of the Python twin (models/*.py, a term at a time):
-//   pulsar direction n with proper motion  (astrometry.py)
+//   pulsar direction n with proper motion  (astrometry.py; an ecliptic
+//     direction is rotated to ICRS by the obliquity)
 //   Roemer -r.n and parallax                (astrometry.py)
 //   solar Shapiro -2 T ln((|s| - s.n)/AU)   (solar_system_shapiro.py)
 //   DM delay DMconst DM(t) / f_bary^2, f_bary = f (1 - v.n)  (dispersion.py)
+//   DMX delay DMconst DMX(row) / f_bary^2    (dispersion.py DispersionDMX)
+//   FD delay, Horner over log(f_bary / 1 GHz) (frequency_dependent.py)
 //   binary delay at t - delay so far        (binary.py, binaries/engines.py):
 //     the orbit (one function for every binary): dd orbital phase
 //     norb0 = rint(dt/PB), rem = dt - PB norb0 in dd, the PBDOT term,
@@ -27,13 +30,24 @@
 //     SINI = 1 - exp(-SHAPMAX))
 //   spindown phase: dd Horner of F_k over t - delay - PEPOCH (spindown.py)
 //   spin frequency f(t)                     (spindown.py)
+//   phase JUMPs F0 * sum(mask * JUMP)       (phase_misc.py PhaseJump)
 //   minus the TZR row's phase, then dd rint (timing_model.py, residuals.py)
-// and writes the pulse number, the fractional phase (hi + lo) and f.
+// and writes the pulse number, the fractional phase (hi + lo), f, and the
+// barycentric frequency f_bary of every row, the TZR row included (kernel
+// K8 reads it).
+//
+// The ecliptic frame, DMX, FD and the phase JUMPs are NANOGrav's terms: a
+// template flag (NG) compiles them only into the instances that need them,
+// so the other instances keep their registers. The DMX DM of each row and
+// its jump seconds arrive as per-set row columns (the one-hot product and
+// the mask sums, formed by the wrapper as the twin forms them); a DMX lane
+// is seeded with the row's one-hot entry, a JUMP lane with its mask.
 //
 // Tangents: beside every value the thread carries K dual lanes, one per
 // free parameter (lane codes: the L_* enum below, the table LANE_CODES of
 // residuals.py: 0-4 astrometry, 5-9 PB A1 TASC EPS1 EPS2, 16 + k for F_k,
-// 32 + k for DM_k, 48-62 the Kepler-orbit and shared binary lanes). A double-double
+// 32 + k for DM_k, 48-62 the Kepler-orbit and shared binary lanes, 64 + k
+// for FD_k, 80 + m for the m-th JUMP, 128 + j for the DMX of window j). A double-double
 // value carries one float64 tangent: the derivative needs float64 precision
 // only, as jax's tangents through the float64 carriers do. Outputs d(frac)/dp
 // and d(f)/dp per lane; the caller forms d(r/f) (fitting/wls.py, gls.py,
@@ -62,7 +76,7 @@ namespace {
 using namespace pint;
 
 constexpr int KCHUNK = 8;  // lanes per block
-constexpr int LMAX = 32;   // lanes per launch
+constexpr int LMAX = 128;  // lanes per launch
 constexpr int THREADS = 256;
 constexpr double TWO_PI = 6.283185307179586;  // 2.0 * math.pi
 constexpr int NEWTON_ITERS = 10;               // binaries/kepler.py
@@ -78,15 +92,17 @@ enum : int {
   P_EPS1DOT, P_EPS2DOT, P_PBDOT, P_XPBDOT, P_M2, P_SINI,
   // the Kepler block; DSINI is d SINI / d SHAPMAX (DDS), the SHAPMAX seed
   P_ECC, P_EDOT, P_OM, P_OMDOT, P_GAMMA, P_DR, P_DTH, P_A0, P_B0, P_DSINI,
-  P_DM0  // then nd DM coefficients, then nf (hi, lo) F pairs
+  P_DM0  // then nd DM coefficients, nf (hi, lo) F pairs, n_fd FD coefficients
 };
 // lane codes: residuals.py LANE_CODES holds the same list
 enum : int {
   L_RAJ = 0, L_DECJ = 1, L_PMRA = 2, L_PMDEC = 3, L_PX = 4,
   L_PB = 5, L_A1 = 6, L_TASC = 7, L_EPS1 = 8, L_EPS2 = 9, L_F0 = 16, L_DM0 = 32,
   L_T0 = 48, L_ECC, L_OM, L_OMDOT, L_EDOT, L_GAMMA, L_PBDOT, L_A1DOT, L_M2, L_SINI,
-  L_SHAPMAX, L_DR, L_DTH, L_A0, L_B0
+  L_SHAPMAX, L_DR, L_DTH, L_A0, L_B0,
+  L_FD0 = 64, L_JUMP0 = 80, L_DMX0 = 128
 };
+constexpr int MAX_FD = 15;
 
 struct Config {
   int n_rows;   // tensor rows, the TZR row included
@@ -98,12 +114,16 @@ struct Config {
   int n_par;    // parameter row length
   int n_lane;   // lanes of this launch
   int bin_model;  // Kepler instance: KEPLER_BT or 1 (DD, DDS)
+  int ecliptic;   // the astrometry angles are ecliptic (NG instances)
+  int n_dmx, n_fd, n_jump;  // DMX windows, FD terms, JUMPs (NG instances)
   int lane[LMAX];
-  double au_ls, dmconst, tsun;
+  double au_ls, dmconst, tsun, cos_obl, sin_obl;
 };
 
+// the tensor's rows; dmx and jump are one parameter set's row columns
 struct Rows {
   const double *t_hi, *t_lo, *freq, *pos, *vel, *sun;
+  const double *dmx, *jump, *onehot, *masks;
 };
 
 template <int K>
@@ -262,6 +282,10 @@ __device__ __forceinline__ double dot3c(const double *x, const double *y) {
                    __dmul_rn(x[2], y[2]));
 }
 
+__device__ __forceinline__ double dot3c(const double *x, double y0, double y1, double y2) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(x[0], y0), __dmul_rn(x[1], y1)), __dmul_rn(x[2], y2));
+}
+
 // A double-double value with one float64 tangent per lane.
 template <int K>
 struct DDual {
@@ -302,6 +326,20 @@ struct RowPhase {
   DDual<K> ph;
   Dual<K> f;
 };
+
+// a row column whose tangent on lane code `base + m` is tab(m)
+template <int K, typename Tab>
+__device__ __forceinline__ Dual<K> dcolumn(double v, const Lanes<K> &lane, int base, int count,
+                                           Tab tab) {
+  Dual<K> r;
+  r.v = v;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int m = lane.code[j] - base;
+    r.d[j] = (m >= 0 && m < count) ? tab(m) : 0.0;
+  }
+  return r;
+}
 
 __device__ __forceinline__ double inv_fact(int n) {
   double f = 1.0;
@@ -613,9 +651,11 @@ __device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
   return dadd(dadd(delay_i, delay_s), delay_a);
 }
 
-template <int K, int BIN>
+// row i's phase and frequency; f_bary is stored to *fb_out when given (as
+// soon as it is known, so that it holds no register through the row)
+template <int K, int BIN, bool NG>
 __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restrict__ P,
-                                const Config &c, const Lanes<K> &lane) {
+                                const Config &c, const Lanes<K> &lane, double *fb_out) {
   const double t_hi = rows.t_hi[i], t_lo = rows.t_lo[i];
   Dual<K> total = dconst<K>(0.0);
   Dual<K> n[3];
@@ -630,6 +670,13 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     n[0] = dmul(cl, dcos(ra));
     n[1] = dmul(cl, dsin(ra));
     n[2] = dsin(dec);
+    if constexpr (NG) {
+      if (c.ecliptic) {  // ecliptic of J2000 -> ICRS (astrometry.py ecliptic_to_icrs)
+        const Dual<K> y = n[1], z = n[2];
+        n[1] = dsub(dmulc(y, c.cos_obl), dmulc(z, c.sin_obl));
+        n[2] = dadd(dmulc(y, c.sin_obl), dmulc(z, c.cos_obl));
+      }
+    }
     // Roemer + parallax (AstrometryBase.delay)
     const double *r = rows.pos + 3 * i;
     const Dual<K> rn = ddot3(r, n);
@@ -646,6 +693,17 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
         dmulc(dlog(ddivc(dsub(dconst<K>(rs), rcos), c.au_ls)), -2.0 * c.tsun);
     total = dadd(total, shap);
   }
+  // f_bary = f (1 - v.n) (dispersion.py barycentric_radio_freq)
+  Dual<K> fb = dconst<K>(rows.freq[i]);
+  const bool dispersive = c.nd > 0 || (NG && (c.n_dmx > 0 || c.n_fd > 0));
+  if (c.has_ast && dispersive) {
+    const Dual<K> beta = ddot3(rows.vel + 3 * i, n);
+    fb = dmulc(dsub(dconst<K>(1.0), beta), rows.freq[i]);
+  } else if (c.has_ast) {
+    fb.v = __dmul_rn(__dsub_rn(1.0, dot3c(rows.vel + 3 * i, n[0].v, n[1].v, n[2].v)),
+                     rows.freq[i]);
+  }
+  if (fb_out != nullptr) *fb_out = fb.v;
   if (c.nd > 0) {
     // DM(t): Taylor polynomial about DMEPOCH (dispersion.py base_dm)
     Dual<K> dm;
@@ -657,14 +715,32 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
       for (int k = c.nd - 2; k >= 0; --k)
         dm = dadd(dmulc(dm, dtd), ddivc(dseed<K>(P[P_DM0 + k], lane, L_DM0 + k), fact(k)));
     }
-    Dual<K> fb = dconst<K>(rows.freq[i]);
-    if (c.has_ast) {
-      const Dual<K> beta = ddot3(rows.vel + 3 * i, n);
-      fb = dmulc(dsub(dconst<K>(1.0), beta), rows.freq[i]);
-    }
     Dual<K> dmd = dconst<K>(0.0);
     if (isfinite(fb.v)) dmd = ddiv(dmulc(dm, c.dmconst), dmul(fb, fb));
     total = dadd(total, dmd);
+  }
+  if constexpr (NG) {
+    if (c.n_dmx > 0) {
+      // DMX: this set's window DM of the row; lane 128 + j seeds onehot[i, j]
+      const double *oh = rows.onehot + (size_t)i * c.n_dmx;
+      const Dual<K> dmx = dcolumn<K>(rows.dmx[i], lane, L_DMX0, c.n_dmx,
+                                     [&](int m) { return oh[m]; });
+      Dual<K> dmd = dconst<K>(0.0);
+      if (isfinite(fb.v)) dmd = ddiv(dmulc(dmx, c.dmconst), dmul(fb, fb));
+      total = dadd(total, dmd);
+    }
+    if (c.n_fd > 0) {
+      // FD: Horner of FD_n .. FD_1 over log(f_bary / 1 GHz), zero where that
+      // is not finite and positive
+      const Dual<K> fg = ddivc(fb, 1e3);
+      const bool finite = isfinite(fg.v) && fg.v > 0.0;
+      const Dual<K> lf = finite ? dlog(fg) : dconst<K>(0.0);
+      const int fd_base = P_DM0 + c.nd + 2 * c.nf;
+      Dual<K> fd = dconst<K>(0.0);
+      for (int k = c.n_fd; k >= 1; --k)
+        fd = dmul(dadd(fd, dseed<K>(P[fd_base + k - 1], lane, L_FD0 + k)), lf);
+      total = dadd(total, finite ? fd : dconst<K>(0.0));
+    }
   }
   if constexpr (BIN == BIN_ELL1) {
     const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_TASC);
@@ -706,6 +782,19 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
 #pragma unroll
   for (int j = 0; j < K; ++j) zero.d[j] = 0.0;
   out.ph = ddadd(zero, acc);                  // phase components: Spindown ...
+  if constexpr (NG) {
+    if (c.n_jump > 0) {  // ... PhaseJump: F0 * jump seconds, a dd with lo = 0 ...
+      const Dual<K> jp = dcolumn<K>(rows.jump[i], lane, L_JUMP0, c.n_jump,
+                                    [&](int m) { return rows.masks[(size_t)m * c.n_rows + i]; });
+      const Dual<K> f0 = dseed<K>(__dadd_rn(P[f_base], P[f_base + 1]), lane, L_F0);
+      const Dual<K> jph = dmul(jp, f0);
+      DDual<K> x;
+      x.x = dd{jph.v, 0.0};
+#pragma unroll
+      for (int j = 0; j < K; ++j) x.d[j] = jph.d[j];
+      out.ph = ddadd(out.ph, x);
+    }
+  }
   if (c.has_tzr) out.ph = ddadd(out.ph, zero);  // ... then AbsPhase (zero)
   // spin frequency: float64 Horner of [F0, F1, ...] at dt (taylor_horner_deriv)
   Dual<K> dtf;
@@ -722,13 +811,17 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
 }
 
 // grid: (row blocks, parameter sets, lane chunks of K)
-template <int K, int BIN>
+template <int K, int BIN, bool NG>
 __global__ void __launch_bounds__(THREADS)
 resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
                      double *__restrict__ pn, double *__restrict__ frac,
                      double *__restrict__ freq_out, double *__restrict__ dfrac,
-                     double *__restrict__ dfreq) {
+                     double *__restrict__ dfreq, double *__restrict__ fb_out) {
   const int b = blockIdx.y;
+  if constexpr (NG) {  // this set's row columns
+    if (c.n_dmx > 0) rows.dmx += (size_t)b * c.n_rows;
+    if (c.n_jump > 0) rows.jump += (size_t)b * c.n_rows;
+  }
   const int lb = blockIdx.z * K;  // first lane of this block's chunk
   const int slots = gridDim.z * K;
   Lanes<K> lane;
@@ -738,7 +831,9 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   __shared__ double tz_hi, tz_lo;
   __shared__ double tz_d[K > 0 ? K : 1];
   if (c.has_tzr && threadIdx.x == 0) {
-    const RowPhase<K> tz = eval_row<K, BIN>(c.n_rows - 1, rows, P, c, lane);
+    const bool first = blockIdx.x == 0 && blockIdx.z == 0;
+    double *tz_fb = first ? fb_out + (size_t)b * c.n_rows + c.n_rows - 1 : nullptr;
+    const RowPhase<K> tz = eval_row<K, BIN, NG>(c.n_rows - 1, rows, P, c, lane, tz_fb);
     tz_hi = tz.ph.x.hi;
     tz_lo = tz.ph.x.lo;
 #pragma unroll
@@ -746,7 +841,9 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   RowPhase<K> r;
-  if (i < c.n_out) r = eval_row<K, BIN>(i, rows, P, c, lane);
+  if (i < c.n_out)
+    r = eval_row<K, BIN, NG>(i, rows, P, c, lane,
+                             blockIdx.z == 0 ? fb_out + (size_t)b * c.n_rows + i : nullptr);
   __syncthreads();
   if (i >= c.n_out) return;
   DDual<K> ph = r.ph;
@@ -771,40 +868,55 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
   }
 }
 
-template <int K, int BIN>
+struct Out {
+  double *pn, *frac, *f, *dfrac, *df, *fb;
+};
+
+template <int K, int BIN, bool NG>
 cudaError_t launch(const Rows &rows, const double *params, const Config &c, int n_batch,
-                   double *pn, double *frac, double *f, double *dfrac, double *df,
-                   cudaStream_t stream) {
+                   const Out &o, cudaStream_t stream) {
   const int chunks = K > 0 ? (c.n_lane + K - 1) / K : 1;
   const dim3 grid((c.n_out + THREADS - 1) / THREADS, n_batch, chunks);
-  resid_tangent_kernel<K, BIN><<<grid, THREADS, 0, stream>>>(rows, params, c, pn, frac, f,
-                                                             dfrac, df);
+  resid_tangent_kernel<K, BIN, NG><<<grid, THREADS, 0, stream>>>(rows, params, c, o.pn, o.frac,
+                                                                 o.f, o.dfrac, o.df, o.fb);
   return cudaGetLastError();
 }
 
 // the narrowest instance that holds k lanes (a chunk of KCHUNK past 4)
-template <int BIN>
+template <int BIN, bool NG>
 cudaError_t launch_lanes(int k, const Rows &rows, const double *params, const Config &c,
-                         int n_batch, double *pn, double *frac, double *f, double *dfrac,
-                         double *df, cudaStream_t s) {
-  if (k == 0) return launch<0, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
-  if (k <= 2) return launch<2, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
-  if (k <= 4) return launch<4, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
-  return launch<KCHUNK, BIN>(rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+                         int n_batch, const Out &o, cudaStream_t s) {
+  if (k == 0) return launch<0, BIN, NG>(rows, params, c, n_batch, o, s);
+  if (k <= 2) return launch<2, BIN, NG>(rows, params, c, n_batch, o, s);
+  if (k <= 4) return launch<4, BIN, NG>(rows, params, c, n_batch, o, s);
+  return launch<KCHUNK, BIN, NG>(rows, params, c, n_batch, o, s);
+}
+
+template <int BIN>
+cudaError_t launch_kind(bool ng, int k, const Rows &rows, const double *params, const Config &c,
+                        int n_batch, const Out &o, cudaStream_t s) {
+  return ng ? launch_lanes<BIN, true>(k, rows, params, c, n_batch, o, s)
+            : launch_lanes<BIN, false>(k, rows, params, c, n_batch, o, s);
 }
 
 }  // namespace
 
-// ints: n_rows n_out has_tzr has_ast nd nf n_par k bin_kind bin_model lane[0..LMAX)
-// (bin_kind: 0 none, 1 ELL1, 2 Kepler; bin_model: 0 BT, 1 DD or DDS)
-// consts: au_ls dmconst tsun
+// ints: n_rows n_out has_tzr has_ast nd nf n_par k bin_kind bin_model ecliptic
+// n_dmx n_fd n_jump lane[0..LMAX) (bin_kind: 0 none, 1 ELL1, 2 Kepler;
+// bin_model: 0 BT, 1 DD or DDS)
+// consts: au_ls dmconst tsun cos_obl sin_obl
+// dmx, jump (n_batch, n_rows): each set's DMX DM and jump seconds per row;
+// onehot (n_rows, n_dmx), masks (n_jump, n_rows): the DMX and JUMP lanes'
+// seeds (each a single zero when its term is absent)
 // dfrac, df: (n_batch, slots, n_out) with slots = k rounded up to whole
-// chunks of the lane width (2 for k <= 2, 4 for k <= 4, else 8)
+// chunks of the lane width (2 for k <= 2, 4 for k <= 4, else 8); fb (n_batch,
+// n_rows)
 extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const double *freq,
                              const double *pos, const double *vel, const double *sun,
-                             const double *params, int n_batch, const int *ints,
-                             const double *consts, double *pn, double *frac, double *f,
-                             double *dfrac, double *df, void *stream) {
+                             const double *dmx, const double *jump, const double *onehot,
+                             const double *masks, const double *params, int n_batch,
+                             const int *ints, const double *consts, double *pn, double *frac,
+                             double *f, double *dfrac, double *df, double *fb, void *stream) {
   Config c;
   c.n_rows = ints[0];
   c.n_out = ints[1];
@@ -817,23 +929,38 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   c.n_lane = k;
   const int bin_kind = ints[8];
   c.bin_model = ints[9];
+  c.ecliptic = ints[10];
+  c.n_dmx = ints[11];
+  c.n_fd = ints[12];
+  c.n_jump = ints[13];
   if (k < 0 || k > LMAX || c.nf < 1 || c.nd < 0 || c.nd > 16 || c.n_out < 0 ||
-      n_batch < 1 || n_batch > 65535 || c.n_par != P_DM0 + c.nd + 2 * c.nf ||
+      n_batch < 1 || n_batch > 65535 || c.n_fd < 0 || c.n_fd > MAX_FD || c.n_dmx < 0 ||
+      c.n_jump < 0 || c.n_par != P_DM0 + c.nd + 2 * c.nf + c.n_fd ||
       bin_kind < BIN_NONE || bin_kind > BIN_KEPLER || c.bin_model < 0 || c.bin_model > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[10 + j] : -1;
+  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[14 + j] : -1;
+  for (int j = 0; j < k; ++j) {  // a DMX or JUMP lane names an existing column
+    const int m = c.lane[j];
+    if ((m >= L_DMX0 && m - L_DMX0 >= c.n_dmx) || (m >= L_JUMP0 && m < L_DMX0 &&
+                                                   m - L_JUMP0 >= c.n_jump))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   c.au_ls = consts[0];
   c.dmconst = consts[1];
   c.tsun = consts[2];
+  c.cos_obl = consts[3];
+  c.sin_obl = consts[4];
   if (c.n_out == 0) return 0;
-  const Rows rows{t_hi, t_lo, freq, pos, vel, sun};
+  const Rows rows{t_hi, t_lo, freq, pos, vel, sun, dmx, jump, onehot, masks};
+  const Out o{pn, frac, f, dfrac, df, fb};
+  const bool ng = c.ecliptic || c.n_dmx > 0 || c.n_fd > 0 || c.n_jump > 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (bin_kind == BIN_ELL1)
-    e = launch_lanes<BIN_ELL1>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+    e = launch_kind<BIN_ELL1>(ng, k, rows, params, c, n_batch, o, s);
   else if (bin_kind == BIN_KEPLER)
-    e = launch_lanes<BIN_KEPLER>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+    e = launch_kind<BIN_KEPLER>(ng, k, rows, params, c, n_batch, o, s);
   else
-    e = launch_lanes<BIN_NONE>(k, rows, params, c, n_batch, pn, frac, f, dfrac, df, s);
+    e = launch_kind<BIN_NONE>(ng, k, rows, params, c, n_batch, o, s);
   return static_cast<int>(e);
 }

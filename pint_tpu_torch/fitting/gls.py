@@ -2,8 +2,8 @@
 ``pint_tpu/fitting/gls.py``).
 
 The covariance is C = diag(sigma^2) + F phi F^T with F the correlated-noise
-basis (ECORR epochs; ``models/noise.py``), sigma the EFAC/EQUAD-scaled
-uncertainties. One step solves the marginalized normal equations
+basis (ECORR epochs and the power-law Fourier columns, which kernel K8
+writes; ``models/noise.py``), sigma the EFAC/EQUAD-scaled uncertainties. One step solves the marginalized normal equations
 Mn^T C^-1 Mn dx = -Mn^T C^-1 r, C^-1 applied through the structured
 Woodbury algebra of ``fitting/woodbury.py``: kernel K3 on the card, its
 plain twin on the CPU. The chi^2 at fixed parameters is the Woodbury
@@ -11,8 +11,10 @@ identity r^T C^-1 r = r^T W r - d^T S^-1 d, also K3.
 
 Two choices of the JAX package are kept exactly. The design is the tangent
 of the time residual for EVERY free parameter (jax.linearize over all of
-them, here K1's lanes; the DM columns are tangents too, unlike the grid's
-hybrid design). The columns are equilibrated by their UNWEIGHTED norm
+them, here K1's lanes; the DM, DMX, FD and JUMP columns are tangents too,
+unlike the grid's hybrid design: through the binary's time argument the
+DMX and FD tangents differ from the closed forms by ~7e-5 relative for the
+NANOGrav par's orbit). The columns are equilibrated by their UNWEIGHTED norm
 sqrt(sum M^2), inside K3, and a ridge of 1e-12 I is added.
 
 The p x p solve is one symmetric eigendecomposition per linearization, on

@@ -6,8 +6,9 @@ One step linearizes the time residuals at the current parameters:
 
 M = d(time residual)/d(free param). Its nonlinear columns come from the
 tangent lanes of kernel K1 (``residuals.resid_tangent``), which replaces the
-JAX package's ``jax.linearize`` + ``vmap``; its exactly-linear columns (DM)
-are closed forms (``fitting/design.py``). The solve is the equilibrated SVD
+JAX package's ``jax.linearize`` + ``vmap``; its exactly-linear columns (DM,
+DMX, FD, JUMP) are closed forms, written by kernel K8 on the card
+(``fitting/design.py``). The solve is the equilibrated SVD
 of the JAX package, on the device with ``torch.linalg.svd``. Updates are
 float64 deltas added into the double-double parameter carriers by kernel K0
 (``apply_delta``), so phase precision survives any number of iterations.
@@ -131,7 +132,7 @@ def time_resid_design(model: TimingModel, free: tuple, params: dict, tensor: dic
         cols[n] = dr[i] / f + (-out.df[0, i] * r) * f**-2
     if lin_names:
         sl = slice(None, -1) if model.has_abs_phase else slice(None)
-        M_l = linear_columns(model, params, tensor, f, sl, lin_names, owners)
+        M_l = linear_columns(model, params, tensor, f, sl, lin_names, owners, out.fb[0])
         if mean_free:
             M_l = M_l - weighted_mean(M_l, weights)
         for i, n in enumerate(lin_names):

@@ -10,31 +10,36 @@ is a gather or a segment sum, and the Woodbury inner matrix
 
 is solved by block elimination on the small dense Schur complement
 Rd - B^T De^-1 B. The functions below are the plain-torch algebra, in the
-JAX package's order of operations; they are the twin of kernel K3.
+JAX package's order of operations; they are the twin of kernel K3 and run
+on any device, the card included (`s_factor`, `s_solve`, `basis_rmatvec`,
+`basis_matvec`, `woodbury_chi2`, `logdet_C` launch no kernel). The fit and
+grid paths reach the card's Woodbury algebra only through
+`ecorr_normal_eq`, which launches K3 on a CUDA tensor.
 
 Segment sums use no atomics (ROADMAP C3): `epoch_index` turns the epoch
 index once into a CSR (offsets, row ids) and a padded (ke, L) table of row
 ids, and `seg_sum` adds each epoch's rows in ascending order, as
 ``jax.ops.segment_sum`` does on the CPU and as K3's epoch pass does on the
 card. So the epoch sums add in the same order in the twin and the kernel
-(bitwise equal where their inputs are), and run after run. The dense-basis
-(kd > 0) part has no kernel yet and raises on CUDA tensors: no component
-the port carries makes one.
+(bitwise equal where their inputs are), and run after run.
 
 K3 (`ecorr_normal_eq`, csrc/ecorr_normal_eq.cu) is the block-Schur form of
-``s_factor``/``cinv_apply``/``woodbury_chi2`` for kd = 0, over B parameter
-sets at once, from the raw design M: the step's optional weighted-mean
-removal and its column norms come first (`_step_inputs`, Mn = M / norm),
-then
+``s_factor``/``cinv_apply``/``woodbury_chi2`` over B parameter sets at
+once, from the raw design M: the step's optional weighted-mean removal and
+its column norms come first (`_step_inputs`, Mn = M / norm), then, with
+V_i = [Mn_i, r_i, Fd_i] and the epoch sums v_e = sum_{i in e} w_i V_i =
+[y_e, s_e, B_e],
 
     De_e = 1/phi_e + sum_{i in e} w_i
-    y_e = sum_{i in e} w_i Mn_i,  s_e = sum_{i in e} w_i r_i
-    G   = Mn^T W Mn - sum_e y_e y_e^T / De_e + ridge I
-    c   = -(Mn^T W r - sum_e y_e s_e / De_e)
-    chi2 = r^T W r - sum_e s_e^2 / De_e,   ahat_e = s_e / De_e
+    S1   = sum_i w_i V_i V_i^T - sum_e v_e v_e^T / De_e
+    Rd   = diag(1/phi_d) + S1[Fd, Fd] = L L^T,  Wz = L^-1 S1[Fd, (Mn, r)]
+    G    = S1[Mn, Mn] - Wz_M^T Wz_M + ridge I
+    c    = -(S1[Mn, r] - Wz_M^T Wz_r),   chi2 = S1[r, r] - Wz_r^T Wz_r
+    ahat = [(s_e - B_e ahat_d) / De_e ; ahat_d = L^-T Wz_r]
 
-It replaces the Woodbury part of the TPU programs ``gls_step``,
-``gls_chi2`` and the correlated branch of ``grid``.
+(without a dense basis the Wz terms vanish). It replaces the Woodbury part
+of the TPU programs ``gls_step``, ``gls_chi2`` and the correlated branch of
+``grid``.
 """
 
 from __future__ import annotations
@@ -121,13 +126,6 @@ class SFactor(NamedTuple):
     schur_cf: torch.Tensor | None  # lower Cholesky factor of Rd - B^T De^-1 B
 
 
-def _dense_on_host(t: torch.Tensor) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            "the dense-basis Woodbury algebra has no CUDA kernel yet (no ported "
-            "component makes a dense noise basis; ROADMAP A9)")
-
-
 def seg_sum(v: torch.Tensor, epochs: EpochIndex) -> torch.Tensor:
     """Sum of v's rows per epoch, U^T v: (N,) or (N, p) -> (ke[, p]). Rows
     add in ascending order within each epoch, with no atomics."""
@@ -157,7 +155,6 @@ def s_factor(basis: NoiseBasis, w: torch.Tensor) -> SFactor:
         De = 1.0 / basis.ephi + seg_sum(we, basis.epochs)
     if basis.dense is not None:
         Fd = basis.dense
-        _dense_on_host(Fd)
         Rd = torch.diag(1.0 / basis.dense_phi) + Fd.T @ (we[:, None] * Fd)
         if De is not None:
             B = seg_sum(we[:, None] * Fd, basis.epochs)
@@ -200,7 +197,6 @@ def basis_rmatvec(basis: NoiseBasis, w: torch.Tensor, X: torch.Tensor):
     ye = seg_sum(wX, basis.epochs) if basis.ephi is not None else None
     yd = None
     if basis.dense is not None:
-        _dense_on_host(basis.dense)
         yd = basis.dense.T @ wX
     return ye, yd
 
@@ -212,7 +208,6 @@ def basis_matvec(basis: NoiseBasis, ae, ad) -> torch.Tensor:
     if ae is not None and basis.ephi is not None:
         parts.append(seg_gather(ae, basis.epochs))
     if ad is not None and basis.dense is not None:
-        _dense_on_host(basis.dense)
         parts.append(basis.dense @ ad)
     out = sum(parts)
     if basis.row_scale is None:
@@ -350,8 +345,9 @@ def ecorr_normal_eq_plain(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
     return (*(torch.stack(x) for x in zip(*outs)), norm)
 
 
-#: the most design columns K3 takes (csrc/ecorr_normal_eq.cu PMAX)
-K3_PMAX = 20
+#: the most design columns and dense basis columns K3 takes
+#: (csrc/ecorr_normal_eq.cu PMAX, KDMAX)
+K3_PMAX, K3_KDMAX = 256, 512
 
 
 def ecorr_normal_eq(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
@@ -360,9 +356,9 @@ def ecorr_normal_eq(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
     """K3: the Woodbury normal equations over B parameter sets, the mean
     removal and column equilibration of the step included. A CUDA tensor
     launches the kernel (and raises if it cannot); a CPU tensor takes
-    `ecorr_normal_eq_plain`. Shapes and options as in the twin; for an
-    ECORR-only basis ahat is (B, ke). `ecorr_normal_eq.launches` counts
-    calls, each of which runs 3 to 6 kernel passes."""
+    `ecorr_normal_eq_plain`. Shapes and options as in the twin; ahat is
+    (B, ke + kd), epoch amplitudes first. `ecorr_normal_eq.launches` counts
+    calls, each of which runs 3 to 7 kernel passes."""
     if r.device.type == "cpu":
         return ecorr_normal_eq_plain(r, M, w, basis, ridge, centre, weighted_norm)
     out = _launch_k3(r, M, w, basis, ridge, centre, weighted_norm)
@@ -371,48 +367,67 @@ def ecorr_normal_eq(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
 
 
 def _launch_k3(r, M, w, basis, ridge, centre, weighted_norm):
-    """One call of K3 on the tensors' device (shapes checked here)."""
+    """One call of K3 on the tensors' device (shapes checked here): the row
+    and epoch passes, the kd x kd factor of Rd and the triangular solves
+    (torch.linalg), then the fold."""
     B, n = r.shape
     p = M.shape[1]
+    dev = r.device
     if M.shape != (B, p, n) or w.shape != (n,) or p > K3_PMAX:
         raise ValueError(f"ecorr_normal_eq needs r (B, N), M (B, p <= {K3_PMAX}, N), w (N,); "
                          f"got {tuple(r.shape)}, {tuple(M.shape)}, {tuple(w.shape)}")
-    if basis is not None and (basis.dense is not None or basis.row_scale is not None):
-        raise NotImplementedError("kernel K3 takes an ECORR-only basis (kd = 0, no row scale)")
-    for t in (r, M, w):
-        if t.dtype != torch.float64 or t.device != r.device:
-            raise ValueError("ecorr_normal_eq needs float64 tensors on one device")
-    if basis is None:
-        ke = 0
-        offsets = torch.zeros(1, dtype=torch.int32, device=r.device)
-        rows = offsets
-        phi = torch.ones(1, dtype=torch.float64, device=r.device)
-    else:
-        ke = basis.ke
-        offsets, rows, phi = basis.epochs.offsets, basis.epochs.rows, basis.ephi
+    if basis is not None and basis.row_scale is not None:
+        raise NotImplementedError("kernel K3 takes no row-scaled basis")
+    ke = 0 if basis is None else basis.ke
+    kd = 0 if basis is None else basis.kd
+    if kd > K3_KDMAX:
+        raise ValueError(f"kernel K3 takes at most {K3_KDMAX} dense basis columns; got {kd}")
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    offsets = rows = torch.zeros(1, dtype=torch.int32, device=dev)
+    ephi = Fd = one
+    if ke:
+        offsets, rows, ephi = basis.epochs.offsets, basis.epochs.rows, basis.ephi
         if basis.epochs.eidx.shape != (n,) or offsets.shape != (ke + 1,) \
-                or phi.dtype != torch.float64 or phi.device != r.device \
-                or offsets.device != r.device:
-            raise ValueError("the epoch index and phi must match r's rows and device")
-    r, M, w, phi = r.contiguous(), M.contiguous(), w.contiguous(), phi.contiguous()
+                or offsets.device != dev:
+            raise ValueError("the epoch index must match r's rows and device")
+    if kd:
+        Fd = basis.dense.T.contiguous()
+        if Fd.shape != (kd, n):
+            raise ValueError(f"the dense basis must be (N, kd) with N = {n}")
+    for t in (r, M, w, ephi, Fd, *(() if not kd else (basis.dense_phi,))):
+        if t.dtype != torch.float64 or t.device != dev:
+            raise ValueError("ecorr_normal_eq needs float64 tensors on one device")
+    r, M, w, ephi = r.contiguous(), M.contiguous(), w.contiguous(), ephi.contiguous()
     from pint_tpu_torch.ops import build
 
     lib = build.library("ecorr_normal_eq", _declare_k3)
-    parts, s_tiles = lib.ecorr_normal_eq_parts(n, ke), lib.ecorr_normal_eq_stat_tiles(n)
+    V = p + 1 + kd
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float64, device=r.device)
+        return torch.empty(shape, dtype=torch.float64, device=dev)
 
-    mpart, npart, mean = empty(B, s_tiles, p + 2), empty(B, s_tiles, max(p, 1)), empty(B, p + 1)
-    esum, part = empty(B, max(ke, 1), p + 2), empty(B, parts, (p + 1) * (p + 2) // 2)
-    G, c, chi2, ahat, norm = empty(B, p, p), empty(B, p), empty(B), empty(B, ke), empty(B, p)
-    build.check(lib, lib.ecorr_normal_eq(
-        r.data_ptr(), M.data_ptr(), w.data_ptr(), offsets.data_ptr(), rows.data_ptr(),
-        phi.data_ptr(), B, p, n, ke, int(centre), int(weighted_norm), ridge,
-        mpart.data_ptr(), npart.data_ptr(), mean.data_ptr(), esum.data_ptr(), part.data_ptr(),
-        G.data_ptr(), c.data_ptr(), chi2.data_ptr(), ahat.data_ptr(), norm.data_ptr(),
+    mean, norm, esum, De, S1 = (empty(B, p + 1), empty(B, max(p, 1)), empty(B, max(ke, 1), V),
+                                empty(max(ke, 1)), empty(B, V, V))
+    part = empty(lib.ecorr_gram_part_size(B, p, n, ke, kd))
+    build.check(lib, lib.ecorr_gram(
+        r.data_ptr(), M.data_ptr(), w.data_ptr(), Fd.data_ptr(), offsets.data_ptr(),
+        rows.data_ptr(), ephi.data_ptr(), B, p, n, ke, kd, int(centre), int(weighted_norm),
+        mean.data_ptr(), norm.data_ptr(), esum.data_ptr(), De.data_ptr(), part.data_ptr(),
+        S1.data_ptr(), build.stream_of(r)))
+    Wz = ad = one
+    if kd:
+        Rd = S1[0, p + 1:, p + 1:] + torch.diag(1.0 / basis.dense_phi)
+        L = torch.linalg.cholesky(Rd)
+        Wz = torch.linalg.solve_triangular(L, S1[:, p + 1:, :p + 1], upper=False).contiguous()
+        ad = torch.linalg.solve_triangular(L.mT, Wz[:, :, p:], upper=True)[..., 0].contiguous()
+    G, c, chi2, ahat = empty(B, p, p), empty(B, p), empty(B), empty(B, ke + kd)
+    build.check(lib, lib.ecorr_fold(
+        S1.data_ptr(), Wz.data_ptr(), esum.data_ptr(), De.data_ptr(), ad.data_ptr(), B, p, ke,
+        kd, ridge, G.data_ptr(), c.data_ptr(), chi2.data_ptr(), ahat.data_ptr(),
         build.stream_of(r)))
-    return G, c, chi2, ahat, norm
+    if kd:
+        ahat[:, ke:] = ad
+    return G, c, chi2, ahat, norm[:, :p]
 
 
 ecorr_normal_eq.launches = 0
@@ -421,10 +436,9 @@ ecorr_normal_eq.launches = 0
 def _declare_k3(lib) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.ecorr_normal_eq.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_double,
-                                    p, p, p, p, p, p, p, p, p, p, p]
-    lib.ecorr_normal_eq.restype = ctypes.c_int
-    lib.ecorr_normal_eq_parts.argtypes = [i, i]
-    lib.ecorr_normal_eq_parts.restype = ctypes.c_int
-    lib.ecorr_normal_eq_stat_tiles.argtypes = [i]
-    lib.ecorr_normal_eq_stat_tiles.restype = ctypes.c_int
+    lib.ecorr_gram.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.ecorr_gram.restype = ctypes.c_int
+    lib.ecorr_gram_part_size.argtypes = [i, i, i, i, i]
+    lib.ecorr_gram_part_size.restype = ctypes.c_long
+    lib.ecorr_fold.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_double, p, p, p, p, p]
+    lib.ecorr_fold.restype = ctypes.c_int

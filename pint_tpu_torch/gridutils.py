@@ -8,7 +8,9 @@ chi^2, any other fitter the white one. The grid points are a leading batch
 dimension B of the parameter dict, which replaces ``vmap``:
 
 - kernel K1 (``residuals.resid_tangent``) evaluates the B forward chains
-  with the tangents of the nonlinear free parameters in one launch;
+  with the tangents of the nonlinear free parameters in one launch, and
+  kernel K8 (``fitting/design.linear_columns``) writes the closed-form
+  columns of the linear ones (DM, DMX, FD, JUMP);
 - white: kernel K2 (`normal_eq`, csrc/normal_eq.cu) reduces them to the
   equilibrated normal equations and chi^2 of every point;
 - correlated: kernel K3 (``fitting/woodbury.ecorr_normal_eq``) removes the
@@ -132,7 +134,7 @@ def _time_resids_design(model, params, tensor, free):
         sl = slice(None, -1) if model.has_abs_phase else slice(None)
         p1 = {k: (DD(v.hi[:, None], v.lo[:, None]) if isinstance(v, DD) else v[:, None])
               for k, v in params.items()}
-        M_l = linear_columns(model, p1, tensor, out.f, sl, lin_names, owners)
+        M_l = linear_columns(model, p1, tensor, out.f, sl, lin_names, owners, out.fb)
         M = torch.cat([M, M_l], dim=1)
     names = nonlin + lin_names
     return r, M[:, [names.index(n) for n in free]]

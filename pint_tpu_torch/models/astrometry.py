@@ -1,7 +1,7 @@
 """Astrometry: Roemer delay and parallax from the site's SSB position and
 the proper-motion-corrected source direction (counterpart of
-``AstrometryBase.delay`` and ``AstrometryEquatorial`` in
-``pint_tpu/models/astrometry.py``).
+``AstrometryBase.delay``, ``AstrometryEquatorial`` and
+``AstrometryEcliptic`` in ``pint_tpu/models/astrometry.py``).
 
 Positions in light-seconds, ICRS axes:
     n(t)   unit vector SSB->pulsar with linear proper motion in the angles
@@ -10,18 +10,34 @@ Positions in light-seconds, ICRS axes:
 
 Three-term dot products are written out as ((x0 y0 + x1 y1) + x2 y2), the
 order the K1 kernel (csrc/resid_tangent.cu) uses, so that kernel and twin
-round alike.
+round alike. The ecliptic direction is the equatorial formula in
+(ELONG, ELAT) rotated about x by the IERS2010 obliquity (`OBL_RAD`, the
+value pint_tpu uses for ECL IERS2010 and IERS2003 alike), with cos and sin
+of it from the C library, as XLA's CPU backend evaluates them.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from pint_tpu_torch import AU_LS
+from pint_tpu_torch import AU_LS, OBLIQUITY_J2000_ARCSEC
 from pint_tpu_torch.models.base import DelayComponent, dt_since_epoch_f64, toa_time_dd
 from pint_tpu_torch.models.parameter import MAS_PER_YR_TO_RAD_PER_S, MAS_TO_RAD, ParamSpec
 from pint_tpu_torch.ops.dd import dd_to_float
 from pint_tpu_torch.ops import libm
+
+
+# IERS2010/IAU2006 mean obliquity at J2000, and its cosine and sine
+OBL_RAD = OBLIQUITY_J2000_ARCSEC * math.pi / (180.0 * 3600.0)
+COS_OBL, SIN_OBL = math.cos(OBL_RAD), math.sin(OBL_RAD)
+
+
+def ecliptic_to_icrs(v: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) vectors from ecliptic-of-J2000 to ICRS axes."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([x, COS_OBL * y - SIN_OBL * z, SIN_OBL * y + COS_OBL * z], dim=-1)
 
 
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -88,3 +104,38 @@ class AstrometryEquatorial(AstrometryBase):
         ra = params["RAJ"] + params["PMRA"] * dt / libm.cos(dec0)
         dec = dec0 + params["PMDEC"] * dt
         return unit_vector(ra, dec)
+
+
+class AstrometryEcliptic(AstrometryBase):
+    """ELONG/ELAT/PMELONG/PMELAT/PX in the IERS2010-obliquity ecliptic frame."""
+
+    register = True
+
+    @classmethod
+    def param_specs(cls):
+        return [
+            ParamSpec("ELONG", kind="deg", unit="deg", aliases=("LAMBDA",)),
+            ParamSpec("ELAT", kind="deg", unit="deg", aliases=("BETA",)),
+            ParamSpec("PMELONG", scale=MAS_PER_YR_TO_RAD_PER_S, unit="mas/yr",
+                      aliases=("PMLAMBDA",), default=0.0),
+            ParamSpec("PMELAT", scale=MAS_PER_YR_TO_RAD_PER_S, unit="mas/yr",
+                      aliases=("PMBETA",), default=0.0),
+            ParamSpec("PX", scale=MAS_TO_RAD, unit="mas", default=0.0),
+            ParamSpec("POSEPOCH", kind="epoch", unit="MJD"),
+            ParamSpec("ECL", kind="str", unit="", default="IERS2010"),
+        ]
+
+    def validate(self, params, meta):
+        for p in ("ELONG", "ELAT"):
+            if p not in params:
+                raise ValueError(f"AstrometryEcliptic requires {p}")
+        ecl = meta.get("ECL", "IERS2010")
+        if ecl not in ("IERS2010", "IERS2003"):
+            raise ValueError(f"unsupported obliquity model ECL {ecl}")
+
+    def pulsar_direction(self, params: dict, tensor: dict) -> torch.Tensor:
+        dt = self.dt_posepoch(params, tensor)
+        lat0 = params["ELAT"]
+        lon = params["ELONG"] + params["PMELONG"] * dt / libm.cos(lat0)
+        lat = lat0 + params["PMELAT"] * dt
+        return ecliptic_to_icrs(unit_vector(lon, lat))

@@ -1,7 +1,8 @@
 """Model builder: parfile -> components -> TimingModel (counterpart of
 ``pint_tpu/models/builder.py``, restricted to the components ported so far:
-AstrometryEquatorial, SolarSystemShapiro, DispersionDM, PulsarBinary (ELL1),
-Spindown, AbsPhase, ScaleToaError, EcorrNoise).
+AstrometryEquatorial, AstrometryEcliptic, SolarSystemShapiro, DispersionDM,
+DispersionDMX, FD, PulsarBinary (ELL1, BT, DD, DDS), Spindown, PhaseJump,
+AbsPhase, ScaleToaError, EcorrNoise, PLRedNoise, PLDMNoise).
 
 Mask parameters (``EFAC -f Rcvr1_2_GUPPI 1.02``) number per family in
 parfile order (EFAC1, EFAC2, ...) as in pint_tpu; each reads the tensor
@@ -22,14 +23,16 @@ import torch
 from pint_tpu_torch.device import resolve_device
 from pint_tpu_torch.io.par import ParFile, parse_fit_flag, parse_parfile
 from pint_tpu_torch.io.tim import mjd_string_to_day_frac
-from pint_tpu_torch.models.astrometry import AstrometryEquatorial
+from pint_tpu_torch.models.astrometry import AstrometryEcliptic, AstrometryEquatorial
 from pint_tpu_torch.models.base import Component
 from pint_tpu_torch.models.binary import BINARY_MODELS, PulsarBinary
-from pint_tpu_torch.models.dispersion import DispersionDM
-from pint_tpu_torch.models.noise import EcorrNoise, NoiseComponent, ScaleToaError
+from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
+from pint_tpu_torch.models.frequency_dependent import FD
+from pint_tpu_torch.models.noise import (EcorrNoise, NoiseComponent, PLDMNoise, PLRedNoise,
+                                         ScaleToaError)
 from pint_tpu_torch.models.parameter import (MaskParamInfo, ParamSpec, ParamValueMeta,
                                              parse_mask_clause)
-from pint_tpu_torch.models.phase_misc import AbsPhase
+from pint_tpu_torch.models.phase_misc import AbsPhase, PhaseJump
 from pint_tpu_torch.models.solar_system_shapiro import SolarSystemShapiro
 from pint_tpu_torch.models.spindown import Spindown
 from pint_tpu_torch.models.timing_model import TimingModel
@@ -55,24 +58,17 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
          "A8 (BINARY DDGR, DDK, ELL1H, ELL1K)"),
         ("FB0", "BINARY" in pf and any(n.startswith("FB") and n[2:].isdigit() for n in names),
          "A8 (the FB orbital-frequency form)"),
-        ("ELONG", "ELONG" in pf or "LAMBDA" in pf, "A9 (AstrometryEcliptic)"),
-        ("DMX_", any(n.startswith("DMX_") for n in names), "A9 (DMX)"),
         ("DMJUMP", "DMJUMP" in pf, "A9 (DMJUMP)"),
         ("PHOFF", "PHOFF" in pf, "A9 (PhaseOffset)"),
-        ("JUMP", "JUMP" in pf, "A9 (PhaseJump)"),
         ("DJUMP", "DJUMP" in pf, "A9 (DelayJump)"),
         ("GLEP_", any(n.startswith("GLEP_") for n in names), "A9 (Glitch)"),
         ("WAVE_OM", "WAVE_OM" in pf, "A9 (Wave)"),
-        ("FD", any(n.startswith("FD") and n[2:].isdigit() for n in names), "A9 (FD)"),
         ("NE_SW", any(k in pf for k in ("NE_SW", "NE1AU", "SOLARN0")), "A9 (solar wind)"),
         ("SWXDM_", any(n.startswith("SWXDM_") for n in names), "A9 (SWX)"),
         ("SIFUNC", "SIFUNC" in pf, "A9 (IFunc)"),
         ("PWEP_", any(n.startswith("PWEP_") for n in names), "A9 (piecewise spindown)"),
         ("CORRECT_TROPOSPHERE", _parse_bool(pf.get("CORRECT_TROPOSPHERE", "N")),
          "A9 (troposphere)"),
-        ("RNAMP/TNREDAMP", ("RNAMP" in pf and "RNIDX" in pf) or "TNREDAMP" in pf,
-         "A9 (PLRedNoise)"),
-        ("TNDMAMP", "TNDMAMP" in pf, "A9 (PLDMNoise)"),
         ("TNGWAMP", "TNGWAMP" in pf, "A12 (PLGWBNoise)"),
         ("DMEFAC/DMEQUAD", "DMEFAC" in pf or "DMEQUAD" in pf, "A10 (ScaleDmError)"),
         ("PLANET_SHAPIRO", _parse_bool(pf.get("PLANET_SHAPIRO", "N")),
@@ -113,9 +109,13 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         components.append(Spindown())
     if "RAJ" in pf or "RA" in pf:
         components.append(AstrometryEquatorial())
+    elif "ELONG" in pf or "LAMBDA" in pf:
+        components.append(AstrometryEcliptic())
     if "DM" in pf or any(n.startswith("DM1") for n in pf.names()):
         components.append(DispersionDM())
-    if any(isinstance(c, AstrometryEquatorial) for c in components):
+    if any(n.startswith("DMX_") for n in pf.names()):
+        components.append(DispersionDMX())
+    if any(isinstance(c, (AstrometryEquatorial, AstrometryEcliptic)) for c in components):
         components.append(SolarSystemShapiro())
         meta["PLANET_SHAPIRO"] = False
         consumed.add("PLANET_SHAPIRO")
@@ -128,6 +128,10 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         frq = pf.get("TZRFRQ")
         meta["TZRFRQ"] = float(frq) if frq not in (None, "0", "0.0") else float("inf")
         consumed |= {"TZRMJD", "TZRSITE", "TZRFRQ"}
+    if "JUMP" in pf:
+        components.append(PhaseJump())
+    if any(n.startswith("FD") and n[2:].isdigit() for n in pf.names()):
+        components.append(FD())
     if "BINARY" in pf:
         components.append(PulsarBinary(pf.get("BINARY")))
         meta["BINARY"] = pf.get("BINARY").upper()
@@ -136,6 +140,10 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         components.append(ScaleToaError())
     if any(k in pf for k in ("ECORR", "TNECORR")):
         components.append(EcorrNoise())
+    if ("RNAMP" in pf and "RNIDX" in pf) or "TNREDAMP" in pf:
+        components.append(PLRedNoise())
+    if "TNDMAMP" in pf:
+        components.append(PLDMNoise())
 
     model = TimingModel(components, meta, device=dev)
     for comp in model.components:
@@ -144,6 +152,9 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         for base_spec in comp.mask_bases():
             _collect_mask_params(comp, base_spec, pf, model, consumed)
             consumed.add(base_spec.name)
+    for comp in model.components:
+        if isinstance(comp, DispersionDMX):
+            _collect_dmx(comp, pf, model, consumed)
     # noise parameters are fixed inputs to WLS/GLS, as in pint_tpu: frozen
     for comp in model.components:
         if not isinstance(comp, NoiseComponent):
@@ -269,3 +280,15 @@ def _collect_mask_params(comp: Component, base_spec: ParamSpec, pf: ParFile,
         if unc_tok is not None:
             pm.uncertainty = spec.parse_uncertainty(unc_tok)
         model.param_meta[name] = pm
+
+
+def _collect_dmx(comp: DispersionDMX, pf: ParFile, model: TimingModel, consumed: set):
+    """DMX_nnnn values with their DMXR1_nnnn/DMXR2_nnnn ranges (MJD)."""
+    idxs = sorted(int(n[4:]) for n in pf.names() if n.startswith("DMX_") and n[4:].isdigit())
+    for i in idxs:
+        r1, r2 = pf.get(f"DMXR1_{i:04d}"), pf.get(f"DMXR2_{i:04d}")
+        if r1 is None or r2 is None:
+            raise ValueError(f"DMX_{i:04d} missing DMXR1/DMXR2 range")
+        comp.add_window(i, float(r1), float(r2))
+        _store_param(model, comp.specs[f"DMX_{i:04d}"], pf.get_all(f"DMX_{i:04d}")[0])
+        consumed |= {f"DMX_{i:04d}", f"DMXR1_{i:04d}", f"DMXR2_{i:04d}"}

@@ -1,16 +1,20 @@
 """Dispersion delay DMconst * DM(t) / f_bary^2 (counterpart of
-``DispersionDM`` in ``pint_tpu/models/dispersion.py``).
+``DispersionDM`` and ``DispersionDMX`` in ``pint_tpu/models/dispersion.py``).
 
 The frequency is Doppler-corrected to the SSB frame, f_bary = f (1 - v.n/c);
 DM is a Taylor polynomial about DMEPOCH. The delay is exactly linear in
 every DM coefficient, so the fitters build those design columns in closed
-form (`linear_resid_columns`, used by ``fitting/design.py``).
+form (`linear_resid_columns`, used by ``fitting/design.py``). DMX holds a
+piecewise-constant DM per MJD window: the windows become a dense (N, n_dmx)
+one-hot host column (``dmx_onehot``), and the window DM of every row is its
+product with the DMX values, exact for disjoint windows.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_tpu_torch import DMCONST
@@ -98,3 +102,70 @@ class DispersionDM(DelayComponent):
                 pw = pw * dt
                 out[f"DM{k}"] = base * pw / math.factorial(k)
         return out
+
+
+def _dmx_value_spec(k: int) -> ParamSpec:
+    return ParamSpec(name=f"DMX_{k:04d}", unit="pc cm^-3",
+                     description=f"DM offset in window {k}", default=0.0)
+
+
+class DispersionDMX(DelayComponent):
+    """Piecewise-constant DM offsets in MJD windows (DMX_nnnn with its
+    DMXR1_nnnn / DMXR2_nnnn range, inclusive, on the TDB MJD)."""
+
+    category = "dispersion_dmx"
+    register = True
+
+    @classmethod
+    def param_specs(cls):
+        return [ParamSpec("DMX", unit="pc cm^-3", default=0.0)]
+
+    def __init__(self):
+        super().__init__()
+        self.windows: dict[int, tuple[float, float]] = {}
+
+    def add_window(self, idx: int, r1_mjd: float, r2_mjd: float) -> None:
+        self.windows[idx] = (r1_mjd, r2_mjd)
+        self.specs[f"DMX_{idx:04d}"] = _dmx_value_spec(idx)
+
+    @property
+    def sorted_indices(self) -> list[int]:
+        return sorted(self.windows)
+
+    def validate(self, params, meta):
+        for i in self.sorted_indices:
+            r1, r2 = self.windows[i]
+            if not (r2 > r1):
+                raise ValueError(f"DMX window {i} has DMXR2 <= DMXR1")
+            if f"DMX_{i:04d}" not in params:
+                raise ValueError(f"DMX window {i} missing DMX_{i:04d}")
+
+    def host_columns(self, toas, params):
+        cols = super().host_columns(toas, params)
+        mjd = toas.tdb.mjd_float()
+        idxs = self.sorted_indices
+        onehot = np.zeros((len(toas), len(idxs)))
+        for j, i in enumerate(idxs):
+            r1, r2 = self.windows[i]
+            onehot[:, j] = (mjd >= r1) & (mjd <= r2)
+        cols["dmx_onehot"] = onehot
+        return cols
+
+    def dmx_values(self, params: dict) -> torch.Tensor:
+        """(..., n_dmx) the DMX values in window order."""
+        return torch.stack([params[f"DMX_{i:04d}"] for i in self.sorted_indices], dim=-1)
+
+    def dmx_dm(self, params: dict, tensor: dict) -> torch.Tensor:
+        return tensor["dmx_onehot"] @ self.dmx_values(params)
+
+    def delay(self, params: dict, tensor: dict, delay_so_far, xp):
+        return dispersion_time_delay(self.dmx_dm(params, tensor), barycentric_radio_freq(tensor))
+
+    def linear_param_names(self):
+        return [f"DMX_{i:04d}" for i in self.sorted_indices]
+
+    def linear_resid_columns(self, params, tensor, f, sl):
+        fb = barycentric_radio_freq(tensor)[..., sl]
+        base = torch.where(torch.isfinite(fb), -DMCONST / (fb * fb), 0.0)
+        onehot = tensor["dmx_onehot"][sl]
+        return {f"DMX_{i:04d}": base * onehot[:, j] for j, i in enumerate(self.sorted_indices)}

@@ -14,14 +14,21 @@ Noise enters a fit through two surfaces:
 
 The epoch grouping is host work of ``TimingModel.build_tensor``
 (``EcorrNoise.host_columns``, on the prepared TDB); a prepared archive
-carries its result (``ecorr_eidx``, ``ecorr_widx``). The power-law
-Fourier bases (PLRedNoise, PLDMNoise, PLGWBNoise) are not ported yet
-(ROADMAP A9, A12).
+carries its result (``ecorr_eidx``, ``ecorr_widx``).
+
+The power-law processes (PLRedNoise, PLDMNoise) are dense Fourier bases:
+interleaved sin and cos columns at f_k = k / T over the global span T of
+the real TOAs (``noise_tspan``, a (1, 1) host column), DM noise's scaled by
+(1400 MHz / f)^2, with the power-law prior variance of each column. Kernel
+K8 writes the columns on the card (``fitting/design.fourier_basis``). The
+common GWB process (PLGWBNoise) is not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import logging
+
+import math
 
 import numpy as np
 import torch
@@ -52,7 +59,9 @@ class NoiseComponent(Component):
         return sigma
 
     def basis_and_weights(self, params: dict, tensor: dict, sl):
-        """``("epoch", eidx (N_data,) int64, phi (ke,))`` for ECORR, or None."""
+        """``("epoch", eidx (N_data,) int64, phi (ke,))`` for ECORR,
+        ``("dense", F (N_data, kd), phi (kd,))`` for a Fourier basis, or
+        None."""
         return None
 
 
@@ -163,3 +172,143 @@ class EcorrNoise(NoiseComponent):
         vals = torch.stack([leaf_to_f64(params[mp.name]) for mp in self.mask_params])
         phi = vals[widx] ** 2
         return ("epoch", eidx, phi)
+
+
+#: 1 / year in Hz, the power law's reference frequency (pint_tpu FYR_HZ)
+FYR_HZ = 1.0 / 3.16e7
+
+
+def _tspan_col(toas) -> np.ndarray:
+    """Global observing span (s) over real (error > 0) TOAs, shaped (1, 1)
+    to ride in the tensor clear of the TZR row."""
+    t = toas.tdb.mjd_float() * 86400.0
+    real = np.asarray(toas.error_us) > 0
+    if real.any():
+        t = t[real]
+    return np.asarray([[t.max() - t.min()]])
+
+
+def powerlaw_psd_weights(f: torch.Tensor, amp, gamma) -> torch.Tensor:
+    """Power-law PSD A^2/(12 pi^2) fyr^(gamma-3) f^(-gamma) at frequencies f."""
+    return amp**2 / (12.0 * np.pi**2) * FYR_HZ ** (gamma - 3.0) * f ** (-gamma)
+
+
+def fourier_freqs(nf: int, T: torch.Tensor) -> torch.Tensor:
+    """jnp.linspace(1/T, nf/T, nf) in jax's arithmetic: start (1 - s_k) +
+    stop s_k with s_k = k / (nf - 1), the last one stop itself."""
+    start = T.new_full((), 1.0) / T
+    stop = T.new_full((), float(nf)) / T
+    if nf == 1:
+        return start[None]
+    div = nf - 1
+    step = torch.arange(div, dtype=torch.float64, device=T.device) / T.new_full((), float(div))
+    return torch.cat([start * (1 - step) + stop * step, stop[None]])
+
+
+def dm_noise_scale(freq_mhz: torch.Tensor) -> torch.Tensor:
+    """(1400 MHz / f)^2, zero at a non-finite frequency."""
+    q = freq_mhz.new_full((), 1400.0) / freq_mhz
+    return torch.where(torch.isfinite(freq_mhz), q * q, 0.0)
+
+
+def fourier_basis_plain(t: torch.Tensor, freqs: torch.Tensor, scale=None) -> torch.Tensor:
+    """Twin of K8's Fourier pass: (N, 2 nf) interleaved sin, cos of
+    2 pi t f_k, times `scale` (N,) per row when given."""
+    from pint_tpu_torch.ops import libm
+
+    arg = 2.0 * math.pi * t[:, None] * freqs[None, :]
+    F = torch.stack([libm.sin(arg), libm.cos(arg)], dim=2).reshape(t.shape[0], 2 * freqs.shape[0])
+    return F if scale is None else F * scale[:, None]
+
+
+class PowerLawNoise(NoiseComponent):
+    """A power-law process on a Fourier basis of `nf` frequencies."""
+
+    register = False
+    introduces_correlated_errors = True
+    count_key = ""
+    dm_scaled = False
+
+    def __init__(self):
+        super().__init__()
+        self.nf = 30
+
+    def host_columns(self, toas, params):
+        cols = super().host_columns(toas, params)
+        cols["noise_tspan"] = _tspan_col(toas)
+        return cols
+
+    def validate(self, params, meta):
+        self.nf = int(meta.get(self.count_key, 30))
+
+    def amp_gamma(self, params):
+        raise NotImplementedError
+
+    def basis_and_weights(self, params, tensor, sl):
+        from pint_tpu_torch.fitting.design import fourier_basis
+
+        freqs = fourier_freqs(self.nf, tensor["noise_tspan"][0, 0])
+        scale = dm_noise_scale(tensor["freq_mhz"][sl]) if self.dm_scaled else None
+        F = fourier_basis(tensor["t_hi"][sl], freqs, scale)
+        amp, gamma = self.amp_gamma(params)
+        fr = torch.repeat_interleave(freqs, 2)
+        return ("dense", F, powerlaw_psd_weights(fr, amp, gamma) * fr[0])
+
+
+class PLRedNoise(PowerLawNoise):
+    """Achromatic power-law red noise: TNREDAMP (log10 amplitude), TNREDGAM,
+    TNREDC frequencies, or the tempo1 RNAMP/RNIDX pair."""
+
+    category = "pl_red_noise"
+    register = True
+    count_key = "TNREDC"
+
+    @classmethod
+    def param_specs(cls):
+        return [
+            ParamSpec("RNAMP", kind="float", description="red noise amplitude (tempo1 units)"),
+            ParamSpec("RNIDX", kind="float", description="red noise spectral index (tempo1 sign)"),
+            ParamSpec("TNREDAMP", kind="float", description="log10 red noise amplitude"),
+            ParamSpec("TNREDGAM", kind="float", description="red noise spectral index"),
+            ParamSpec("TNREDC", kind="int", description="number of red-noise frequencies"),
+        ]
+
+    def validate(self, params, meta):
+        super().validate(params, meta)
+        has_tn = "TNREDAMP" in params and "TNREDGAM" in params
+        has_rn = "RNAMP" in params and "RNIDX" in params
+        if not (has_tn or has_rn):
+            raise ValueError("PLRedNoise needs TNREDAMP/TNREDGAM or RNAMP/RNIDX")
+
+    def amp_gamma(self, params):
+        if "TNREDAMP" in params and "TNREDGAM" in params:
+            return 10.0 ** leaf_to_f64(params["TNREDAMP"]), leaf_to_f64(params["TNREDGAM"])
+        # RNAMP -> the GW-units amplitude (pint_tpu noise.py)
+        fac = (86400.0 * 365.24 * 1e6) / (2.0 * np.pi * np.sqrt(3.0))
+        return leaf_to_f64(params["RNAMP"]) / fac, -leaf_to_f64(params["RNIDX"])
+
+
+class PLDMNoise(PowerLawNoise):
+    """Power-law DM noise: the Fourier basis scaled by (1400 MHz / f)^2 per
+    TOA; TNDMAMP, TNDMGAM, TNDMC."""
+
+    category = "pl_dm_noise"
+    register = True
+    count_key = "TNDMC"
+    dm_scaled = True
+
+    @classmethod
+    def param_specs(cls):
+        return [
+            ParamSpec("TNDMAMP", kind="float", description="log10 DM noise amplitude"),
+            ParamSpec("TNDMGAM", kind="float", description="DM noise spectral index"),
+            ParamSpec("TNDMC", kind="int", description="number of DM-noise frequencies"),
+        ]
+
+    def validate(self, params, meta):
+        super().validate(params, meta)
+        if "TNDMAMP" not in params or "TNDMGAM" not in params:
+            raise ValueError("PLDMNoise needs TNDMAMP and TNDMGAM")
+
+    def amp_gamma(self, params):
+        return 10.0 ** leaf_to_f64(params["TNDMAMP"]), leaf_to_f64(params["TNDMGAM"])

@@ -62,9 +62,9 @@ def parse_dms(s: str) -> float:
 
 
 # kinds: "float" (f64, scaled), "dd" (exact pair), "epoch" (dd seconds since
-# the tensor epoch), "hms"/"dms"/"deg" (angles -> rad), "bool"/"str" (static
-# config)
-KINDS = ("float", "dd", "epoch", "hms", "dms", "deg", "bool", "str")
+# the tensor epoch), "hms"/"dms"/"deg" (angles -> rad), "bool"/"str"/"int"
+# (static config)
+KINDS = ("float", "dd", "epoch", "hms", "dms", "deg", "bool", "str", "int")
 
 
 @dataclass
@@ -109,6 +109,8 @@ class ParamSpec:
             return float(token) * DEG_TO_RAD
         if self.kind == "bool":
             return token.upper() in ("1", "Y", "YES", "T", "TRUE")
+        if self.kind == "int":
+            return int(token)
         return token
 
     def parse_uncertainty(self, token: str) -> float:

@@ -147,21 +147,29 @@ class TimingModel:
 
     def noise_basis_and_weights(self, params: dict, tensor: dict):
         """Structured correlated-noise basis (fitting/woodbury.NoiseBasis) or
-        None. The ECORR epoch index becomes its CSR once per tensor."""
+        None: the dense Fourier parts concatenated in component order, the
+        ECORR epochs kept implicit (their index becomes a CSR once per
+        tensor)."""
         from pint_tpu_torch.fitting.woodbury import NoiseBasis
 
         sl = slice(None, -1) if self.has_abs_phase else slice(None)
-        basis = None
+        Fs, phis = [], []
+        epochs = ephi = None
         for c in self.noise_components:
             out = c.basis_and_weights(params, tensor, sl)
             if out is None:
                 continue
-            if out[0] != "epoch":
-                raise NotImplementedError(f"noise basis kind {out[0]!r} is not ported")
-            basis = NoiseBasis(dense=None, dense_phi=None,
-                               epochs=self._epochs(tensor, out[1], out[2].shape[0]),
-                               ephi=out[2])
-        return basis
+            if out[0] == "dense":
+                Fs.append(out[1])
+                phis.append(out[2])
+            else:  # "epoch": at most one EcorrNoise component per model
+                epochs, ephi = self._epochs(tensor, out[1], out[2].shape[0]), out[2]
+        if not Fs and epochs is None:
+            return None
+        # columns before rows, as K8 writes them and K3 reads them
+        return NoiseBasis(dense=torch.cat([F.T for F in Fs]).T if Fs else None,
+                          dense_phi=torch.cat(phis) if phis else None,
+                          epochs=epochs, ephi=ephi)
 
     def _epochs(self, tensor: dict, eidx: torch.Tensor, ke: int):
         """The EpochIndex of `eidx`, built once per tensor: cached against the

@@ -18,7 +18,11 @@ Besides the fixed `COLUMNS`, a model with noise components reads
   (the TZR row always);
 - ``ecorr_widx`` (1, ke): the ECORR parameter (its index among the ECORR
   masks) of each epoch. The leading singleton axis keeps it clear of the
-  row axis: nothing that slices rows may touch it.
+  row axis: nothing that slices rows may touch it;
+- ``dmx_onehot`` (N+1, n_dmx): 1.0 where a row falls in a DMX window (the
+  TZR row too: it is a model evaluation, not a selection);
+- ``noise_tspan`` (1, 1): the span of the real TOAs, the power-law
+  noise bases' fundamental period.
 
 `tensor_from_numpy` and `params_from_numpy` are the bridge from values
 computed by pint_tpu (as numpy; dd leaves as (hi, lo) pairs) to the port.
@@ -40,8 +44,9 @@ from pint_tpu_torch.ops.dd import DD
 COLUMNS = ("t_hi", "t_lo", "error_s", "freq_mhz",
            "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls")
 _DROPPED = ("t_q0", "t_q1", "t_q2", "t_q3")
-#: the noise columns (see the module docstring)
+#: the noise and DMX columns (see the module docstring)
 ECORR_COLUMNS = ("ecorr_eidx", "ecorr_widx")
+MODEL_COLUMNS = ("dmx_onehot", "noise_tspan")
 
 SMOKE_ARCHIVE = Path(__file__).resolve().parent / "data" / "smoke_n16384.npz"
 #: profiles.FLAGSHIP_SMOKE_PAR over 16,384 sub-band TOAs in 2,048 epochs
@@ -55,19 +60,24 @@ FLAGSHIP_NBODY_TIM = Path(__file__).resolve().parent / "data" / "flagship_n16384
 #: profiles.DD_SMOKE_PAR over 16,384 fake TOAs, simulated by pint_tpu under
 #: the analytic ephemeris: the input of the eccentric-binary path
 DD_TIM = Path(__file__).resolve().parent / "data" / "dd_n16384.tim"
+#: profiles.NANOGRAV_SMOKE_PAR over the flagship's 2,048 epochs of 8
+#: sub-bands, with white, ECORR and red noise drawn by pint_tpu under the
+#: analytic ephemeris: the input of the NANOGrav-shaped path
+NANOGRAV_TIM = Path(__file__).resolve().parent / "data" / "nanograv_n16384.tim"
 
 
 def carried(names) -> list[str]:
     """The columns of `names` the port carries, in a fixed order: COLUMNS,
-    then the mask columns sorted, then the ECORR columns. Any other
-    column raises, rather than being dropped silently."""
+    then the mask columns sorted, then the ECORR, DMX and noise-span
+    columns. Any other column raises, rather than being dropped silently."""
     names = set(names)
-    unknown = names - set(COLUMNS) - set(_DROPPED) - set(ECORR_COLUMNS)
+    tail = ECORR_COLUMNS + MODEL_COLUMNS
+    unknown = names - set(COLUMNS) - set(_DROPPED) - set(tail)
     unknown = {k for k in unknown if not k.startswith("mask_")}
     if unknown:
         raise NotImplementedError(f"tensor columns not handled by the port yet: {sorted(unknown)}")
     masks = sorted(k for k in names if k.startswith("mask_"))
-    return [k for k in COLUMNS if k in names] + masks + [k for k in ECORR_COLUMNS if k in names]
+    return [k for k in COLUMNS if k in names] + masks + [k for k in tail if k in names]
 
 
 def tensor_from_numpy(tensor: dict, device=None) -> dict:

@@ -107,6 +107,76 @@ def dd_smoke_par(binary: str = "DD") -> str:
     return par
 
 
+#: the DMX windows of `nanograv_smoke_par` tile this TDB MJD span (the
+#: flagship epochs', 56650-57350, with a margin), each window ending
+#: `DMX_GAP_DAYS` before the next begins, so that no TOA is in two
+DMX_SPAN_MJD = (56649.9, 57350.1)
+DMX_GAP_DAYS = 1e-3
+
+
+def nanograv_smoke_par(n_dmx: int = 64, nf: int = 30, dm_noise: bool = False) -> str:
+    """The flagship (J0740-shaped) model with NANOGrav's keys: ecliptic
+    astrometry (ELONG, ELAT, PMELONG, PMELAT, PX; ECL IERS2010), F0 and F1,
+    a fixed DM with `n_dmx` DMX windows over the flagship's epochs, a JUMP
+    on the 800 MHz receiver, FD1-FD3, the flagship's ELL1 binary with M2 and
+    SINI fixed at the centre of grid_for's (M2, SINI) grid,
+    EFAC/EQUAD/ECORR on both receivers and power-law red noise with `nf`
+    frequencies (and DM noise with `dm_noise`). Free: 12 nonlinear + n_dmx
+    DMX + 1 JUMP + 3 FD, 80 at the default."""
+    lo, hi = DMX_SPAN_MJD
+    edges = np.linspace(lo, hi, n_dmx + 1)
+    dmx = []
+    for i in range(1, n_dmx + 1):
+        val = 2e-4 * float(np.sin(0.7 * i + 0.3))
+        dmx += [f"DMX_{i:04d} {val!r} 1", f"DMXR1_{i:04d} {float(edges[i - 1])!r}",
+                f"DMXR2_{i:04d} {float(edges[i]) - DMX_GAP_DAYS!r}"]
+    dm_lines = "TNDMAMP -13.0\nTNDMGAM 2.5\nTNDMC %d\n" % nf if dm_noise else ""
+    return f"""
+PSR NANOSMOKE
+ELONG 103.75912286891041 1
+ELAT 44.10250689751051 1
+PMELONG -2.8 1
+PMELAT -34.1 1
+PX 0.4 1
+ECL IERS2010
+POSEPOCH 57000
+F0 346.531996 1
+F1 -1.46e-15 1
+PEPOCH 57000
+DM 14.96
+{chr(10).join(dmx)}
+JUMP -f Rcvr_800_GUPPI 2.5e-6 1
+FD1 1.2e-5 1
+FD2 -4.0e-6 1
+FD3 1.5e-6 1
+BINARY ELL1
+PB 4.766944 1
+A1 3.9775561 1
+TASC 56999.1 1
+EPS1 -5.7e-6 1
+EPS2 -1.4e-5 1
+M2 0.25
+SINI 0.9989506813588601
+EFAC -f Rcvr1_2_GUPPI 1.02
+EQUAD -f Rcvr1_2_GUPPI 0.01
+ECORR -f Rcvr1_2_GUPPI 0.01
+EFAC -f Rcvr_800_GUPPI 1.03
+EQUAD -f Rcvr_800_GUPPI 0.01
+ECORR -f Rcvr_800_GUPPI 0.01
+TNREDAMP -13.5
+TNREDGAM 3.0
+TNREDC {nf}
+{dm_lines}TZRMJD 57000.1
+TZRSITE gbt
+TZRFRQ 1400
+"""
+
+
+#: the NANOGrav-shaped model at full width: 80 free parameters, 60 Fourier
+#: columns; the model of pint_tpu_torch/data/nanograv_n16384.tim
+NANOGRAV_SMOKE_PAR = nanograv_smoke_par()
+
+
 def spin_grid(model, ftr):
     """3x3 (F0, F1) grid around the model values, +-1 sigma when the fitter
     has uncertainties."""

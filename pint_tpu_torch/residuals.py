@@ -2,12 +2,13 @@
 ``pint_tpu/residuals.py``), and kernel K1.
 
 K1 (`resid_tangent`, csrc/resid_tangent.cu) evaluates the whole forward
-chain per TOA (astrometry, solar Shapiro, DM, the ELL1 or a Kepler-orbit
-binary (BT, DD, DDS), spindown):
-pulse number, fractional phase and spin frequency, plus forward-mode
-tangents of the fractional phase and the frequency for up to `MAX_LANES`
-free parameters, eight lanes per block (more lanes are more blocks in the
-same launch, each recomputing the primal). It replaces the TPU's `resid` program and the
+chain per TOA (equatorial or ecliptic astrometry, solar Shapiro, DM, DMX,
+FD, the ELL1 or a Kepler-orbit binary (BT, DD, DDS), spindown, phase
+JUMPs): pulse number, fractional phase, spin frequency and the barycentric
+radio frequency (which kernel K8 reads), plus forward-mode tangents of the
+fractional phase and the frequency for up to `MAX_LANES` free parameters,
+eight lanes per block (more lanes are more blocks in the same launch, each
+recomputing the primal). It replaces the TPU's `resid` program and the
 jax.linearize design columns of the fit and grid steps. Its plain-torch twin
 `resid_tangent_plain` runs ``TimingModel.phase_and_freq`` and takes the
 tangents with torch.func.jvp, as the JAX package does with jax.linearize.
@@ -31,18 +32,23 @@ from pint_tpu_torch.models.timing_model import TimingModel
 from pint_tpu_torch.ops.dd import DD, dd_add_fp, dd_rint, dd_to_float
 
 #: tangent lane codes of csrc/resid_tangent.cu (its L_* enum, in the same
-#: order); F<k> is 16 + k, DM<k> 32 + k
+#: order); F<k> is 16 + k, DM<k> 32 + k, FD<k> 64 + k, the m-th JUMP 80 + m,
+#: the DMX of window column j 128 + j (`_lane`, from the model); the ecliptic
+#: angles share the equatorial ones' lanes
 LANE_CODES = {"RAJ": 0, "DECJ": 1, "PMRA": 2, "PMDEC": 3, "PX": 4,
+              "ELONG": 0, "ELAT": 1, "PMELONG": 2, "PMELAT": 3,
               "PB": 5, "A1": 6, "TASC": 7, "EPS1": 8, "EPS2": 9,
               "T0": 48, "ECC": 49, "OM": 50, "OMDOT": 51, "EDOT": 52, "GAMMA": 53,
               "PBDOT": 54, "A1DOT": 55, "M2": 56, "SINI": 57, "SHAPMAX": 58, "DR": 59,
               "DTH": 60, "A0": 61, "B0": 62}
-MAX_LANES = 32
+L_FD0, L_JUMP0, L_DMX0 = 64, 80, 128
+MAX_FD, MAX_JUMP, MAX_DMX = 15, 48, 128
+MAX_LANES = 128
 #: lanes one block carries (resid_tangent.cu KCHUNK)
 LANE_CHUNK = 8
 
 
-def _lane(name: str) -> int | None:
+def _lane(name: str, model=None) -> int | None:
     if name in LANE_CODES:
         return LANE_CODES[name]
     if name.startswith("F") and name[1:].isdigit():
@@ -51,31 +57,45 @@ def _lane(name: str) -> int | None:
         return 32
     if name.startswith("DM") and name[2:].isdigit() and 0 < int(name[2:]) < 16:
         return 32 + int(name[2:])
+    if name.startswith("FD") and name[2:].isdigit() and 0 < int(name[2:]) <= MAX_FD:
+        return L_FD0 + int(name[2:])
+    if model is not None and "PhaseJump" in model:
+        jumps = [mp.name for mp in model["PhaseJump"].mask_params]
+        if name in jumps and jumps.index(name) < MAX_JUMP:
+            return L_JUMP0 + jumps.index(name)
+    if model is not None and "DispersionDMX" in model:
+        dmx = model["DispersionDMX"].linear_param_names()
+        if name in dmx and dmx.index(name) < MAX_DMX:
+            return L_DMX0 + dmx.index(name)
     return None
 
 
-def lane_names(names) -> tuple[str, ...]:
-    """The names among `names` that have a tangent lane in K1, in order."""
-    return tuple(n for n in names if _lane(n) is not None)
+def lane_names(names, model=None) -> tuple[str, ...]:
+    """The names among `names` that have a tangent lane in K1, in order
+    (the JUMP and DMX lanes are the `model`'s)."""
+    return tuple(n for n in names if _lane(n, model) is not None)
 
 
-def lane_code(name: str) -> int:
-    code = _lane(name)
+def lane_code(name: str, model=None) -> int:
+    code = _lane(name, model)
     if code is not None:
         return code
     raise NotImplementedError(
         f"{name} as a fit parameter has no tangent lane in kernel K1 "
-        f"(csrc/resid_tangent.cu); lanes exist for {', '.join(LANE_CODES)}, F<k>, DM<k>")
+        f"(csrc/resid_tangent.cu); lanes exist for {', '.join(LANE_CODES)}, F<k>, DM<k>, "
+        "FD<k>, JUMPs and DMX")
 
 
 class ResidTangent(NamedTuple):
-    """K1 outputs over B parameter sets, N data rows and k lanes."""
+    """K1 outputs over B parameter sets, N data rows (N_rows with the TZR
+    row) and k lanes."""
 
     pn: torch.Tensor     # (B, N) pulse numbers
     frac: torch.Tensor   # (B, N) fractional phase, turns
     f: torch.Tensor      # (B, N) spin frequency, Hz
     dfrac: torch.Tensor  # (B, k, N) d frac / d lane
     df: torch.Tensor     # (B, k, N) d f / d lane
+    fb: torch.Tensor     # (B, N_rows) barycentric radio frequency, MHz
 
 
 def batch_size(params: dict) -> int:
@@ -103,6 +123,13 @@ def _apply_lanes(params: dict, lanes: tuple, delta: torch.Tensor) -> dict:
     return new
 
 
+def barycentric_freq(model: TimingModel, params: dict, tensor: dict) -> torch.Tensor:
+    """The radio frequency in the SSB frame at every row (the TZR row too)."""
+    from pint_tpu_torch.models.dispersion import barycentric_radio_freq
+
+    return barycentric_radio_freq(model._with_context(params, tensor))
+
+
 def resid_tangent_plain(model: TimingModel, params: dict, tensor: dict,
                         lanes: tuple = ()) -> ResidTangent:
     """Twin of K1: the model's forward chain in plain torch, tangents by
@@ -127,15 +154,17 @@ def resid_tangent_plain(model: TimingModel, params: dict, tensor: dict,
             dfrac, df = torch.func.vmap(tangent)(torch.eye(k, dtype=torch.float64, device=dev))
         else:
             dfrac = df = frac.new_zeros((0, frac.shape[-1]))
-        outs.append((pn, frac, f, dfrac, df))
+        fb = torch.broadcast_to(barycentric_freq(model, pb, tensor), tensor["t_hi"].shape)
+        outs.append((pn, frac, f, dfrac, df, fb))
     return ResidTangent(*(torch.stack(x) for x in zip(*outs)))
 
 
 # --- K1 on the card ------------------------------------------------------------
 
 _ROW_KEYS = ("t_hi", "t_lo", "freq_mhz", "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls")
-# the binary block of the parameter row, after RAJ DECJ PMRA PMDEC PX
-# POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo (resid_tangent.cu P_PB_HI ...): PB and
+# the binary block of the parameter row, after RAJ DECJ PMRA PMDEC PX (or
+# their ecliptic counterparts) POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo
+# (resid_tangent.cu P_PB_HI ...): PB and
 # the epoch (TASC or T0) as dd pairs, then float64 values; SINI of DDS is
 # 1 - exp(-SHAPMAX), and DSINI its derivative, the SHAPMAX lane's seed
 _BIN_F64 = ("A1", "A1DOT", "EPS1", "EPS2", "EPS1DOT", "EPS2DOT", "PBDOT", "XPBDOT",
@@ -154,14 +183,19 @@ class Structure(NamedTuple):
     bin_model: int  # for BIN_KEPLER: 0 BT, 1 DD (DDS is DD with SINI from SHAPMAX)
     nd: int
     nf: int
+    ecliptic: bool  # the astrometry is AstrometryEcliptic
+    n_dmx: int      # DMX windows (0: no DispersionDMX)
+    n_fd: int       # FD terms (0: no FD)
+    n_jump: int     # phase JUMPs (0: no PhaseJump)
 
 
 def _structure(model: TimingModel) -> Structure:
     """The components of `model` as kernel K1 sees them (noise components do
     not enter the phase)."""
     binaries = {"BinaryELL1": BIN_ELL1, **{f"Binary{m}": BIN_KEPLER for m in KEPLER_MODELS}}
-    allowed = {"AstrometryEquatorial", "SolarSystemShapiro", "DispersionDM", "Spindown",
-               "AbsPhase", "ScaleToaError", "EcorrNoise", *binaries}
+    allowed = {"AstrometryEquatorial", "AstrometryEcliptic", "SolarSystemShapiro",
+               "DispersionDM", "DispersionDMX", "FD", "Spindown", "PhaseJump", "AbsPhase",
+               "ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise", *binaries}
     extra = set(model.component_names) - allowed
     if extra:
         raise NotImplementedError(f"kernel K1 does not evaluate {sorted(extra)}")
@@ -173,7 +207,13 @@ def _structure(model: TimingModel) -> Structure:
         if name in binaries:
             kind = binaries[name]
             flag = KEPLER_MODELS.get(name.removeprefix("Binary"), 0)
-    return Structure(model.astrometry is not None, kind, flag, nd, model["Spindown"].num_terms)
+    n_dmx = len(model["DispersionDMX"].windows) if "DispersionDMX" in model else 0
+    n_fd = model["FD"].num_terms if "FD" in model else 0
+    n_jump = len(model["PhaseJump"].mask_params) if "PhaseJump" in model else 0
+    if n_fd > MAX_FD:
+        raise NotImplementedError(f"kernel K1 takes at most {MAX_FD} FD terms; got {n_fd}")
+    return Structure(model.astrometry is not None, kind, flag, nd, model["Spindown"].num_terms,
+                     "AstrometryEcliptic" in model, n_dmx, n_fd, n_jump)
 
 
 def _binary_values(model: TimingModel, params: dict) -> dict:
@@ -202,11 +242,10 @@ def _pack_params(model: TimingModel, params: dict, B: int, st: Structure,
 
     zero = col(0.0)
     posep = params.get("POSEPOCH", params.get("PEPOCH"))
+    ast = ("ELONG", "ELAT", "PMELONG", "PMELAT") if st.ecliptic else ("RAJ", "DECJ", "PMRA",
+                                                                      "PMDEC")
     cols = [
-        col(params["RAJ"]) if "RAJ" in params else zero,
-        col(params["DECJ"]) if "DECJ" in params else zero,
-        col(params["PMRA"]) if "PMRA" in params else zero,
-        col(params["PMDEC"]) if "PMDEC" in params else zero,
+        *(col(params[n]) if n in params else zero for n in ast),
         col(params["PX"]) if "PX" in params else zero,
         col(leaf_to_f64(posep)) if posep is not None else zero,
         col(leaf_to_f64(params["DMEPOCH"])) if "DMEPOCH" in params else zero,
@@ -225,7 +264,34 @@ def _pack_params(model: TimingModel, params: dict, B: int, st: Structure,
             cols += [col(v.hi), col(v.lo)]
         else:
             cols += [col(v), zero]
+    for k in range(1, st.n_fd + 1):
+        cols.append(col(leaf_to_f64(params.get(f"FD{k}", 0.0))))
     return torch.stack(cols, dim=1).contiguous()
+
+
+def _nanograv_columns(model: TimingModel, params: dict, tensor: dict, B: int, st: Structure):
+    """The row columns of K1's NANOGrav terms: each row's DMX DM per set (the
+    one-hot product, as DispersionDMX.dmx_dm) and its jump seconds per set
+    (PhaseJump.jump_seconds), both (B, N_rows); and the one-hot (N_rows,
+    n_dmx) and jump masks (n_jump, N_rows) that seed the DMX and JUMP lanes.
+    An absent term is one zero."""
+    n_rows = tensor["t_hi"].shape[0]
+    dev = tensor["t_hi"].device
+    empty = torch.zeros(1, dtype=torch.float64, device=dev)
+    dmx = jump = onehot = masks = empty
+    if st.n_dmx:
+        comp = model["DispersionDMX"]
+        vals = torch.broadcast_to(comp.dmx_values(params), (B, st.n_dmx))
+        onehot = tensor["dmx_onehot"].contiguous()
+        dmx = (onehot @ vals.T).T.contiguous()
+    if st.n_jump:
+        comp = model["PhaseJump"]
+        jump = torch.zeros((B, n_rows), dtype=torch.float64, device=dev)
+        for mp in comp.mask_params:
+            v = torch.broadcast_to(leaf_to_f64(params[mp.name]), (B,))
+            jump = jump + tensor[f"mask_{mp.name}"] * v[:, None]
+        masks = torch.stack([tensor[f"mask_{mp.name}"] for mp in comp.mask_params]).contiguous()
+    return dmx, jump, onehot, masks
 
 
 def _lane_width(k: int) -> int:
@@ -255,11 +321,13 @@ def resid_tangent(model: TimingModel, params: dict, tensor: dict,
 
 def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> ResidTangent:
     """One launch of K1 on the tensors' device (shapes checked here)."""
+    from pint_tpu_torch.models.astrometry import COS_OBL, SIN_OBL
+
     dev = tensor["t_hi"].device
     k = len(lanes)
     if k > MAX_LANES:
         raise ValueError(f"kernel K1 carries at most {MAX_LANES} tangent lanes; got {k}")
-    codes = [lane_code(n) for n in lanes]
+    codes = [lane_code(n, model) for n in lanes]
     st = _structure(model)
     rows = [tensor[key].contiguous() for key in _ROW_KEYS]
     n_rows = rows[0].shape[0]
@@ -270,21 +338,27 @@ def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> 
     n_out = n_rows - int(has_tzr)
     B = batch_size(params)
     P = _pack_params(model, params, B, st, dev)
+    ng = _nanograv_columns(model, params, tensor, B, st)
+    for t in ng:
+        if t.dtype != torch.float64 or t.device != dev:
+            raise ValueError(f"kernel K1's DMX and JUMP columns must be float64 on {dev}")
     slots = _lane_slots(k)
     out = [torch.empty((B, n_out), dtype=torch.float64, device=dev) for _ in range(3)]
     tan = [torch.empty((B, slots, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
-    ints = (ctypes.c_int * (10 + MAX_LANES))(
+    fb = torch.empty((B, n_rows), dtype=torch.float64, device=dev)
+    ints = (ctypes.c_int * (14 + MAX_LANES))(
         n_rows, n_out, int(has_tzr), int(st.has_ast), st.nd, st.nf, P.shape[1], k,
-        st.bin_kind, st.bin_model, *(codes + [-1] * (MAX_LANES - k)))
-    consts = (ctypes.c_double * 3)(AU_LS, DMCONST, TSUN_S)
+        st.bin_kind, st.bin_model, int(st.ecliptic), st.n_dmx, st.n_fd, st.n_jump,
+        *(codes + [-1] * (MAX_LANES - k)))
+    consts = (ctypes.c_double * 5)(AU_LS, DMCONST, TSUN_S, COS_OBL, SIN_OBL)
     from pint_tpu_torch.ops import build
 
     lib = build.library("resid_tangent", _declare_k1)
     build.check(lib, lib.resid_tangent(
-        *[t.data_ptr() for t in rows], P.data_ptr(), B, ints, consts,
-        *[o.data_ptr() for o in out], *[t.data_ptr() for t in tan],
+        *[t.data_ptr() for t in rows], *[t.data_ptr() for t in ng], P.data_ptr(), B, ints,
+        consts, *[o.data_ptr() for o in out], *[t.data_ptr() for t in tan], fb.data_ptr(),
         build.stream_of(P)))
-    return ResidTangent(*out, tan[0][:, :k], tan[1][:, :k])
+    return ResidTangent(*out, tan[0][:, :k], tan[1][:, :k], fb)
 
 
 resid_tangent.launches = 0
@@ -292,9 +366,9 @@ resid_tangent.launches = 0
 
 def _declare_k1(lib) -> None:
     p = ctypes.c_void_p
-    lib.resid_tangent.argtypes = [p, p, p, p, p, p, p, ctypes.c_int,
+    lib.resid_tangent.argtypes = [p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
                                   ctypes.POINTER(ctypes.c_int),
-                                  ctypes.POINTER(ctypes.c_double), p, p, p, p, p, p]
+                                  ctypes.POINTER(ctypes.c_double), p, p, p, p, p, p, p]
     lib.resid_tangent.restype = ctypes.c_int
 
 

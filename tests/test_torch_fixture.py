@@ -11,15 +11,17 @@ simulated under the analytic ephemeris (``PINT_TPU_NBODY=0``);
 ``flagship_n16384_nbody.tim`` is the same dataset simulated under pint_tpu's
 default ephemeris, the N-body window (its cold build takes about a minute).
 ``dd_n16384.tim`` holds ``profiles.DD_SMOKE_PAR`` (an eccentric DD binary)
-over fake TOAs made by pint_tpu under the analytic ephemeris (`DD_RECIPE`).
+over fake TOAs made by pint_tpu under the analytic ephemeris (`DD_RECIPE`);
+``nanograv_n16384.tim`` ``profiles.NANOGRAV_SMOKE_PAR`` over the flagship's
+epochs with white, ECORR and red noise drawn by pint_tpu (`NANOGRAV_RECIPE`).
 Write them anew with
 
-    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd ...]
+    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd|nanograv ...]
 
-(all five without names).
+(all six without names).
 
-The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`, `dd_pair`)
-also feed the other ``tests/test_torch_*.py`` files.
+The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`, `dd_pair`,
+`nanograv_pair`) also feed the other ``tests/test_torch_*.py`` files.
 """
 
 from __future__ import annotations
@@ -54,6 +56,12 @@ FLAGSHIP_NBODY_RECIPE = {**FLAGSHIP_RECIPE, "n": ARCHIVE_N, "seed": FLAGSHIP_SEE
 DD_RECIPE = {"par": "profiles.DD_SMOKE_PAR", "n": ARCHIVE_N, "seed": 41, "start_mjd": 55000.0,
              "end_mjd": 56000.0, "freq_mhz": [1400.0, 2300.0], "error_us": 1.0, "obs": "gbt",
              "noise": True, "nbody": 0}
+#: how the NANOGrav-shaped .tim is made (recorded in its comment line): the
+#: flagship's epoch layout, noise drawn from the model's full covariance
+NANOGRAV_RECIPE = {"par": "profiles.nanograv_smoke_par", "n_dmx": 64, "nf": 30,
+                   "n": ARCHIVE_N, "seed": 43, "span_mjd": [56650.0, 57350.0],
+                   "error_us": 1.0, "obs": "gbt",
+                   "noise": "simulation.add_noise_from_model", "nbody": 0}
 
 
 def smoke_dataset(n: int, seed: int):
@@ -160,6 +168,70 @@ def dd_pair(n: int = 1024, binary: str = "DD"):
     if binary != "DD":
         model = build_model(parse_parfile(dd_smoke_par(binary), from_text=True))
     tm = get_model(dd_smoke_par(binary), from_text=True, device="cpu")
+    tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
+    return model, toas, tens, tm, tt
+
+
+@functools.lru_cache(maxsize=4)
+def nanograv_dataset(n: int, seed: int = NANOGRAV_RECIPE["seed"], n_dmx: int = 64, nf: int = 30,
+                     dm_noise: bool = False):
+    """(pint_tpu model, toas, build_tensor dict) of
+    ``profiles.nanograv_smoke_par(n_dmx, nf, dm_noise)`` over the flagship's
+    epoch layout (n / 8 epochs of 8 sub-bands, the two receivers in turn),
+    made exactly on the model, then moved by one draw of its white, ECORR
+    and red (and DM) noise from `seed`; once per arguments in a process:
+    callers must not modify it. Every row lies in exactly one DMX window."""
+    from pint_tpu.io.par import parse_parfile
+    from pint_tpu.models.builder import build_model
+    from pint_tpu.profiles import RECEIVERS
+    from pint_tpu.simulation import add_noise_from_model, make_fake_toas_fromMJDs
+    from pint_tpu_torch.profiles import nanograv_smoke_par
+
+    r = NANOGRAV_RECIPE
+    model = build_model(parse_parfile(nanograv_smoke_par(n_dmx, nf, dm_noise), from_text=True))
+    per_epoch = len(RECEIVERS[0][1])
+    mjds, freqs, flags = [], [], []
+    for i, emjd in enumerate(np.linspace(*r["span_mjd"], max(n // per_epoch, 2))):
+        fname, subbands = RECEIVERS[i % len(RECEIVERS)]
+        for j, f in enumerate(subbands):
+            mjds.append(emjd + j * 0.1 / 86400.0)
+            freqs.append(f)
+            flags.append({"f": fname, "fe": fname.split("_GUPPI")[0]})
+    rng = np.random.default_rng(seed)
+    toas = make_fake_toas_fromMJDs(np.array(mjds), model, obs=r["obs"],
+                                   freq_mhz=np.array(freqs), error_us=r["error_us"],
+                                   flags=flags)
+    toas = add_noise_from_model(toas, model, rng=rng)
+    tens = model.build_tensor(toas)
+    per_row = np.asarray(tens["dmx_onehot"]).sum(axis=1)
+    if not np.all(per_row == 1.0):
+        raise AssertionError(f"{int(np.sum(per_row != 1.0))} rows not in exactly one DMX window")
+    return model, toas, tens
+
+
+def nanograv_tim(path) -> None:
+    """Write the `NANOGRAV_RECIPE` dataset as a .tim, its recipe in a comment
+    line after the header's first line."""
+    import json
+
+    r = NANOGRAV_RECIPE
+    _, toas, _ = nanograv_dataset(r["n"], r["seed"], r["n_dmx"], r["nf"])
+    toas.write_tim(str(path))
+    lines = Path(path).read_text().splitlines(keepends=True)
+    lines.insert(1, f"C Recipe: {json.dumps(r, sort_keys=True)}\n")
+    Path(path).write_text("".join(lines))
+
+
+def nanograv_pair(n: int = 1024, n_dmx: int = 8, nf: int = 10, dm_noise: bool = False):
+    """(pint_tpu model, toas, tensor, port model, port tensor) on the CPU of
+    the NANOGrav-shaped dataset at a narrow width (p = 12 + n_dmx + 4, 2 nf
+    Fourier columns per power-law process)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import tensor_from_numpy
+    from pint_tpu_torch.profiles import nanograv_smoke_par
+
+    model, toas, tens = nanograv_dataset(n, NANOGRAV_RECIPE["seed"], n_dmx, nf, dm_noise)
+    tm = get_model(nanograv_smoke_par(n_dmx, nf, dm_noise), from_text=True, device="cpu")
     tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
     return model, toas, tens, tm, tt
 
@@ -291,6 +363,22 @@ def test_dd_tim_matches_fresh_export(tmp_path):
     assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
     recipe = DD_TIM.read_text().splitlines()[1]
     assert json.loads(recipe.removeprefix("C Recipe: ")) == DD_RECIPE
+
+
+def test_nanograv_tim_matches_fresh_export(tmp_path):
+    """The committed NANOGrav-shaped .tim parses to the lines of a fresh
+    export of `NANOGRAV_RECIPE`, and records the recipe."""
+    import json
+
+    from pint_tpu.io.tim import parse_tim
+    from pint_tpu_torch.prepared import NANOGRAV_TIM
+
+    nanograv_tim(tmp_path / "fresh.tim")
+    fresh, committed = parse_tim(str(tmp_path / "fresh.tim")), parse_tim(str(NANOGRAV_TIM))
+    assert len(committed.toas) == NANOGRAV_RECIPE["n"]
+    assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
+    recipe = NANOGRAV_TIM.read_text().splitlines()[1]
+    assert json.loads(recipe.removeprefix("C Recipe: ")) == NANOGRAV_RECIPE
 
 
 def test_flagship_tim_prepares_to_the_archive(tmp_path, monkeypatch):
@@ -429,7 +517,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def _write_archive(which) -> None:
     from pint_tpu_torch.prepared import (DD_TIM, FLAGSHIP_ARCHIVE, FLAGSHIP_NBODY_TIM,
-                                         FLAGSHIP_TIM, SMOKE_ARCHIVE, save_prepared)
+                                         FLAGSHIP_TIM, NANOGRAV_TIM, SMOKE_ARCHIVE,
+                                         save_prepared)
 
     for name, path, make in (("smoke", SMOKE_ARCHIVE, export),
                              ("flagship", FLAGSHIP_ARCHIVE, flagship_export)):
@@ -448,12 +537,16 @@ def _write_archive(which) -> None:
     if "dd" in which:
         dd_tim(DD_TIM)
         print(f"wrote {DD_TIM} ({DD_TIM.stat().st_size} bytes)")
+    if "nanograv" in which:
+        nanograv_tim(NANOGRAV_TIM)
+        print(f"wrote {NANOGRAV_TIM} ({NANOGRAV_TIM.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    names = {"smoke", "flagship", "nbody", "dd"}
+    names = {"smoke", "flagship", "nbody", "dd", "nanograv"}
     if sys.argv[1:2] != ["--write"] or not set(sys.argv[2:]) <= names:
-        sys.exit("usage: python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd ...]")
+        sys.exit("usage: python tests/test_torch_fixture.py --write "
+                 "[smoke|flagship|nbody|dd|nanograv ...]")
     sys.path.insert(0, str(REPO))
     import jax
 

@@ -119,8 +119,8 @@ def test_float32_anywhere_in_the_chain_raises(pair):
 
 
 @pytest.mark.parametrize("line, item", [
-    ("BINARY DDK", "A8"), ("BINARY DDGR", "A8"), ("TNDMAMP -13", "A9"), ("JUMP -f L 0.1 1", "A9"),
-    ("DMX_0001 0.01 1", "A9"), ("PLANET_SHAPIRO Y", "A18"),
+    ("BINARY DDK", "A8"), ("BINARY DDGR", "A8"), ("DJUMP -f L 0.1 1", "A9"), ("PHOFF 0.1 1", "A9"),
+    ("SIFUNC 2", "A9"), ("PLANET_SHAPIRO Y", "A18"),
 ])
 def test_unported_components_name_their_roadmap_item(line, item):
     from pint_tpu_torch.models import get_model
