@@ -165,6 +165,37 @@ columns) over ``pint_tpu_torch/data/nanograv_n16384.tim``
 33. K1, K8 and K3 times at the fit's and the grid's shapes, and the warm
    wall and busy share of one fit + grid.
 
+Then the rest of pint_tpu's binaries (``PINT_TPU_NBODY=0`` set around
+phases 34-39), each prepared by ``get_model_and_toas`` + ``build_tensor``:
+``profiles.DDGR_SMOKE_PAR`` over ``pint_tpu_torch/data/ddgr_n16384.tim``,
+``profiles.DDK_SMOKE_PAR`` over ``ddk_n16384.tim``, and the flagship's orbit
+under ELL1H (stigma, h4 and h3 modes), ELL1K and the FB form over
+``flagship_n16384.tim``:
+
+34. K1 against its twin for each form: every lane the model has, at one
+   parameter set, on the model without its TZR row (values bitwise,
+   tangents within 1e-15 relative); and the fit's (1 set) and grid's (9
+   sets) shapes with it (values bitwise, tangents within 2e-15: the TZR
+   row's subtraction leaves each lane's rounding on what is left);
+35. DDGR: the prepare against the twins' (K4 and K5 twice each),
+   ``DownhillWLSFitter.fit_toas`` from phase 24's moved start (11 free:
+   MTOT and M2 among them) against the twin path, gated as phase 6, and
+   the 3x3 (MTOT, M2) grid (K1 + K2, 9 refitted), within 1e-10 or ten
+   times its movement when its refits' normal matrices change by 1e-15 of
+   their diagonals of the twins' grid from the same fit, and within 1e-9
+   (or that movement) of the twin path's grid from its own fit;
+36. DDK the same (14 free: KIN and KOM among them; F0 +2e-10 Hz, PB +1e-7
+   s, A1 +2e-6 ls, KIN and KOM +1e-4 rad), the (KIN, KOM) grid refitting
+   12; its T0 and OM are nearly degenerate (ECC 7.5e-5), so the fit takes
+   phase 31's witness rule (the twin path's fit through design columns moved by
+   1e-15 of their scale);
+37. ELL1H in its stigma mode: ``DownhillGLSFitter.fit_toas`` (16 free, H3
+   and STIGMA among them) from phase 11's moved start and the (H3, STIGMA)
+   GLS grid, gated as phases 11-12 and 35;
+38. ELL1K (OMDOT and LNEDOT free) and the FB form (FB0 and FB1 free): a GLS
+   fit each and the (M2, SINI) grid, gated the same;
+39. K1's times at each form's fit and grid shapes.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
@@ -175,7 +206,9 @@ K0, K1 and K3, its grid K0, K1 and K3; the analytic prepare K4 and K5 twice
 each; the default prepare K4 and K6 twice each, the pack and SPK prepares K4
 and K7 twice each; the DD prepare K4 and K5 twice each, its fit K0 and K1,
 its grid K1 and K2; the NANOGrav prepare K4 and K5 twice each, its fit K0,
-K1, K3 and K8's Fourier pass, its grid K1, K8's two passes and K3.
+K1, K3 and K8's Fourier pass, its grid K1, K8's two passes and K3; the
+slice-7 prepares K4 and K5 twice each, their fits K0 and K1 (and K3 for
+GLS), the DDGR and DDK grids K1 and K2, the others K1, K8 and K3.
 K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 7. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
@@ -214,6 +247,9 @@ FLAGSHIP_SHIFT = {"F0": 2e-10, "DM": 1e-3, "EPS1": 1e-7}
 # seconds, light-seconds, radians)
 DD_SHIFT = {"F0": 2e-10, "PB": 1e-7, "A1": 2e-6, "T0": 2e-2, "ECC": 1e-6, "OM": 2e-6}
 NANOGRAV_SHIFT = {"F0": 2e-10, "EPS1": 1e-7, "DMX_0001": 1e-4, "JUMP1": 1e-6, "FD1": 1e-6}
+# DDK's: the orientation moved by ~3e-2 and ~2e-3 sigma, T0 left alone (with
+# ECC 7.5e-5 it is nearly degenerate with OM)
+DDK_SHIFT = {"F0": 2e-10, "PB": 1e-7, "A1": 2e-6, "KIN": 1e-4, "KOM": 1e-4}
 
 
 class SmokeFailure(RuntimeError):
@@ -517,14 +553,17 @@ def phase_k2(model, tensor, params_b, free, w, device):
 
 def fresh_fitter(tensor, device, which: str = "smoke", par: str | None = None):
     """A fitter on `tensor`, its model moved off the solution by the start
-    shift: DownhillWLSFitter on SMOKE_PAR ("smoke") or DD_SMOKE_PAR ("dd"),
-    or DownhillGLSFitter on the flagship par ("flagship") or
-    NANOGRAV_SMOKE_PAR ("nanograv"); `par` (text) in place of that par."""
+    shift: DownhillWLSFitter on SMOKE_PAR ("smoke"), DD_SMOKE_PAR ("dd"),
+    DDGR_SMOKE_PAR ("ddgr") or DDK_SMOKE_PAR ("ddk"), or DownhillGLSFitter
+    on the flagship par ("flagship"), NANOGRAV_SMOKE_PAR ("nanograv"), or the
+    flagship's orbit under ELL1H in its stigma mode ("ell1h"), ELL1K
+    ("ell1k") or in the FB form ("fb"); `par` (text) in place of that par."""
     import torch
 
     from pint_tpu_torch.fitting import DownhillGLSFitter, DownhillWLSFitter
     from pint_tpu_torch.fitting.wls import apply_delta
     from pint_tpu_torch.models import get_model
+    from pint_tpu_torch import profiles as pr
     from pint_tpu_torch.profiles import (DD_SMOKE_PAR, FLAGSHIP_SMOKE_PAR, NANOGRAV_SMOKE_PAR,
                                          SMOKE_PAR)
 
@@ -533,6 +572,11 @@ def fresh_fitter(tensor, device, which: str = "smoke", par: str | None = None):
         "flagship": (FLAGSHIP_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT),
         "dd": (DD_SMOKE_PAR, DownhillWLSFitter, DD_SHIFT),
         "nanograv": (NANOGRAV_SMOKE_PAR, DownhillGLSFitter, NANOGRAV_SHIFT),
+        "ddgr": (pr.DDGR_SMOKE_PAR, DownhillWLSFitter, DD_SHIFT),
+        "ddk": (pr.DDK_SMOKE_PAR, DownhillWLSFitter, DDK_SHIFT),
+        "ell1h": (pr.ell1h_smoke_par("stigma"), DownhillGLSFitter, FLAGSHIP_SHIFT),
+        "ell1k": (pr.ELL1K_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT),
+        "fb": (pr.fb_smoke_par(), DownhillGLSFitter, FLAGSHIP_SHIFT),
     }[which]
     model = get_model(par or default, from_text=True, device=device)
     free = tuple(model.free_params)
@@ -747,6 +791,20 @@ K1_KEPLER_OPS_PER_LANE = 305
 # the jump phase (~3); per lane ~20 dual operations
 K1_NG_OPS_PER_ROW = 75
 K1_NG_OPS_PER_LANE = 20
+# The binaries of slice 7, on top of their kind's counts: ELL1H's harmonic
+# series, a sine or cosine and ~6 operations per harmonic (~41; the exact
+# form's log replaces ELL1's); ELL1K's first-order expansion, 2 sines and
+# cosines fewer (~-70); the FB form's Taylor tail and division (~10 per
+# term); DDK's corrections, 4 sines and cosines, a square root and ~6
+# divisions (~250), ~60 dual operations per lane; DDGR's Jacobian seeds
+# (~6 per lane; its derived values are the host's)
+K1_HARMONIC_OPS_PER_ROW = 41
+K1_HARMONIC_OPS_PER_LANE = 8
+K1_ELL1K_OPS_PER_ROW = -70
+K1_FB_OPS_PER_TERM = 10
+K1_DDK_OPS_PER_ROW = 250
+K1_DDK_OPS_PER_LANE = 60
+K1_DDGR_OPS_PER_LANE = 6
 
 
 def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
@@ -773,6 +831,17 @@ def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
                          BIN_KEPLER: (K1_KEPLER_OPS_PER_ROW, K1_KEPLER_OPS_PER_LANE)}[kind]
     per_row = K1_OPS_PER_ROW + bin_row + (K1_NG_OPS_PER_ROW if ng else 0)
     per_lane = K1_OPS_PER_LANE + bin_lane + (K1_NG_OPS_PER_LANE if ng else 0)
+    per_row += K1_FB_OPS_PER_TERM * st.n_fb
+    if kind == BIN_ELL1 and st.bin_model == 1:  # ELL1H's harmonics (none in the log form)
+        harmonics = max(st.nharms - 2, 0) if st.h_mode != 2 else 0
+        per_row += K1_HARMONIC_OPS_PER_ROW * harmonics
+        per_lane += K1_HARMONIC_OPS_PER_LANE * harmonics
+    elif kind == BIN_ELL1 and st.bin_model == 2:
+        per_row += K1_ELL1K_OPS_PER_ROW
+    elif kind == BIN_KEPLER and st.bin_model == 3:
+        per_row, per_lane = per_row + K1_DDK_OPS_PER_ROW, per_lane + K1_DDK_OPS_PER_LANE
+    elif kind == BIN_KEPLER and st.bin_model == 2:
+        per_lane += K1_DDGR_OPS_PER_LANE
     n_ops = B * rows * (per_row + per_lane * k)
     b, how = bound_ms(n_bytes, n_ops)
     return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
@@ -800,7 +869,7 @@ def k2_record(r, M, w, device) -> dict:
 
 
 # parameter row of K1 before the DM and F terms (resid_tangent.cu P_DM0)
-P_ROW_LEN = 33
+P_ROW_LEN = 84
 
 
 def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
@@ -895,7 +964,10 @@ KERNELS = (
     ("resid_tangent", "pint_tpu_torch/csrc/resid_tangent.cu",
      "pint_tpu/residuals.py:90 (resid) + pint_tpu/fitting/wls.py:180 (design jvp); the Kepler "
      "term pint_tpu/models/binaries/kepler.py:27-67 (kepler_E, its JVP, true_anomaly) + "
-     "engines.py:59-130 (bt_delay, _dd_core, dd_delay, dds_delay); the NANOGrav terms "
+     "engines.py:59-130 (bt_delay, _dd_core, dd_delay, dds_delay); the binaries of slice 7 "
+     "pint_tpu/models/binary.py:307-361 (_orbits' FB branch, PulsarBinary.delay's DDGR and "
+     "DDK branches) + engines.py:246-434 (ell1h_shapiro, ell1h_delay, ell1k_delay, "
+     "ddgr_derived, ddk_corrections); the NANOGrav terms "
      "pint_tpu/models/astrometry.py:122-168 (AstrometryEcliptic), dispersion.py:122-203 "
      "(DispersionDMX), frequency_dependent.py (FD), phase_misc.py:58-95 (PhaseJump)"),
     ("normal_eq", "pint_tpu_torch/csrc/normal_eq.cu",
@@ -1905,37 +1977,56 @@ def perturbed_normal_eq(plain, eps: float = 1e-15):
 
 def grid_sensitivity(ftr, names, vals, chi2, eps: float = 1e-15) -> float:
     """How far the grid `chi2` (the twins') moves when every normal matrix of
-    its refit steps is perturbed by `eps` of its diagonal (`perturbed_normal_eq`),
-    through the twins: the size of the differences two paths must show where
-    the refit amplifies them."""
+    its refit steps, white or GLS, is perturbed by `eps` of its diagonal
+    (`perturbed_normal_eq`), through the twins: the size of the differences
+    two paths must show where the refit amplifies them."""
     import numpy as np
 
     from pint_tpu_torch import gridutils
 
     with twins():
-        plain = gridutils.ecorr_normal_eq
-        gridutils.ecorr_normal_eq = perturbed_normal_eq(plain, eps)
+        plain = gridutils.normal_eq, gridutils.ecorr_normal_eq
+        gridutils.normal_eq, gridutils.ecorr_normal_eq = (perturbed_normal_eq(f, eps)
+                                                          for f in plain)
         try:
             moved = gridutils.grid_chisq(ftr, names, vals)
         finally:
-            gridutils.ecorr_normal_eq = plain
+            gridutils.normal_eq, gridutils.ecorr_normal_eq = plain
     return float(np.max(np.abs(moved - chi2) / chi2))
+
+
+def perturbed_design(plain, eps: float = 1e-15):
+    """`plain` (``wls.time_resid_design``) with every design column moved by
+    eps times its largest value, with a fixed pattern of signs: the size of
+    the difference between K1's tangents and the twin's (~5e-16 of a lane's
+    scale), the WLS fit's counterpart of `perturbed_normal_eq`."""
+    import numpy as np
+    import torch
+
+    def perturbed(*args, **kw):
+        r0, M = plain(*args, **kw)
+        sign = torch.as_tensor(np.random.default_rng(6).choice([-1.0, 1.0], M.shape[-1]),
+                               device=M.device)
+        return r0, M + eps * sign * torch.max(torch.abs(M), dim=0).values
+    return perturbed
 
 
 def perturbed_fit(tensor, device, which: str, par: str | None = None) -> dict:
     """The twin path's fit with every GLS normal matrix perturbed by 1e-15
-    of its diagonal (`perturbed_normal_eq`): the witness of how far two fits of an
-    ill-conditioned model may sit apart (`fit_bounds`)."""
-    from pint_tpu_torch.fitting import gls
+    of its diagonal (`perturbed_normal_eq`), or, for a WLS fit, every design
+    column by 1e-15 of its scale (`perturbed_design`): the witness of how far
+    two fits of an ill-conditioned model may sit apart (`fit_bounds`)."""
+    from pint_tpu_torch.fitting import gls, wls
 
     with twins():
         ftr = fresh_fitter(tensor, device, which, par)
-        plain = gls.ecorr_normal_eq
-        gls.ecorr_normal_eq = perturbed_normal_eq(plain)
+        plain = gls.ecorr_normal_eq, wls.time_resid_design
+        gls.ecorr_normal_eq = perturbed_normal_eq(plain[0])
+        wls.time_resid_design = perturbed_design(plain[1])
         try:
             ftr.fit_toas()
         finally:
-            gls.ecorr_normal_eq = plain
+            gls.ecorr_normal_eq, wls.time_resid_design = plain
     return {"fitter": ftr}
 
 
@@ -2163,8 +2254,200 @@ def nanograv_phases(device, summary: dict, n_dmx: int = 64, nf: int = 30, tim=No
             "windows": {"nanograv_prepare": pl, "nanograv_fit": fit_l, "nanograv_grid": grid_l}}
 
 
+# --- phases 34-39: the rest of the binaries (DDGR, DDK, ELL1H, ELL1K, FB) -------------
+
+
+def strip_tzr(par: str) -> str:
+    """A par without its TZR lines: the model has no AbsPhase, its tensor no
+    TZR row, and K1's tangents are not differences with the TZR row's."""
+    return "".join(ln + "\n" for ln in par.splitlines()
+                   if not ln.startswith(("TZRMJD", "TZRSITE", "TZRFRQ")))
+
+
+def compare_k1_exact(model, params, tensor, lanes, device, tag: str,
+                     tan_tol: float = 1e-15) -> dict:
+    """K1 against its twin at one shape: pulse numbers, fractional phase,
+    f and f_bary bitwise equal, tangents within `tan_tol` relative (per
+    lane, to the lane's largest value)."""
+    import torch
+
+    from pint_tpu_torch.residuals import resid_tangent, resid_tangent_plain
+
+    got = resid_tangent(model, params, tensor, lanes)
+    want = resid_tangent_plain(model, params, tensor, lanes)
+    sync(device)
+    same = all(torch.equal(g, w) for g, w in zip((got.pn, got.frac, got.f, got.fb),
+                                                 (want.pn, want.frac, want.f, want.fb)))
+    dt = float(torch.max(torch.abs(got.frac / got.f - want.frac / want.f)))
+    check(same, f"{tag}: pulse numbers, phase, f and f_bary bitwise equal to the twin "
+                f"({dt:.3g} s)")
+    errs = [max(rel_err(got.dfrac[:, j], want.dfrac[:, j]), rel_err(got.df[:, j], want.df[:, j]))
+            for j in range(len(lanes))]
+    worst = max(errs, default=0.0)
+    name = lanes[errs.index(worst)] if lanes else "-"
+    check(worst <= tan_tol, f"{tag}: tangents within {tan_tol:g} relative ({worst:.3g}, {name})")
+    return {"max_abs_err": dt, "tangent_rel_err": worst}
+
+
+def binary_forms() -> dict:
+    """The slice's forms: their .tim, their par, and the fresh_fitter key of
+    those with a fit and grid on the main path (ELL1H's h4 and h3 modes
+    borrow its stigma mode's fitter for their shapes)."""
+    from pint_tpu_torch import prepared
+    from pint_tpu_torch import profiles as pr
+
+    return {"DDGR": (prepared.DDGR_TIM, pr.DDGR_SMOKE_PAR, "ddgr"),
+            "DDK": (prepared.DDK_TIM, pr.DDK_SMOKE_PAR, "ddk"),
+            "ELL1H stigma": (prepared.FLAGSHIP_TIM, pr.ell1h_smoke_par("stigma"), "ell1h"),
+            "ELL1H h4": (prepared.FLAGSHIP_TIM, pr.ell1h_smoke_par("h4"), None),
+            "ELL1H h3": (prepared.FLAGSHIP_TIM, pr.ell1h_smoke_par("h3"), None),
+            "ELL1K": (prepared.FLAGSHIP_TIM, pr.ELL1K_SMOKE_PAR, "ell1k"),
+            "ELL1 + FB": (prepared.FLAGSHIP_TIM, pr.fb_smoke_par(), "fb")}
+
+
+#: the fits' and grids' main-path launch windows: K0 and K1 in every fit, K3 in
+#: the GLS fits; K1 and K2 in the white grids, K1, K8 (DM, DM1) and K3 in the
+#: GLS ones
+BINARY_FIT_KERNELS = ("dd_elementwise", "resid_tangent")
+BINARY_GRID_KERNELS = {"wls": ("resid_tangent", "normal_eq"),
+                       "gls": ("resid_tangent", "linear_columns", "ecorr_normal_eq")}
+
+
+def binary_phases(device, summary: dict) -> dict:
+    """Phases 34-39: DDGR and DDK (WLS) from ddgr_n16384.tim and
+    ddk_n16384.tim, ELL1H's stigma mode, ELL1K and the FB form (GLS) from
+    flagship_n16384.tim: K1 against its twin for every form (ELL1H's h4 and
+    h3 modes too), then each fit and grid through the port's entry points
+    against the twin path, and K1's times."""
+    import numpy as np
+
+    from pint_tpu_torch.fitting.design import linear_split
+    from pint_tpu_torch.gridutils import grid_chisq
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.profiles import grid_for
+    from pint_tpu_torch.residuals import lane_names
+
+    on_card = device.type == "cuda"
+    forms = binary_forms()
+    stats, recs, windows, out = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmpname, knobs(
+            PINT_TPU_NBODY="0", PINT_TPU_EPHEM=None, PINT_TPU_KERNEL_EPHEM=None):
+        tmp = Path(tmpname)
+        print("phase 34: K1's new binary terms against the twin (every lane without the TZR "
+              "row; the fit's and grid's shapes with it)")
+        prep = {}
+        for form, (tim, par, key) in forms.items():
+            main = flagship_tim_path(device, tmp, tim, par)
+            prep[form] = main
+            model, tensor = main["model"], main["tensor"]
+            bare = get_model(strip_tzr(par), from_text=True, device=device)
+            every = lane_names(bare.params, bare)
+            stats[f"{form} every"] = compare_k1_exact(
+                bare, bare.params, bare.build_tensor(main["toas"]), every, device,
+                f"K1 {form} every lane, B = 1 ({len(every)} lanes)")
+            start = fresh_fitter(tensor, device, key or "ell1h", par)
+            names, _, params_b = grid_params(model, start)
+            fit_lanes = linear_split(model, tuple(model.free_params))[0]
+            grid_lanes = linear_split(model, tuple(n for n in model.free_params
+                                                   if n not in names))[0]
+            # the TZR row's tangent, subtracted from every row's, shares part of
+            # some lanes (PX's and DM's annual terms): the difference keeps
+            # the terms' rounding, ~1e-15 of what is left (measured 1.07e-15)
+            for shape, params, lanes in (("fit", start.model.params, fit_lanes),
+                                         ("grid", params_b, grid_lanes)):
+                B = 1 if shape == "fit" else 9
+                stats[f"{form} {shape}"] = compare_k1_exact(
+                    model, params, tensor, lanes, device,
+                    f"K1 {form} {shape}, B = {B} ({len(lanes)} lanes)", 2e-15)
+
+        for phase, form in ((35, "DDGR"), (36, "DDK"), (37, "ELL1H stigma"), (38, "ELL1K"),
+                            (38, "ELL1 + FB")):
+            tim, par, key = forms[form]
+            main = prep[form]
+            tensor = main["tensor"]
+            kind = "gls" if key in ("ell1h", "ell1k", "fb") else "wls"
+            print(f"phase {phase}: {form}: get_model_and_toas + build_tensor, "
+                  f"Downhill{kind.upper()}Fitter.fit_toas and the {grid_for(main['model'], None)[0]} "
+                  "grid")
+            pl = main["launches"]
+            for name in ("site_geometry", "analytic_ephemeris"):
+                check(pl[name] == (2 if on_card else 0),
+                      f"{form}: {name} launched {pl[name]} times (the TOAs and the TZR row)")
+            with twins():
+                twin = flagship_tim_path(device, tmp, tim, par)
+            compare_tensors(tensor, twin["tensor"], f"{form} prepare kernels vs twins")
+            run = run_main_path(fresh_fitter(tensor, device, key, par), device)
+            fit_l, grid_l = run["fit_launches"], run["grid_launches"]
+            for name in BINARY_FIT_KERNELS + (("ecorr_normal_eq",) if kind == "gls" else ()):
+                check(fit_l[name] > 0 or not on_card,
+                      f"{name} launched {fit_l[name]} times by the {form} fit_toas")
+            for name in BINARY_GRID_KERNELS[kind]:
+                check(grid_l[name] > 0 or not on_card,
+                      f"{name} launched {grid_l[name]} times by the {form} grid_chisq")
+            with twins():
+                twin_run = run_main_path(fresh_fitter(twin["tensor"], device, key, par), device)
+            # DDK's T0 and OM are nearly degenerate at ECC 7.5e-5 (normal-matrix
+            # condition ~5e9): tangents ~5e-16 apart give steps ~1e-12 apart,
+            # which flip the last bit of the ~500 s delay at some rows; the fits
+            # then sit ~1e-8 sigma apart, so DDK takes phase 31's witness rule
+            moved = perturbed_fit(twin["tensor"], device, key, par) if form == "DDK" else None
+            check_fit(run, twin_run, f"{form} {kind.upper()}", moved)
+            gnames, gvals = grid_for(run["fitter"].model, run["fitter"])
+            with twins():
+                same_start = {"chi2": grid_chisq(run["fitter"], gnames, gvals)}
+            sens = grid_sensitivity(run["fitter"], gnames, gvals, same_start["chi2"])
+            chi2 = run["chi2"]
+            check(chi2.shape == (3, 3) and bool(np.all(np.isfinite(chi2))),
+                  f"{form} grid chi2 finite, 3x3")
+            worst_g = float(np.max(np.abs(chi2 - same_start["chi2"]) / same_start["chi2"]))
+            print(f"  a change of the refits' normal matrices by 1e-15 of their diagonals moves "
+                  f"this grid by {sens:.3g} relative")
+            check(worst_g <= max(1e-10, 10 * sens),
+                  f"{form} grid within max(1e-10, 10 x {sens:.3g}) relative of the twins' grid "
+                  f"from the same fit ({worst_g:.3g})")
+            apart = float(np.max(np.abs(chi2 - twin_run["chi2"]) / twin_run["chi2"]))
+            own_tol = max(DD_GRID_OWN_FITS_TOL, 10 * sens)
+            check(apart <= own_tol,
+                  f"{form} grid within {own_tol:.3g} relative of the twin path's grid from its "
+                  f"own fit ({apart:.3g}; the fits {fit_distance(run, twin_run):.3g} relative "
+                  "apart)")
+            res = run["fitter"].result
+            out[form] = {"prepare_wall_s": main["wall_s"], "twin_prepare_wall_s": twin["wall_s"],
+                         "fit_wall_s": run["fit_s"], "grid_wall_s": run["grid_s"],
+                         "fit_iterations": res.iterations, "fit_chi2_reduced": res.reduced_chi2,
+                         "grid": list(gnames), "grid_chi2": chi2.tolist(),
+                         "grid_argmin": int(np.argmin(chi2)), "grid_rel_err": worst_g,
+                         "grid_sensitivity": sens, "grid_rel_err_own_fits": apart,
+                         "fit_distance": fit_distance(run, twin_run),
+                         "fit_distance_perturbed": (fit_distance(moved, twin_run)
+                                                    if moved else None),
+                         "design_condition": float(res.singular_values[0]
+                                                   / res.singular_values[-1])}
+            tag = form.split()[0].lower() + ("_fb" if "FB" in form else "")
+            windows.update({f"{tag}_prepare": pl, f"{tag}_fit": fit_l, f"{tag}_grid": grid_l})
+
+        print("phase 39: K1's times at the new forms' fit and grid shapes")
+        rows = {}
+        for form, (_, par, key) in forms.items():
+            main = prep[form]
+            model, tensor = main["model"], main["tensor"]
+            start = fresh_fitter(tensor, device, key or "ell1h", par)
+            names, _, params_b = grid_params(model, start)
+            free = tuple(model.free_params)
+            grid_lanes = linear_split(model, tuple(n for n in free if n not in names))[0]
+            for shape, params, lanes in (("fit", model.params, linear_split(model, free)[0]),
+                                         ("grid", params_b, grid_lanes)):
+                rec = k1_record(model, tensor, params, lanes, device, 20)
+                rows[f"{form} {shape}"] = {k: rec[k] for k in ("ms", "call_ms", "plain_ms",
+                                                               "bound_ms", "bound_by", "shape")}
+        recs["resid_tangent"] = {"binaries": rows}
+    summary["binaries"] = {**out, "k1_stats": stats}
+    errs = {"resid_tangent": max(v["max_abs_err"] for v in stats.values())}
+    return {"recs": recs, "errs": errs, "windows": windows}
+
+
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-33 on `device_name`; returns the summary record."""
+    """Phases 2-39 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -2187,12 +2470,13 @@ def phases(device_name: str = "cuda") -> dict:
     ephem = ephemeris_phases(device, summary)
     dd = dd_phases(device, summary)
     ng = nanograv_phases(device, summary)
+    bins = binary_phases(device, summary)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
-               **ephem["windows"], **dd["windows"], **ng["windows"]}
+               **ephem["windows"], **dd["windows"], **ng["windows"], **bins["windows"]}
     kernels = []
-    parts = (smoke, flag, prep, ephem, dd, ng)
+    parts = (smoke, flag, prep, ephem, dd, ng, bins)
     for name, src, replaces in KERNELS:
         rec = {k: v for r in parts for k, v in r["recs"].get(name, {}).items()}
         err = max(r["errs"].get(name, 0.0) for r in parts)

@@ -16,18 +16,28 @@
 //   FD delay, Horner over log(f_bary / 1 GHz) (frequency_dependent.py)
 //   binary delay at t - delay so far        (binary.py, binaries/engines.py):
 //     the orbit (one function for every binary): dd orbital phase
-//     norb0 = rint(dt/PB), rem = dt - PB norb0 in dd, the PBDOT term,
+//     norb0 = rint(dt/PB), rem = dt - PB norb0 in dd, the PBDOT term; or,
+//     in the FB form, the dd product dt FB0, rint, and the float64 Taylor
+//     tail in FB1 .. FB7 (pb = 1 / (FB0 + FB1 dt + ...)); then
 //     phi = 2 pi (frac - rint(frac)), from the epoch TASC or T0; then
-//     ELL1: the third-order Roemer expansion and its two phi derivatives
-//     (sin/cos of phi .. 4 phi), the inverse-timing expansion, and
-//     -2 TSUN M2 log(1 - SINI sin phi); or
+//     the ELL1 family: ELL1's third-order Roemer expansion and its two phi
+//     derivatives (sin/cos of phi .. 4 phi), or ELL1K's first-order one
+//     with its rotating, growing eccentricity vector; the inverse-timing
+//     expansion; and -2 TSUN M2 log(1 - SINI sin phi), or ELL1H's
+//     orthometric Shapiro delay (the harmonic series over k = 3..NHARMS,
+//     sin and cos of each k phi, stigma 0 or H4/H3; or the exact log form
+//     in STIGMA); or
 //     a Kepler orbit (binaries/kepler.py, engines.py bt_delay, _dd_core):
 //     E from Danby's start and 10 Newton steps on the primal doubles, one
 //     dual value from the implicit rule dE = (dM + sin E de)/(1 - e cos E);
 //     BT's closed form, or DD's true anomaly (atan2 on the centred branch),
 //     omega = OM + k nu, the inverse timing with its e sin E term, the
 //     Shapiro log and the aberration terms (DDS: DD with the host's
-//     SINI = 1 - exp(-SHAPMAX))
+//     SINI = 1 - exp(-SHAPMAX); DDGR: DD with the host's GR-derived OMDOT,
+//     GAMMA, PBDOT, SINI, DR, DTH, each seeded by its row of their Jacobian
+//     in MTOT, M2, ECC, A1, PB, XOMDOT; DDK: DD with A1, OM and SINI moved
+//     per row by the Kopeikin terms of KIN, KOM, the proper motion and the
+//     parallax in the (east, north) basis at the pulsar)
 //   spindown phase: dd Horner of F_k over t - delay - PEPOCH (spindown.py)
 //   spin frequency f(t)                     (spindown.py)
 //   phase JUMPs F0 * sum(mask * JUMP)       (phase_misc.py PhaseJump)
@@ -47,7 +57,8 @@
 // free parameter (lane codes: the L_* enum below, the table LANE_CODES of
 // residuals.py: 0-4 astrometry, 5-9 PB A1 TASC EPS1 EPS2, 16 + k for F_k,
 // 32 + k for DM_k, 48-62 the Kepler-orbit and shared binary lanes, 64 + k
-// for FD_k, 80 + m for the m-th JUMP, 128 + j for the DMX of window j). A double-double
+// for FD_k, 80 + m for the m-th JUMP, 128 + j for the DMX of window j,
+// 256 + k for FB_k, 264-272 H3 H4 STIGMA LNEDOT KIN KOM MTOT XOMDOT XPBDOT). A double-double
 // value carries one float64 tangent: the derivative needs float64 precision
 // only, as jax's tangents through the float64 carriers do. Outputs d(frac)/dp
 // and d(f)/dp per lane; the caller forms d(r/f) (fitting/wls.py, gls.py,
@@ -56,8 +67,10 @@
 // launch (blockIdx.z picks the chunk), each recomputing the primal, and
 // chunk 0 alone writes the primal outputs. The binary kind is a template
 // parameter (BIN: 0 none, 1 ELL1, 2 Kepler): a model runs an instance that
-// carries only its own binary's code and registers. BT and DD (DDS) are a
-// run-time flag of the Kepler instance (Config::bin_model).
+// carries only its own binary's code and registers. The models of a kind
+// are a run-time switch (Config::bin_model: ELL1, ELL1H, ELL1K; BT, DD and
+// DDS, DDGR, DDK), as are ELL1H's mode and harmonics and the FB form, so
+// the 24 instances stay 24.
 //
 // TZR row: every block's thread 0 evaluates the fiducial row (the tensor's
 // last) into shared memory before the block's rows subtract it, so one launch
@@ -81,7 +94,14 @@ constexpr int THREADS = 256;
 constexpr double TWO_PI = 6.283185307179586;  // 2.0 * math.pi
 constexpr int NEWTON_ITERS = 10;               // binaries/kepler.py
 constexpr int BIN_NONE = 0, BIN_ELL1 = 1, BIN_KEPLER = 2;
-constexpr int KEPLER_BT = 0;  // Config::bin_model; 1 is DD (and DDS)
+// Config::bin_model of the Kepler kind (DDS runs as DD) and of the ELL1 kind
+constexpr int KEPLER_BT = 0, KEPLER_DDGR = 2, KEPLER_DDK = 3;  // 1 is DD (and DDS)
+constexpr int ELL1_H = 1, ELL1_K = 2;                            // 0 is ELL1
+constexpr int H_H3 = 0, H_H4 = 1, H_STIGMA = 2;  // Config::h_mode (ELL1H)
+constexpr int MAX_FB = 8;                        // FB0 .. FB7
+constexpr int MAX_NHARMS = 20;
+// the light-seconds per AU of pint_tpu's DDK parallax term (its literal)
+constexpr double DDK_AU_LS = 499.00478384;
 
 // parameter row layout, shared with pint_tpu_torch/residuals.py _pack_params
 enum : int {
@@ -92,15 +112,24 @@ enum : int {
   P_EPS1DOT, P_EPS2DOT, P_PBDOT, P_XPBDOT, P_M2, P_SINI,
   // the Kepler block; DSINI is d SINI / d SHAPMAX (DDS), the SHAPMAX seed
   P_ECC, P_EDOT, P_OM, P_OMDOT, P_GAMMA, P_DR, P_DTH, P_A0, P_B0, P_DSINI,
-  P_DM0  // then nd DM coefficients, nf (hi, lo) F pairs, n_fd FD coefficients
+  // the FB form (FB0 a dd pair), ELL1H, ELL1K and DDK's parameters, and
+  // DDGR's Jacobian: 6 rows (OMDOT GAMMA PBDOT SINI DR DTH) of 6 columns
+  // (d/d MTOT M2 ECC A1 PB XOMDOT)
+  P_FB0_HI, P_FB0_LO, P_FB1, P_H3 = P_FB1 + MAX_FB - 1, P_H4, P_STIGMA, P_LNEDOT, P_KIN,
+  P_KOM, P_JAC,
+  P_DM0 = P_JAC + 36  // then nd DM coefficients, nf (hi, lo) F pairs, n_fd FD coefficients
 };
+// DDGR's Jacobian rows (the derived values' order in P_JAC)
+constexpr int J_OMDOT = 0, J_GAMMA = 1, J_PBDOT = 2, J_SINI = 3, J_DR = 4, J_DTH = 5;
 // lane codes: residuals.py LANE_CODES holds the same list
 enum : int {
   L_RAJ = 0, L_DECJ = 1, L_PMRA = 2, L_PMDEC = 3, L_PX = 4,
   L_PB = 5, L_A1 = 6, L_TASC = 7, L_EPS1 = 8, L_EPS2 = 9, L_F0 = 16, L_DM0 = 32,
   L_T0 = 48, L_ECC, L_OM, L_OMDOT, L_EDOT, L_GAMMA, L_PBDOT, L_A1DOT, L_M2, L_SINI,
   L_SHAPMAX, L_DR, L_DTH, L_A0, L_B0,
-  L_FD0 = 64, L_JUMP0 = 80, L_DMX0 = 128
+  L_FD0 = 64, L_JUMP0 = 80, L_DMX0 = 128,
+  L_FB0 = 256, L_H3 = L_FB0 + MAX_FB, L_H4, L_STIGMA, L_LNEDOT, L_KIN, L_KOM, L_MTOT, L_XOMDOT,
+  L_XPBDOT
 };
 constexpr int MAX_FD = 15;
 
@@ -113,9 +142,11 @@ struct Config {
   int nf;       // spin terms F0..F(nf-1)
   int n_par;    // parameter row length
   int n_lane;   // lanes of this launch
-  int bin_model;  // Kepler instance: KEPLER_BT or 1 (DD, DDS)
+  int bin_model;  // the kind's model: KEPLER_* or ELL1_*
   int ecliptic;   // the astrometry angles are ecliptic (NG instances)
   int n_dmx, n_fd, n_jump;  // DMX windows, FD terms, JUMPs (NG instances)
+  int n_fb;       // FB terms (0: the PB form)
+  int h_mode, nharms;  // ELL1H: H_* and the harmonics of its Shapiro series
   int lane[LMAX];
   double au_ls, dmconst, tsun, cos_obl, sin_obl;
 };
@@ -320,6 +351,19 @@ __device__ __forceinline__ DDual<K> ddmulc(const DDual<K> &a, double s) {
   return r;
 }
 
+// a dd product whose tangent is the product rule on the collapsed values
+// (hi + lo), the FB form's lead dt FB0 (binary.py _DDMulTangent): FB0's low
+// word is ~6e-13 of its high one, past the precision of the lanes
+template <int K>
+__device__ __forceinline__ DDual<K> ddmul_full(const DDual<K> &a, const DDual<K> &b) {
+  DDual<K> r;
+  r.x = dd_mul(a.x, b.x);
+  const double av = __dadd_rn(a.x.hi, a.x.lo), bv = __dadd_rn(b.x.hi, b.x.lo);
+#pragma unroll
+  for (int j = 0; j < K; ++j) r.d[j] = a.d[j] * bv + av * b.d[j];
+  return r;
+}
+
 // one row's TZR-relative quantities before the subtraction
 template <int K>
 struct RowPhase {
@@ -452,9 +496,66 @@ __device__ __forceinline__ Dual<K> dseed2(double v, const Lanes<K> &lane, int co
   return r;
 }
 
+// DDGR: a GR-derived value seeded with its Jacobian row `jrow` in
+// (MTOT, M2, ECC, A1, PB, XOMDOT), the host's forward-mode derivatives
+template <int K>
+__device__ __forceinline__ Dual<K> djac(double v, const Lanes<K> &lane, const double *jrow) {
+  Dual<K> r;
+  r.v = v;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int code = lane.code[j];
+    r.d[j] = code == L_MTOT ? jrow[0] : code == L_M2 ? jrow[1] : code == L_ECC ? jrow[2]
+           : code == L_A1 ? jrow[3] : code == L_PB ? jrow[4] : code == L_XOMDOT ? jrow[5]
+           : 0.0;
+  }
+  return r;
+}
+
+// a post-Keplerian parameter: DDGR's derived one (`jac` given: its row
+// `row` of P_JAC), else the plain parameter on its own lane
+template <int K>
+__device__ __forceinline__ Dual<K> dpk(const double *__restrict__ P, int slot, const Lanes<K> &lane,
+                                       int code, const double *jac, int row) {
+  return jac != nullptr ? djac<K>(P[slot], lane, jac + 6 * row) : dseed<K>(P[slot], lane, code);
+}
+
+// a / b with jax's tangent rule for division, ta / b + ((-tb) a) (1 / (b b))
+// (engines.py _JaxDiv): DDK's A1 sin(kin) / sin(KIN) cancels in the KIN
+// lane to ~1e-7 of its terms, where another rule's last bits show
+template <int K>
+__device__ __forceinline__ Dual<K> ddiv_jax(const Dual<K> &a, const Dual<K> &b) {
+  Dual<K> r;
+  r.v = __ddiv_rn(a.v, b.v);
+  const double inv_b2 = __ddiv_rn(1.0, __dmul_rn(b.v, b.v));
+#pragma unroll
+  for (int j = 0; j < K; ++j) r.d[j] = a.d[j] / b.v + ((-b.d[j]) * a.v) * inv_b2;
+  return r;
+}
+
+// x^y for an integer y >= 0 as jax's integer_pow: repeated squaring, the
+// result multiplied on the left (engines.py ipow); y = 0 is a constant 1
+template <int K>
+__device__ Dual<K> dipow(Dual<K> x, int y) {
+  if (y == 0) return dconst<K>(1.0);
+  Dual<K> acc = x;
+  bool have = false;
+  while (y > 0) {
+    if (y & 1) {
+      acc = have ? dmul(acc, x) : x;
+      have = true;
+    }
+    y >>= 1;
+    if (y > 0) x = dmul(x, x);
+  }
+  return acc;
+}
+
 // The orbit at the time t - delay_so_far (binary.py PulsarBinary._orbits),
 // shared by every binary term: dt since the epoch, the orbital phase phi on
-// the centred branch, the orbit count and the period pb = PB + PBDOT dt.
+// the centred branch, the orbit count and the period pb: PB + PBDOT dt, or
+// 1 / (FB0 + FB1 dt + ...) in the FB form. `jac`: DDGR's Jacobian (its
+// PBDOT is derived), else null.
 template <int K>
 struct Orbit {
   Dual<K> dt, phi, pb;
@@ -463,7 +564,8 @@ struct Orbit {
 
 template <int K>
 __device__ Orbit<K> orbit(double t_hi, double t_lo, const Dual<K> &dsf,
-                          const double *__restrict__ P, const Lanes<K> &lane, int epoch_lane) {
+                          const double *__restrict__ P, const Lanes<K> &lane, int epoch_lane,
+                          int n_fb, const double *jac) {
   // dt = (t - epoch) - delay in dd; the epoch's lane enters with -1
   DDual<K> dtx;
   dtx.x = dd_add_fp(dd_sub(dd{t_hi, t_lo}, dd{P[P_EPOCH_HI], P[P_EPOCH_LO]}), -dsf.v);
@@ -474,19 +576,49 @@ __device__ Orbit<K> orbit(double t_hi, double t_lo, const Dual<K> &dsf,
   o.dt.v = dd_to_float(dtx.x);
 #pragma unroll
   for (int j = 0; j < K; ++j) o.dt.d[j] = dtx.d[j];
-  const Dual<K> pb0 = dseed<K>(__dadd_rn(P[P_PB_HI], P[P_PB_LO]), lane, L_PB);
-  // which orbit to measure from: rint carries no tangent
-  const double norb0 = rint(__ddiv_rn(o.dt.v, pb0.v));
-  Dual<K> rem;
-  rem.v = dd_to_float(dd_sub(dtx.x, dd_mul_fp(dd{P[P_PB_HI], P[P_PB_LO]}, norb0)));
+  double norb0;
+  Dual<K> frac;
+  if (n_fb > 0) {
+    // FB form: the lead dt FB0 in dd, rint, then the float64 tail
+    // taylor_horner(dt, [0, 0, FB1, ...]); pb = 1 / taylor_horner(dt, [FB0, FB1, ...])
+    DDual<K> fb0;
+    fb0.x = dd{P[P_FB0_HI], P[P_FB0_LO]};
 #pragma unroll
-  for (int j = 0; j < K; ++j) rem.d[j] = dtx.d[j] - pb0.d[j] * norb0;
-  Dual<K> frac = ddiv(rem, pb0);
-  const Dual<K> u = dadd(dconst<K>(norb0), frac);
-  const Dual<K> pbdot = dseed<K>(P[P_PBDOT], lane, L_PBDOT);
-  const Dual<K> pbdot_eff = dadd(pbdot, dconst<K>(P[P_XPBDOT]));
-  frac = dsub(frac, dmul(dmul(dmulc(pbdot_eff, 0.5), u), u));
-  o.pb = dadd(pb0, dmul(pbdot, o.dt));
+    for (int j = 0; j < K; ++j) fb0.d[j] = (lane.code[j] == L_FB0) ? 1.0 : 0.0;
+    const DDual<K> lead = ddmul_full(dtx, fb0);
+    norb0 = rint(dd_to_float(lead.x));
+    frac.v = dd_to_float(dd_add_fp(lead.x, -norb0));
+#pragma unroll
+    for (int j = 0; j < K; ++j) frac.d[j] = lead.d[j];
+    // FB_k as float64 (FB0 as hi + lo) on its lane
+    auto fbk = [&](int k) {
+      return dseed<K>(k == 0 ? __dadd_rn(P[P_FB0_HI], P[P_FB0_LO]) : P[P_FB1 + k - 1], lane,
+                      L_FB0 + k);
+    };
+    if (n_fb > 1) {
+      Dual<K> acc = ddivc(fbk(n_fb - 1), fact(n_fb));
+      for (int i = n_fb - 1; i >= 0; --i)
+        acc = dadd(dmul(acc, o.dt), i >= 2 ? ddivc(fbk(i - 1), fact(i)) : dconst<K>(0.0));
+      frac = dadd(frac, acc);
+    }
+    Dual<K> h = ddivc(fbk(n_fb - 1), fact(n_fb - 1));
+    for (int i = n_fb - 2; i >= 0; --i) h = dadd(dmul(h, o.dt), ddivc(fbk(i), fact(i)));
+    o.pb = ddiv(dconst<K>(1.0), h);
+  } else {
+    const Dual<K> pb0 = dseed<K>(__dadd_rn(P[P_PB_HI], P[P_PB_LO]), lane, L_PB);
+    // which orbit to measure from: rint carries no tangent
+    norb0 = rint(__ddiv_rn(o.dt.v, pb0.v));
+    Dual<K> rem;
+    rem.v = dd_to_float(dd_sub(dtx.x, dd_mul_fp(dd{P[P_PB_HI], P[P_PB_LO]}, norb0)));
+#pragma unroll
+    for (int j = 0; j < K; ++j) rem.d[j] = dtx.d[j] - pb0.d[j] * norb0;
+    frac = ddiv(rem, pb0);
+    const Dual<K> u = dadd(dconst<K>(norb0), frac);
+    const Dual<K> pbdot = dpk<K>(P, P_PBDOT, lane, L_PBDOT, jac, J_PBDOT);
+    const Dual<K> pbdot_eff = dadd(pbdot, dseed<K>(P[P_XPBDOT], lane, L_XPBDOT));
+    frac = dsub(frac, dmul(dmul(dmulc(pbdot_eff, 0.5), u), u));
+    o.pb = dadd(pb0, dmul(pbdot, o.dt));
+  }
   const double n2 = rint(frac.v);
   o.phi = dmulc(dsub(frac, dconst<K>(n2)), TWO_PI);
   o.norb = __dadd_rn(norb0, n2);
@@ -500,40 +632,95 @@ __device__ __forceinline__ Dual<K> secular_a1(const Orbit<K> &o, const double *_
   return dadd(dseed<K>(P[P_A1], lane, L_A1), dmul(dseed<K>(P[P_A1DOT], lane, L_A1DOT), o.dt));
 }
 
-// The ELL1 delay (binaries/engines.py ell1_delay) on the orbit `o`.
+// ELL1H's orthometric Shapiro delay (engines.py ell1h_delay, ell1h_shapiro):
+// the exact log form in STIGMA, or the harmonic series k = 3..nharms with
+// stigma = H4 / H3 (h4) or 0 (h3), each sin(k phi) or cos(k phi) its own
+template <int K>
+__device__ Dual<K> ell1h_shapiro(const Dual<K> &phi, const Dual<K> &s1,
+                                 const double *__restrict__ P, const Lanes<K> &lane,
+                                 const Config &c) {
+  const Dual<K> h3 = dseed<K>(P[P_H3], lane, L_H3);
+  if (c.h_mode == H_STIGMA) {
+    // -2 H3 / stigma^3 log(1 + stigma^2 - 2 stigma sin phi)
+    const Dual<K> sg = dseed<K>(P[P_STIGMA], lane, L_STIGMA);
+    const Dual<K> lognum = dsub(dadd(dconst<K>(1.0), dmul(sg, sg)), dmul(dmulc(sg, 2.0), s1));
+    return dmul(ddiv(dmulc(h3, -2.0), dmul(sg, dmul(sg, sg))), dlog(lognum));
+  }
+  Dual<K> sg = dconst<K>(0.0);
+  if (c.h_mode == H_H4)
+    sg = ddiv(dseed<K>(P[P_H4], lane, L_H4), h3.v == 0.0 ? dconst<K>(1.0) : h3);
+  Dual<K> total = dconst<K>(0.0);
+  for (int k = 3; k <= c.nharms; ++k) {
+    // (-1)^pwr (2 / k) stigma^(k - 3) basis(k phi)
+    const bool even = (k % 2) == 0;
+    const int pwr = even ? (k + 2) / 2 : (k + 1) / 2;
+    const double coef = ((pwr & 1) ? -1.0 : 1.0) * __ddiv_rn(2.0, (double)k);
+    const Dual<K> kphi = dmulc(phi, (double)k);
+    const Dual<K> basis = even ? dcos(kphi) : dsin(kphi);
+    total = dadd(total, dmul(dmulc(dipow(sg, k - 3), coef), basis));
+  }
+  return dmul(dmulc(h3, -2.0), total);
+}
+
+// The ELL1 family (binaries/engines.py ell1_delay, ell1h_delay, ell1k_delay)
+// on the orbit `o`.
 template <int K>
 __device__ Dual<K> ell1_term(const Orbit<K> &o, const double *__restrict__ P,
-                             const Lanes<K> &lane, double tsun) {
+                             const Lanes<K> &lane, const Config &c) {
   const Dual<K> &phi = o.phi, &dt = o.dt;
-  // engine: secular A1, EPS1, EPS2
+  // engine: secular A1 and the Roemer delay / a1 with its two phi derivatives
   const Dual<K> a1 = secular_a1(o, P, lane);
-  const Dual<K> e1 = dadd(dseed<K>(P[P_EPS1], lane, L_EPS1), dmulc(dt, P[P_EPS1DOT]));
-  const Dual<K> e2 = dadd(dseed<K>(P[P_EPS2], lane, L_EPS2), dmulc(dt, P[P_EPS2DOT]));
-  Ell1Harmonics<K> h;
-  h.s1 = dsin(phi);
-  h.c1 = dcos(phi);
-  const Dual<K> p2 = dmulc(phi, 2.0), p3 = dmulc(phi, 3.0), p4 = dmulc(phi, 4.0);
-  h.s2 = dsin(p2);
-  h.c2 = dcos(p2);
-  h.s3 = dsin(p3);
-  h.c3 = dcos(p3);
-  h.s4 = dsin(p4);
-  h.c4 = dcos(p4);
-  const Dual<K> e1sq = dmul(e1, e1), e2sq = dmul(e2, e2);
-  const Dual<K> e1cu = dmul(e1sq, e1), e2cu = dmul(e2sq, e2);
-  const Dual<K> Dre = dmul(a1, ell1_dre(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
-  const Dual<K> Drep = dmul(a1, ell1_drep(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
-  const Dual<K> Drepp = dmul(a1, ell1_drepp(h, e1, e2, e1sq, e2sq, e1cu, e2cu));
+  Dual<K> dre, drep, drepp, s1;
+  if (c.bin_model == ELL1_K) {
+    // the eccentricity vector turns at OMDOT and grows at LNEDOT; the
+    // first-order expansion with ELL1K's extra -3 eps1 / 2
+    const Dual<K> omdot = dseed<K>(P[P_OMDOT], lane, L_OMDOT);
+    const Dual<K> lnedot = dseed<K>(P[P_LNEDOT], lane, L_LNEDOT);
+    const Dual<K> e10 = dseed<K>(P[P_EPS1], lane, L_EPS1), e20 = dseed<K>(P[P_EPS2], lane, L_EPS2);
+    const Dual<K> wdt = dmul(omdot, dt);
+    const Dual<K> cw = dcos(wdt), sw = dsin(wdt);
+    const Dual<K> growth = dadd(dconst<K>(1.0), dmul(lnedot, dt));
+    const Dual<K> e1 = dmul(growth, dadd(dmul(e10, cw), dmul(e20, sw)));
+    const Dual<K> e2 = dmul(growth, dsub(dmul(e20, cw), dmul(e10, sw)));
+    s1 = dsin(phi);
+    const Dual<K> p2 = dmulc(phi, 2.0);
+    const Dual<K> s2 = dsin(p2), c2 = dcos(p2);
+    dre = dadd(s1, dmulc(dsub(dmul(e2, s2), dmul(e1, dadd(c2, dconst<K>(3.0)))), 0.5));
+    drep = dadd(dadd(dcos(phi), dmul(e2, c2)), dmul(e1, s2));
+    drepp = dadd(dsub(dneg(s1), t2(2.0, e2, s2)), t2(2.0, e1, c2));
+  } else {
+    // secular EPS1, EPS2 and ELL1's third-order expansion
+    const Dual<K> e1 = dadd(dseed<K>(P[P_EPS1], lane, L_EPS1), dmulc(dt, P[P_EPS1DOT]));
+    const Dual<K> e2 = dadd(dseed<K>(P[P_EPS2], lane, L_EPS2), dmulc(dt, P[P_EPS2DOT]));
+    Ell1Harmonics<K> h;
+    h.s1 = dsin(phi);
+    h.c1 = dcos(phi);
+    const Dual<K> p2 = dmulc(phi, 2.0), p3 = dmulc(phi, 3.0), p4 = dmulc(phi, 4.0);
+    h.s2 = dsin(p2);
+    h.c2 = dcos(p2);
+    h.s3 = dsin(p3);
+    h.c3 = dcos(p3);
+    h.s4 = dsin(p4);
+    h.c4 = dcos(p4);
+    const Dual<K> e1sq = dmul(e1, e1), e2sq = dmul(e2, e2);
+    const Dual<K> e1cu = dmul(e1sq, e1), e2cu = dmul(e2sq, e2);
+    dre = ell1_dre(h, e1, e2, e1sq, e2sq, e1cu, e2cu);
+    drep = ell1_drep(h, e1, e2, e1sq, e2sq, e1cu, e2cu);
+    drepp = ell1_drepp(h, e1, e2, e1sq, e2sq, e1cu, e2cu);
+    s1 = h.s1;
+  }
+  const Dual<K> Dre = dmul(a1, dre), Drep = dmul(a1, drep), Drepp = dmul(a1, drepp);
   // inverse timing: Dre (1 - x + x^2 + 0.5 nhat^2 Dre Drepp), x = nhat Drep
   const Dual<K> nhat = ddiv(dconst<K>(TWO_PI), o.pb);
   const Dual<K> x = dmul(nhat, Drep);
   Dual<K> g = dadd(dsub(dconst<K>(1.0), x), dmul(x, x));
   g = dadd(g, dmul(dmul(dmulc(dmul(nhat, nhat), 0.5), Dre), Drepp));
   const Dual<K> delay_i = dmul(Dre, g);
+  if (c.bin_model == ELL1_H) return dadd(delay_i, ell1h_shapiro<K>(phi, s1, P, lane, c));
   // Shapiro: -2 TSUN M2 log(1 - SINI sin phi)
-  const Dual<K> tm2 = dmulc(dseed<K>(P[P_M2], lane, L_M2), tsun);
+  const Dual<K> tm2 = dmulc(dseed<K>(P[P_M2], lane, L_M2), c.tsun);
   const Dual<K> sini = dseed<K>(P[P_SINI], lane, L_SINI);
-  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), dlog(dsub(dconst<K>(1.0), dmul(sini, h.s1))));
+  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), dlog(dsub(dconst<K>(1.0), dmul(sini, s1))));
   return dadd(delay_i, delay_s);
 }
 
@@ -585,18 +772,66 @@ __device__ Dual<K> true_anomaly(const Dual<K> &E, const Dual<K> &e) {
   return dadd(dmulc(datan2(y, x), 2.0), dconst<K>(two_pi_n));
 }
 
-// BT (engines.py bt_delay) and DD (engines.py _dd_core; DDS is DD with the
-// host's SINI and its SHAPMAX seed) on the orbit `o`.
+// DDK's per-row A1, OM and SINI (engines.py ddk_corrections): the proper
+// motion drifts the inclination and turns the node over dt = t_hi - T0
+// (plain float64, as pint_tpu); with astrometry, the parallax adds the
+// site's position r in the (east, north) basis at the pulsar direction n,
+// east = zhat x n / |zhat x n| and north = n x east (jnp.cross's order),
+// over pint_tpu's literal DDK_AU_LS. out: A1, OM, SINI.
+template <int K>
+__device__ void ddk_corrections(double t_hi, const Dual<K> *n, bool has_ast, const double *r,
+                                const double *__restrict__ P, const Lanes<K> &lane,
+                                Dual<K> *out) {
+  const Dual<K> kin0 = dseed<K>(P[P_KIN], lane, L_KIN), kom = dseed<K>(P[P_KOM], lane, L_KOM);
+  const Dual<K> skom = dsin(kom), ckom = dcos(kom);
+  const Dual<K> dt =
+      dsub(dconst<K>(t_hi), dseed<K>(__dadd_rn(P[P_EPOCH_HI], P[P_EPOCH_LO]), lane, L_T0));
+  const Dual<K> pmra = dseed<K>(P[P_PMRA], lane, L_PMRA);
+  const Dual<K> pmdec = dseed<K>(P[P_PMDEC], lane, L_PMDEC);
+  Dual<K> d_kin = dmul(dadd(dmul(dneg(pmra), skom), dmul(pmdec, ckom)), dt);
+  const Dual<K> skin0 = dsin(kin0);
+  Dual<K> dom = ddiv(dmul(dadd(dmul(pmra, ckom), dmul(pmdec, skom)), dt), skin0);
+  if (has_ast) {
+    // east = zhat x n: (0 n2 - 1 n1, 1 n0 - 0 n2, 0 n1 - 0 n0), normalized
+    Dual<K> e[3] = {dsub(dmulc(n[2], 0.0), dmulc(n[1], 1.0)),
+                    dsub(dmulc(n[0], 1.0), dmulc(n[2], 0.0)),
+                    dsub(dmulc(n[1], 0.0), dmulc(n[0], 0.0))};
+    const Dual<K> norm = dsqrt(dadd(dadd(dmul(e[0], e[0]), dmul(e[1], e[1])), dmul(e[2], e[2])));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) e[k] = ddiv(e[k], norm);
+    // north = n x east
+    const Dual<K> no[3] = {dsub(dmul(n[1], e[2]), dmul(n[2], e[1])),
+                           dsub(dmul(n[2], e[0]), dmul(n[0], e[2])),
+                           dsub(dmul(n[0], e[1]), dmul(n[1], e[0]))};
+    const Dual<K> r_e = ddot3(r, e), r_n = ddot3(r, no);
+    const Dual<K> inv_d = ddivc(dseed<K>(P[P_PX], lane, L_PX), DDK_AU_LS);
+    d_kin = dsub(d_kin, dmul(inv_d, dsub(dmul(r_e, skom), dmul(r_n, ckom))));
+    dom = dsub(dom, ddiv(dmul(inv_d, dadd(dmul(r_e, ckom), dmul(r_n, skom))), skin0));
+  }
+  const Dual<K> kin_t = dadd(kin0, d_kin);
+  const Dual<K> skin_t = dsin(kin_t);
+  out[0] = ddiv_jax(dmul(dseed<K>(P[P_A1], lane, L_A1), skin_t), skin0);
+  out[1] = dadd(dseed<K>(P[P_OM], lane, L_OM), dom);
+  out[2] = skin_t;
+}
+
+// BT (engines.py bt_delay) and DD (engines.py _dd_core) on the orbit `o`:
+// DDS is DD with the host's SINI and its SHAPMAX seed; DDGR (`jac` given)
+// DD with the host's derived values seeded by their Jacobian rows; DDK
+// (`kop` given) DD with its per-row A1, OM and SINI.
 template <int K>
 __device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
-                               const Lanes<K> &lane, int model, double tsun) {
+                               const Lanes<K> &lane, int model, double tsun, const double *jac,
+                               const Dual<K> *kop) {
   const Dual<K> one = dconst<K>(1.0);
   const Dual<K> e = dadd(dseed<K>(P[P_ECC], lane, L_ECC),
                          dmul(dseed<K>(P[P_EDOT], lane, L_EDOT), o.dt));
-  const Dual<K> a1 = secular_a1(o, P, lane);
-  const Dual<K> gamma = dseed<K>(P[P_GAMMA], lane, L_GAMMA);
-  const Dual<K> om = dseed<K>(P[P_OM], lane, L_OM);
-  const Dual<K> omdot = dseed<K>(P[P_OMDOT], lane, L_OMDOT);
+  const Dual<K> a1 = kop != nullptr
+                         ? dadd(kop[0], dmul(dseed<K>(P[P_A1DOT], lane, L_A1DOT), o.dt))
+                         : secular_a1(o, P, lane);
+  const Dual<K> gamma = dpk<K>(P, P_GAMMA, lane, L_GAMMA, jac, J_GAMMA);
+  const Dual<K> om = kop != nullptr ? kop[1] : dseed<K>(P[P_OM], lane, L_OM);
+  const Dual<K> omdot = dpk<K>(P, P_OMDOT, lane, L_OMDOT, jac, J_OMDOT);
   Dual<K> sinE, cosE;
   const Dual<K> E = kepler_E(o.phi, e, sinE, cosE);
   if (model == KEPLER_BT) {
@@ -617,8 +852,8 @@ __device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
   const Dual<K> k = ddivc(dmul(omdot, o.pb), TWO_PI);
   const Dual<K> omega = dadd(om, dmul(k, nu_full));
   const Dual<K> sw = dsin(omega), cw = dcos(omega);
-  const Dual<K> er = dmul(e, dadd(one, dseed<K>(P[P_DR], lane, L_DR)));
-  const Dual<K> eth = dmul(e, dadd(one, dseed<K>(P[P_DTH], lane, L_DTH)));
+  const Dual<K> er = dmul(e, dadd(one, dpk<K>(P, P_DR, lane, L_DR, jac, J_DR)));
+  const Dual<K> eth = dmul(e, dadd(one, dpk<K>(P, P_DTH, lane, L_DTH, jac, J_DTH)));
   const Dual<K> alpha = dmul(a1, sw);
   const Dual<K> beta = dmul(dmul(a1, dsqrt(dsub(one, dmul(eth, eth)))), cw);
   const Dual<K> bg = dadd(beta, gamma);
@@ -638,7 +873,9 @@ __device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
   const Dual<K> delay_i = dmul(Dre, g);
   // Shapiro: -2 TSUN M2 log(1 - e cos E - SINI (sin w (cos E - e) + sqrt(1 - e^2) cos w sin E))
   const Dual<K> tm2 = dmulc(dseed<K>(P[P_M2], lane, L_M2), tsun);
-  const Dual<K> sini = dseed2<K>(P[P_SINI], lane, L_SINI, L_SHAPMAX, P[P_DSINI]);
+  const Dual<K> sini = kop != nullptr ? kop[2]
+                       : jac != nullptr ? djac<K>(P[P_SINI], lane, jac + 6 * J_SINI)
+                                        : dseed2<K>(P[P_SINI], lane, L_SINI, L_SHAPMAX, P[P_DSINI]);
   const Dual<K> orbit_s = dadd(dmul(sw, dsub(cosE, e)),
                                dmul(dmul(dsqrt(dsub(one, dmul(e, e))), cw), sinE));
   const Dual<K> arg = dsub(one_m_ecosE, dmul(sini, orbit_s));
@@ -743,11 +980,18 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     }
   }
   if constexpr (BIN == BIN_ELL1) {
-    const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_TASC);
-    total = dadd(total, ell1_term<K>(o, P, lane, c.tsun));
+    const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_TASC, c.n_fb, nullptr);
+    total = dadd(total, ell1_term<K>(o, P, lane, c));
   } else if constexpr (BIN == BIN_KEPLER) {
-    const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_T0);
-    total = dadd(total, kepler_term<K>(o, P, lane, c.bin_model, c.tsun));
+    const double *jac = c.bin_model == KEPLER_DDGR ? P + P_JAC : nullptr;
+    const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_T0, c.n_fb, jac);
+    if (c.bin_model == KEPLER_DDK) {
+      Dual<K> kop[3];
+      ddk_corrections<K>(t_hi, n, c.has_ast, rows.pos + 3 * i, P, lane, kop);
+      total = dadd(total, kepler_term<K>(o, P, lane, c.bin_model, c.tsun, nullptr, kop));
+    } else {
+      total = dadd(total, kepler_term<K>(o, P, lane, c.bin_model, c.tsun, jac, nullptr));
+    }
   }
   // spindown (spindown.py): dt = (t - delay) - PEPOCH in dd
   const int f_base = P_DM0 + c.nd;
@@ -902,8 +1146,8 @@ cudaError_t launch_kind(bool ng, int k, const Rows &rows, const double *params, 
 }  // namespace
 
 // ints: n_rows n_out has_tzr has_ast nd nf n_par k bin_kind bin_model ecliptic
-// n_dmx n_fd n_jump lane[0..LMAX) (bin_kind: 0 none, 1 ELL1, 2 Kepler;
-// bin_model: 0 BT, 1 DD or DDS)
+// n_dmx n_fd n_jump n_fb h_mode nharms lane[0..LMAX) (bin_kind: 0 none, 1
+// ELL1, 2 Kepler; bin_model: ELL1_* or KEPLER_*; n_fb: 0 for the PB form)
 // consts: au_ls dmconst tsun cos_obl sin_obl
 // dmx, jump (n_batch, n_rows): each set's DMX DM and jump seconds per row;
 // onehot (n_rows, n_dmx), masks (n_jump, n_rows): the DMX and JUMP lanes'
@@ -933,16 +1177,23 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   c.n_dmx = ints[11];
   c.n_fd = ints[12];
   c.n_jump = ints[13];
+  c.n_fb = ints[14];
+  c.h_mode = ints[15];
+  c.nharms = ints[16];
+  const int n_models = bin_kind == BIN_ELL1 ? 3 : bin_kind == BIN_KEPLER ? 4 : 1;
   if (k < 0 || k > LMAX || c.nf < 1 || c.nd < 0 || c.nd > 16 || c.n_out < 0 ||
       n_batch < 1 || n_batch > 65535 || c.n_fd < 0 || c.n_fd > MAX_FD || c.n_dmx < 0 ||
       c.n_jump < 0 || c.n_par != P_DM0 + c.nd + 2 * c.nf + c.n_fd ||
-      bin_kind < BIN_NONE || bin_kind > BIN_KEPLER || c.bin_model < 0 || c.bin_model > 1)
+      bin_kind < BIN_NONE || bin_kind > BIN_KEPLER || c.bin_model < 0 ||
+      c.bin_model >= n_models || c.n_fb < 0 || c.n_fb > MAX_FB || c.h_mode < H_H3 ||
+      c.h_mode > H_STIGMA || c.nharms < 0 || c.nharms > MAX_NHARMS ||
+      (c.bin_model == KEPLER_DDK && bin_kind == BIN_KEPLER && c.ecliptic))
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[14 + j] : -1;
+  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[17 + j] : -1;
   for (int j = 0; j < k; ++j) {  // a DMX or JUMP lane names an existing column
     const int m = c.lane[j];
-    if ((m >= L_DMX0 && m - L_DMX0 >= c.n_dmx) || (m >= L_JUMP0 && m < L_DMX0 &&
-                                                   m - L_JUMP0 >= c.n_jump))
+    if ((m >= L_DMX0 && m < L_FB0 && m - L_DMX0 >= c.n_dmx) ||
+        (m >= L_JUMP0 && m < L_DMX0 && m - L_JUMP0 >= c.n_jump))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   c.au_ls = consts[0];

@@ -41,17 +41,18 @@ log = logging.getLogger("pint_tpu_torch.fitting")
 SVD_THRESHOLD = 1e-14
 
 
-# hard physical domains (pint_tpu _PARAM_DOMAIN, the entries of the binaries
-# the port builds): a Gauss-Newton step from far off the minimum can propose
-# e.g. SINI > 1, whose log turns every residual NaN; every fitter step is
-# projected back onto the boundary
+# hard physical domains (pint_tpu _PARAM_DOMAIN): a Gauss-Newton step from
+# far off the minimum can propose e.g. SINI > 1, whose log turns every
+# residual NaN; every fitter step is projected back onto the boundary
 _EPS_DOM = 1e-12
 _PARAM_DOMAIN = {
     "ECC": (0.0, 1.0 - _EPS_DOM),
     "SINI": (-1.0 + _EPS_DOM, 1.0 - _EPS_DOM),
     "EPS1": (-0.7, 0.7),
     "EPS2": (-0.7, 0.7),
+    "STIGMA": (-1.0 + _EPS_DOM, 1.0 - _EPS_DOM),
     "M2": (0.0, np.inf),
+    "MTOT": (0.0, np.inf),
 }
 
 

@@ -146,6 +146,11 @@ class Component:
     def add_prefix_param(self, spec: ParamSpec) -> None:
         self.specs[spec.name] = spec
 
+    def func_param_specs(self) -> list:
+        """The read-only derived parameters this component exposes
+        (``parameter.FuncParamSpec``)."""
+        return []
+
     def validate(self, params: dict, meta: dict) -> None:
         """Raise on inconsistent configuration."""
 

@@ -1,5 +1,6 @@
 """Binary-orbit delay engines as plain torch functions (counterpart of
-``pint_tpu/models/binaries/engines.py``: BT, DD, DDS and ELL1).
+``pint_tpu/models/binaries/engines.py``: BT, DD, DDS, DDGR and DDK, ELL1,
+ELL1H and ELL1K).
 
 An engine maps (params, dt, phi, norb, pb) -> delay seconds, where
 
@@ -11,16 +12,25 @@ An engine maps (params, dt, phi, norb, pb) -> delay seconds, where
   reduced in double-double by the wrapper;
 - ``norb``   orbit count (integer-valued float64), which re-attaches the
   true anomaly to its orbit in DD's omega = OM + k nu;
-- ``pb``     the instantaneous orbital period PB + PBDOT dt, seconds.
+- ``pb``     the instantaneous orbital period, seconds: PB + PBDOT dt, or
+  1 / (FB0 + FB1 dt + ...) in the orbital-frequency form.
 
 BT follows Blandford & Teukolsky (1976), DD Damour & Deruelle (1986) eqs
 25-52, DDS Kramer et al. (2006); both solve Kepler's equation through
-``kepler.kepler_E``. ELL1 follows Lange et al. (2001) with the third-order
-eccentricity terms of Zhu et al. (2019) and Fiore et al. (2023). These
+``kepler.kepler_E``; DDGR derives DD's post-Keplerian parameters from the
+masses under GR (`ddgr_derived`), DDK moves A1, OM and sin i per TOA by
+Kopeikin's proper-motion and parallax terms (`ddk_corrections`). ELL1
+follows Lange et al. (2001) with the third-order eccentricity terms of Zhu
+et al. (2019) and Fiore et al. (2023), ELL1H adds Freire & Wex's (2010)
+orthometric Shapiro delay, ELL1K (Susobhanan et al. 2018) an advancing,
+decaying eccentricity vector. These
 functions are the plain twin of the binary terms of kernel K1
 (csrc/resid_tangent.cu), which evaluates the same expressions per TOA with
-forward-mode tangents, in the same order. Powers that jax traces as
-``integer_pow`` are spelled as products; divisions by a constant and of a
+forward-mode tangents, in the same order (DDGR's derived scalars excepted:
+they are formed once per parameter set on the host, `ddgr_derived`, and
+reach the kernel with their Jacobian). Powers that jax traces as
+``integer_pow`` are spelled as products in its order (`ipow`); a float
+power is the C library's on the CPU (``libm.pow``); divisions by a constant and of a
 constant divide by a tensor (``erot.fdiv``, ``_rdiv``: torch's ``x / c`` on
 CUDA is ``x * (1 / c)`` and its ``c / x`` everywhere ``c * (1 / x)``).
 """
@@ -225,7 +235,7 @@ def _ell1_inverse(a1, pb, dre_da1, drep_da1, drepp_da1):
     Dre = a1 * dre_da1
     Drep = a1 * drep_da1
     Drepp = a1 * drepp_da1
-    nhat = TWO_PI / pb
+    nhat = _rdiv(TWO_PI, pb)
     return Dre * (1.0 - nhat * Drep + (nhat * Drep) ** 2 + 0.5 * nhat**2 * Dre * Drepp)
 
 
@@ -249,3 +259,225 @@ def ell1_delay(p: dict, dt, phi, norb, pb):
     tm2 = _get(p, "M2") * TSUN_S
     delayS = -2.0 * tm2 * libm.log(1.0 - _get(p, "SINI") * libm.sin(phi))
     return delayI + delayS
+
+
+def ipow(x, y: int):
+    """x ** y for an integer y >= 0 as jax's ``integer_pow`` lowers it: by
+    repeated squaring, the result multiplied on the left (x^3 = x (x x),
+    x^4 = (x x)(x x)); y = 0 gives ones."""
+    if y == 0:
+        return torch.ones_like(torch.as_tensor(x, dtype=torch.float64))
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc
+
+
+def ell1h_shapiro(h3, stigma, phi, nharms: int):
+    """Freire & Wex (2010) orthometric Shapiro delay from the 3rd harmonic
+    up (their eq 19): harmonic k contributes (-1)^pwr (2/k) stigma^(k-3)
+    basis(k phi), basis sin and pwr (k+1)/2 for odd k, cos and (k+2)/2 for
+    even k; each sin(k phi), cos(k phi) evaluated on its own."""
+    total = torch.zeros_like(phi)
+    for k in range(3, nharms + 1):
+        if k % 2 == 0:
+            pwr = (k + 2) // 2
+            basis = libm.cos(k * phi)
+        else:
+            pwr = (k + 1) // 2
+            basis = libm.sin(k * phi)
+        total = total + (-1.0) ** pwr * (2.0 / k) * ipow(stigma, k - 3) * basis
+    return -2.0 * h3 * total
+
+
+def ell1h_delay(p: dict, dt, phi, norb, pb, nharms: int = 3, mode: str = "h3"):
+    """ELL1H: ELL1's Roemer delay and the orthometric Shapiro delay, in
+    `mode` "h3" (the harmonic series with stigma = 0), "h4" (stigma =
+    H4 / H3, NHARMS >= 7) or "stigma" (the exact form, Freire & Wex eq 29:
+    -2 H3 / stigma^3 ln(1 + stigma^2 - 2 stigma sin phi))."""
+    a1 = _a1(p, dt)
+    e1, e2 = _ell1_eps(p, dt)
+    delayI = _ell1_inverse(
+        a1,
+        pb,
+        _ell1_dre_da1(phi, e1, e2),
+        _ell1_dre_dphi_da1(phi, e1, e2),
+        _ell1_dre_dphi2_da1(phi, e1, e2),
+    )
+    h3 = _get(p, "H3")
+    if mode == "stigma":
+        stigma = _get(p, "STIGMA")
+        lognum = 1.0 + stigma * stigma - 2.0 * stigma * libm.sin(phi)
+        delayS = -2.0 * h3 / ipow(stigma, 3) * libm.log(lognum)
+    else:
+        if mode == "h4":
+            stigma = _get(p, "H4") / torch.where(h3 == 0.0, 1.0, h3)
+        else:
+            stigma = torch.zeros_like(h3)
+        delayS = ell1h_shapiro(h3, stigma, phi, nharms)
+    return delayI + delayS
+
+
+def ell1k_delay(p: dict, dt, phi, norb, pb):
+    """ELL1K (Susobhanan et al. 2018): the eccentricity vector rotates at
+    OMDOT and grows at LNEDOT; the first-order Roemer delay with the extra
+    -3 eps1 / 2 term; M2/SINI Shapiro."""
+    a1 = _a1(p, dt)
+    omdot = _get(p, "OMDOT")
+    lnedot = _get(p, "LNEDOT")
+    e10, e20 = _get(p, "EPS1"), _get(p, "EPS2")
+    cw, sw = libm.cos(omdot * dt), libm.sin(omdot * dt)
+    growth = 1.0 + lnedot * dt
+    e1 = growth * (e10 * cw + e20 * sw)
+    e2 = growth * (e20 * cw - e10 * sw)
+    s1 = libm.sin(phi)
+    s2, c2 = libm.sin(2 * phi), libm.cos(2 * phi)
+    dre_da1 = s1 + 0.5 * (e2 * s2 - e1 * (c2 + 3.0))
+    drep_da1 = libm.cos(phi) + e2 * c2 + e1 * s2
+    drepp_da1 = -s1 - 2.0 * e2 * s2 + 2.0 * e1 * c2
+    delayI = _ell1_inverse(a1, pb, dre_da1, drep_da1, drepp_da1)
+    tm2 = _get(p, "M2") * TSUN_S
+    delayS = -2.0 * tm2 * libm.log(1.0 - _get(p, "SINI") * s1)
+    return delayI + delayS
+
+
+# --- DDGR: GR-derived post-Keplerian parameters ---------------------------------
+
+#: DDGR's derived parameters, and the inputs they are functions of
+DDGR_DERIVED = ("OMDOT", "GAMMA", "PBDOT", "SINI", "DR", "DTH")
+DDGR_INPUTS = ("MTOT", "M2", "ECC", "A1", "PB", "XOMDOT")
+
+
+def ddgr_derived(params: dict) -> dict:
+    """DD's post-Keplerian parameters from (MTOT, M2) under GR (Damour &
+    Deruelle 1986, Taylor & Weisberg 1989), with n = 2 pi / PB:
+
+        OMDOT = 3 n^(5/3) (Tsun MTOT)^(2/3) / (1 - e^2)   [+ XOMDOT]
+        GAMMA = e n^(-1/3) Tsun^(2/3) m2 (m1 + 2 m2) / MTOT^(4/3)
+        PBDOT = -(192 pi / 5) n^(5/3) f(e) Tsun^(5/3) m1 m2 / MTOT^(1/3)
+        SINI  = n^(2/3) x (Tsun MTOT)^(2/3) / (Tsun m2)
+        DR    = n^(2/3) Tsun^(2/3) (3 m1^2 + 6 m1 m2 + 2 m2^2) / MTOT^(4/3)
+        DTH   = n^(2/3) Tsun^(2/3) (3.5 m1^2 + 6 m1 m2 + 2 m2^2) / MTOT^(4/3)
+
+    float64 values, shaped as the inputs. Float powers of tensors are
+    ``libm.pow``; those of the constant Tsun are Python's (the C
+    library's), as in pint_tpu."""
+    from pint_tpu_torch.models.base import leaf_to_f64
+
+    mt = leaf_to_f64(params["MTOT"])
+    m2 = leaf_to_f64(params["M2"])
+    m1 = mt - m2
+    e = leaf_to_f64(params.get("ECC", 0.0))
+    x = leaf_to_f64(params.get("A1", 0.0))
+    pb = leaf_to_f64(params["PB"])
+    n = _rdiv(2.0 * math.pi, pb)
+    t = TSUN_S
+    n23 = libm.pow(n, 2.0 / 3.0)
+    omdot = 3.0 * libm.pow(n, 5.0 / 3.0) * libm.pow(t * mt, 2.0 / 3.0) / (1.0 - e * e)
+    omdot = omdot + leaf_to_f64(params.get("XOMDOT", 0.0))
+    gamma = (e * libm.pow(n, -1.0 / 3.0) * t ** (2.0 / 3.0) * m2 * (m1 + 2.0 * m2)
+             / libm.pow(mt, 4.0 / 3.0))
+    e2 = e * e
+    fe = (1.0 + 73.0 / 24.0 * e2 + 37.0 / 96.0 * (e2 * e2)) / libm.pow(1.0 - e * e, 3.5)
+    pbdot = (-192.0 * math.pi / 5.0 * libm.pow(n, 5.0 / 3.0) * fe * t ** (5.0 / 3.0)
+             * m1 * m2 / libm.pow(mt, 1.0 / 3.0))
+    sini = n23 * x * libm.pow(t * mt, 2.0 / 3.0) / (t * m2)
+    m12, m22 = m1 * m1, m2 * m2
+    dr = (n23 * t ** (2.0 / 3.0) * (3.0 * m12 + 6.0 * m1 * m2 + 2.0 * m22)
+          / libm.pow(mt, 4.0 / 3.0))
+    dth = (n23 * t ** (2.0 / 3.0) * (3.5 * m12 + 6.0 * m1 * m2 + 2.0 * m22)
+           / libm.pow(mt, 4.0 / 3.0))
+    return {"OMDOT": omdot, "GAMMA": gamma, "PBDOT": pbdot, "SINI": sini, "DR": dr,
+            "DTH": dth}
+
+
+# --- DDK: Kopeikin proper-motion + annual-parallax corrections ------------------
+
+#: the light-seconds per AU that pint_tpu's DDK divides the parallax by
+#: (engines.py's own literal, not ``pint_tpu_torch.AU_LS``)
+DDK_AU_LS = 499.00478384
+
+
+class _JaxDiv(torch.autograd.Function):
+    """a / b with jax's tangent rule for division, ta / b + ((-tb) a) (1 /
+    (b b)), where torch's is ta / b - tb ((a / b) / b). DDK's
+    A1 sin(kin) / sin(KIN) cancels to ~1e-7 of its terms in the KIN lane, so
+    the two rules' last bits there move the KIN design column by ~3e-10;
+    kernel K1 takes the same rule (resid_tangent.cu ddiv_jax)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, b):
+        return a / b
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, ta, tb):
+        a, b = ctx.saved_tensors
+        out = None if ta is None else ta / b
+        if tb is not None:
+            term = ((-tb) * a) * (1.0 / (b * b))
+            out = term if out is None else out + term
+        return out if out is not None else torch.zeros_like(a / b)
+
+
+def _cross(a, b):
+    """a x b over the last axis, in jnp.cross's order."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def _sum3(v):
+    """Sum over the last axis (length 3) from zero, in order, as XLA's CPU
+    reduction runs it."""
+    return (v[..., 0] + v[..., 1]) + v[..., 2]
+
+
+def ddk_corrections(params: dict, tensor: dict) -> dict:
+    """Per-TOA A1, OM and SINI of DDK's orbital orientation (KIN, KOM)
+    (Kopeikin 1995 eq 18, 1996 eqs 10, 16): the proper motion drifts the
+    inclination, d(kin) = (-PMRA sin KOM + PMDEC cos KOM) dt, and turns the
+    node, d(OM) = (PMRA cos KOM + PMDEC sin KOM) dt / sin KIN; the annual
+    parallax, with the site's position r in the (east, north) basis at the
+    pulsar, adds -(PX / AU)(r_e sin KOM - r_n cos KOM) to the first and
+    -(PX / AU)(r_e cos KOM + r_n sin KOM) / sin KIN to the second. dt is
+    t_hi - T0 in plain float64, as in pint_tpu."""
+    from pint_tpu_torch.models.base import leaf_to_f64
+
+    if "PMELONG" in params or "PMELAT" in params or "ELONG" in params:
+        raise NotImplementedError("DDK requires equatorial astrometry (RAJ/DECJ/PMRA/PMDEC)")
+    kin0 = leaf_to_f64(params["KIN"])
+    kom = leaf_to_f64(params["KOM"])
+    x0 = leaf_to_f64(params["A1"])
+    om0 = leaf_to_f64(params.get("OM", 0.0))
+    sin_kom, cos_kom = libm.sin(kom), libm.cos(kom)
+    dt = tensor["t_hi"] - leaf_to_f64(params.get("T0", 0.0))
+    pmra = leaf_to_f64(params.get("PMRA", 0.0))
+    pmdec = leaf_to_f64(params.get("PMDEC", 0.0))
+    d_kin = (-pmra * sin_kom + pmdec * cos_kom) * dt
+    dom = (pmra * cos_kom + pmdec * sin_kom) * dt / libm.sin(kin0)
+    px = leaf_to_f64(params.get("PX", 0.0))
+    if "_psr_dir" in tensor:
+        n_hat = tensor["_psr_dir"]
+        zhat = n_hat.new_tensor([0.0, 0.0, 1.0])
+        east = _cross(torch.broadcast_to(zhat, n_hat.shape), n_hat)
+        east = east / torch.sqrt(_sum3(east * east))[..., None]
+        north = _cross(n_hat, east)
+        r = tensor["ssb_obs_pos_ls"]
+        r_e = _sum3(r * east)
+        r_n = _sum3(r * north)
+        inv_d = fdiv(px, DDK_AU_LS)
+        d_kin = d_kin - inv_d * (r_e * sin_kom - r_n * cos_kom)
+        dom = dom - inv_d * (r_e * cos_kom + r_n * sin_kom) / libm.sin(kin0)
+    kin_t = kin0 + d_kin
+    return {"A1": _JaxDiv.apply(x0 * libm.sin(kin_t), libm.sin(kin0)), "OM": om0 + dom,
+            "SINI": libm.sin(kin_t)}

@@ -1,7 +1,8 @@
 """Model builder: parfile -> components -> TimingModel (counterpart of
 ``pint_tpu/models/builder.py``, restricted to the components ported so far:
 AstrometryEquatorial, AstrometryEcliptic, SolarSystemShapiro, DispersionDM,
-DispersionDMX, FD, PulsarBinary (ELL1, BT, DD, DDS), Spindown, PhaseJump,
+DispersionDMX, FD, PulsarBinary (every BINARY model of pint_tpu, PB or FB
+form), Spindown, PhaseJump,
 AbsPhase, ScaleToaError, EcorrNoise, PLRedNoise, PLDMNoise).
 
 Mask parameters (``EFAC -f Rcvr1_2_GUPPI 1.02``) number per family in
@@ -25,7 +26,7 @@ from pint_tpu_torch.io.par import ParFile, parse_fit_flag, parse_parfile
 from pint_tpu_torch.io.tim import mjd_string_to_day_frac
 from pint_tpu_torch.models.astrometry import AstrometryEcliptic, AstrometryEquatorial
 from pint_tpu_torch.models.base import Component
-from pint_tpu_torch.models.binary import BINARY_MODELS, PulsarBinary
+from pint_tpu_torch.models.binary import make_binary_component
 from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
 from pint_tpu_torch.models.frequency_dependent import FD
 from pint_tpu_torch.models.noise import (EcorrNoise, NoiseComponent, PLDMNoise, PLRedNoise,
@@ -54,10 +55,6 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
     that the port does not have yet."""
     names = list(pf.names())
     checks = [
-        ("BINARY", "BINARY" in pf and pf.get("BINARY").upper() not in BINARY_MODELS,
-         "A8 (BINARY DDGR, DDK, ELL1H, ELL1K)"),
-        ("FB0", "BINARY" in pf and any(n.startswith("FB") and n[2:].isdigit() for n in names),
-         "A8 (the FB orbital-frequency form)"),
         ("DMJUMP", "DMJUMP" in pf, "A9 (DMJUMP)"),
         ("PHOFF", "PHOFF" in pf, "A9 (PhaseOffset)"),
         ("DJUMP", "DJUMP" in pf, "A9 (DelayJump)"),
@@ -133,7 +130,7 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
     if any(n.startswith("FD") and n[2:].isdigit() for n in pf.names()):
         components.append(FD())
     if "BINARY" in pf:
-        components.append(PulsarBinary(pf.get("BINARY")))
+        components.append(make_binary_component(pf.get("BINARY").upper(), pf))
         meta["BINARY"] = pf.get("BINARY").upper()
         consumed.add("BINARY")
     if any(k in pf for k in ("EFAC", "T2EFAC", "EQUAD", "T2EQUAD")):

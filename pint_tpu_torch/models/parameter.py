@@ -140,6 +140,28 @@ class ParamSpec:
 
 
 @dataclass
+class FuncParamSpec:
+    """A read-only derived parameter: a named function of other parameters
+    (pint_tpu's FuncParamSpec; DDS exposes SINI from SHAPMAX, DDGR its
+    GR-derived post-Keplerian set). `func` maps the float64 values of
+    `inputs`, in internal units and in order, to the derived value in
+    internal units. Evaluated on the host by ``TimingModel.get_derived``;
+    never a fit parameter."""
+
+    name: str
+    inputs: tuple[str, ...]
+    func: Callable[..., float]
+    description: str = ""
+    unit: str = ""
+
+    def value(self, params: dict) -> float:
+        from pint_tpu_torch.models.base import leaf_to_f64
+
+        args = [float(leaf_to_f64(params[n])) for n in self.inputs]
+        return float(self.func(*args))
+
+
+@dataclass
 class PrefixSpec:
     """A family of numbered parameters (F0..Fn, DM1..); `make` builds the
     concrete spec for index k."""

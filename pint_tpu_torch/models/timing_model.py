@@ -87,6 +87,24 @@ class TimingModel:
         for c in self.components:
             c.validate(self.params, self.meta)
 
+    @property
+    def derived_params(self) -> dict:
+        """name -> FuncParamSpec of every derived parameter the components
+        expose."""
+        return {fp.name: fp for c in self.components for fp in c.func_param_specs()}
+
+    def get_derived(self, name: str) -> float:
+        """A derived quantity's value (float64, internal units), or the
+        parameter's own where `name` is a parameter."""
+        fps = self.derived_params
+        if name in fps:
+            return fps[name].value(self.params)
+        if name in self.params:
+            from pint_tpu_torch.models.base import leaf_to_f64
+
+            return float(leaf_to_f64(self.params[name]))
+        raise KeyError(f"no parameter or derived quantity {name}")
+
     # --- the tensor (host columns -> float64 tensors on the model's device) ------
 
     def build_tensor(self, toas) -> dict:

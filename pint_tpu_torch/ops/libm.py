@@ -1,5 +1,5 @@
-"""sin, cos, log, exp and atan2 for the forward chain, the same on every
-backend as the reference's.
+"""sin, cos, log, exp, atan2 and pow for the forward chain, the same on
+every backend as the reference's.
 
 On a CPU tensor torch evaluates these through SLEEF's vector routines,
 which differ from the C library by up to an ulp: on the ~500 s Roemer delay
@@ -10,7 +10,10 @@ the CPU these functions evaluate the C library (``math``), element by
 element; their tangents follow jax's rules (sin' = cos, cos' = -sin,
 log' = 1/x, exp' = exp, atan2 as jax's ``atan2_p``) with the same functions.
 XLA's CPU exp is its own polynomial, up to 2 ulp from the C library's; the
-twin follows the C library there (ROADMAP C7). On a CUDA tensor they are
+twin follows the C library there (ROADMAP C7). XLA's CPU pow with a float
+exponent is the C library's bitwise (``tests/test_torch_binaries.py``
+holds it on DDGR's inputs); its tangent is jax's, y x^(y - 1) from a second
+pow. On a CUDA tensor they are
 torch's own, which are the CUDA math library's, as in the kernels
 (csrc/resid_tangent.cu).
 """
@@ -120,3 +123,37 @@ def atan2(y, x):
     if y.device.type != "cpu":
         return torch.atan2(y, x)
     return _Atan2.apply(y, x)
+
+
+class _Pow(torch.autograd.Function):
+    """x ** y for a constant float y, from the C library; tangent as jax's
+    ``pow`` rule: t (y pow(x, y - 1))."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, y):
+        a = x.detach().numpy()
+        out = _POW(a, y) if a.size else a
+        return torch.from_numpy(np.asarray(out, dtype=np.float64).reshape(a.shape))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.y = inputs[1]
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, tx, _):
+        (x,) = ctx.saved_tensors
+        return tx * (ctx.y * _Pow.apply(x, ctx.y - 1.0))
+
+
+_POW = np.frompyfunc(math.pow, 2, 1)
+
+
+def pow(x, y: float):  # noqa: A001  (the C library's name)
+    """x ** y for a float exponent y (DDGR's n^(5/3), (1 - e^2)^3.5, ...)."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    if x.device.type != "cpu":
+        return torch.pow(x, y)
+    return _Pow.apply(x, float(y))

@@ -19,13 +19,20 @@ for _i in range(1, 40):
     _FACT.append(_FACT[-1] * _i)
 
 
+def _over_fact(c, i: int) -> torch.Tensor:
+    """c / i! as an IEEE division (PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal: ROADMAP C8)."""
+    c = torch.as_tensor(c, dtype=torch.float64)
+    return c / c.new_full((), _FACT[i])
+
+
 def taylor_horner(x: torch.Tensor, coeffs: Sequence) -> torch.Tensor:
     """float64 Horner sum_i coeffs[i] * x^i / i!."""
     if len(coeffs) == 0:
         return torch.zeros_like(x)
-    acc = torch.as_tensor(coeffs[-1], dtype=torch.float64) / _FACT[len(coeffs) - 1]
+    acc = _over_fact(coeffs[-1], len(coeffs) - 1)
     for i in range(len(coeffs) - 2, -1, -1):
-        acc = acc * x + torch.as_tensor(coeffs[i], dtype=torch.float64) / _FACT[i]
+        acc = acc * x + _over_fact(coeffs[i], i)
     return torch.broadcast_to(acc, torch.broadcast_shapes(acc.shape, x.shape))
 
 

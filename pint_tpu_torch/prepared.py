@@ -60,6 +60,11 @@ FLAGSHIP_NBODY_TIM = Path(__file__).resolve().parent / "data" / "flagship_n16384
 #: profiles.DD_SMOKE_PAR over 16,384 fake TOAs, simulated by pint_tpu under
 #: the analytic ephemeris: the input of the eccentric-binary path
 DD_TIM = Path(__file__).resolve().parent / "data" / "dd_n16384.tim"
+#: profiles.DDGR_SMOKE_PAR and profiles.DDK_SMOKE_PAR over 16,384 fake TOAs
+#: in DD_TIM's layout, simulated by pint_tpu under the analytic ephemeris:
+#: the inputs of the DDGR and DDK paths
+DDGR_TIM = Path(__file__).resolve().parent / "data" / "ddgr_n16384.tim"
+DDK_TIM = Path(__file__).resolve().parent / "data" / "ddk_n16384.tim"
 #: profiles.NANOGRAV_SMOKE_PAR over the flagship's 2,048 epochs of 8
 #: sub-bands, with white, ECORR and red noise drawn by pint_tpu under the
 #: analytic ephemeris: the input of the NANOGrav-shaped path

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from pint_tpu_torch import TSUN_S
+
 #: minimal single-receiver smoke par (astrometry + spin + DM), the model of
 #: the committed prepared-TOA archive (prepared.SMOKE_ARCHIVE)
 SMOKE_PAR = """
@@ -107,6 +109,78 @@ def dd_smoke_par(binary: str = "DD") -> str:
     return par
 
 
+#: DD_SMOKE_PAR's B1534+12-like orbit under ``BINARY DDGR``: the
+#: post-Keplerian lines removed (GR derives OMDOT, GAMMA, PBDOT, SINI, DR and
+#: DTH from the masses), B1534+12's MTOT and M2 free; 11 free parameters.
+#: The model of pint_tpu_torch/data/ddgr_n16384.tim (prepared.DDGR_TIM)
+DDGR_SMOKE_PAR = "".join(
+    ln + "\n" for ln in DD_SMOKE_PAR.replace("BINARY DD\n", "BINARY DDGR\n").replace(
+        "PSR FAKE-DD\n", "PSR FAKE-DDGR\n").split("\n")
+    if ln.split()[:1] not in (["OMDOT"], ["PBDOT"], ["GAMMA"], ["M2"], ["SINI"])
+).replace("OM 283.0 1\n", "OM 283.0 1\nMTOT 2.678 1\nM2 1.3455 1\n")
+
+#: a J1713+0747-like DDK binary (equatorial astrometry with proper motion and
+#: parallax, Kopeikin's orientation KIN, KOM); 14 free parameters, M2 fixed.
+#: The model of pint_tpu_torch/data/ddk_n16384.tim (prepared.DDK_TIM)
+DDK_SMOKE_PAR = """
+PSR FAKE-DDK
+RAJ 17:13:49.5331 1
+DECJ 07:47:37.492 1
+PMRA 4.92 1
+PMDEC -3.92 1
+PX 0.85 1
+F0 218.81184 1
+F1 -4.08e-16 1
+PEPOCH 55500
+POSEPOCH 55500
+DM 15.99
+BINARY DDK
+PB 67.825 1
+A1 32.342 1
+T0 55500.1 1
+ECC 7.49e-5 1
+OM 176.2 1
+KIN 71.7 1
+KOM 89.0 1
+M2 0.29
+TZRMJD 55500.5
+TZRSITE gbt
+TZRFRQ 1400
+"""
+
+#: the flagship's Shapiro delay in Freire & Wex's orthometric terms: its M2
+#: 0.26 and SINI 0.99 give STIGMA = SINI / (1 + cos i) and H3 = Tsun M2
+#: STIGMA^3 (`ell1h_smoke_par`)
+_FLAGSHIP_STIGMA = 0.99 / (1.0 + float(np.sqrt(1.0 - 0.99 * 0.99)))
+_FLAGSHIP_H3 = TSUN_S * 0.26 * _FLAGSHIP_STIGMA**3
+
+
+def ell1h_smoke_par(mode: str = "stigma") -> str:
+    """FLAGSHIP_SMOKE_PAR under ``BINARY ELL1H`` in `mode`: "stigma" (H3 and
+    STIGMA free; the exact form, ELL1's Shapiro delay up to a constant), "h4"
+    (H3 and H4 = H3 STIGMA free, 7 harmonics) or "h3" (H3 free, NHARMS 3)."""
+    lines = {"stigma": f"H3 {_FLAGSHIP_H3!r} 1\nSTIGMA {_FLAGSHIP_STIGMA!r} 1\n",
+             "h4": f"H3 {_FLAGSHIP_H3!r} 1\nH4 {_FLAGSHIP_H3 * _FLAGSHIP_STIGMA!r} 1\n"
+                   "NHARMS 7\n",
+             "h3": f"H3 {_FLAGSHIP_H3!r} 1\nNHARMS 3\n"}[mode]
+    return FLAGSHIP_SMOKE_PAR.replace("BINARY ELL1\n", "BINARY ELL1H\n").replace(
+        "M2 0.26\nSINI 0.99\n", lines)
+
+
+#: the flagship under ``BINARY ELL1K`` with OMDOT and LNEDOT free at 0: to
+#: first order in its ~1e-5 eccentricity the same orbit; 16 free
+ELL1K_SMOKE_PAR = FLAGSHIP_SMOKE_PAR.replace("BINARY ELL1\n", "BINARY ELL1K\n").replace(
+    "EPS2 -1.4e-5 1\n", "EPS2 -1.4e-5 1\nOMDOT 0.0 1\nLNEDOT 0.0 1\n")
+
+
+def fb_smoke_par() -> str:
+    """The flagship with PB replaced by the orbital frequency FB0 = 1 / PB
+    (Hz), FB1 and FB2 at 0 (it has no PBDOT); FB0 and FB1 free, 15 free."""
+    fb0 = 1.0 / (4.766944 * 86400.0)
+    return FLAGSHIP_SMOKE_PAR.replace("PB 4.766944 1\n",
+                                      f"FB0 {fb0!r} 1\nFB1 0.0 1\nFB2 0.0\n")
+
+
 #: the DMX windows of `nanograv_smoke_par` tile this TDB MJD span (the
 #: flagship epochs', 56650-57350, with a margin), each window ending
 #: `DMX_GAP_DAYS` before the next begins, so that no TOA is in two
@@ -191,9 +265,30 @@ def spin_grid(model, ftr):
     )
 
 
+#: the 3x3 grids users scan for each binary's masses or orientation, in
+#: internal units, centred on the pars' values, the outer points ~1-2 sigma
+#: away at 16,384 TOAs: DDGR's (MTOT, M2) (sigma 3.7e-6 and 1.2e-4 Msun),
+#: DDK's (KIN, KOM) (0.19 and 3.6 deg), ELL1H's (H3, STIGMA) (7.3e-9 s and
+#: 0.0038), from the port's fits of ddgr_n16384.tim, ddk_n16384.tim and
+#: flagship_n16384.tim
+BINARY_GRIDS = {
+    "MTOT": (("MTOT", "M2"), (np.linspace(2.678 - 5e-6, 2.678 + 5e-6, 3),
+                              np.linspace(1.3455 - 1.5e-4, 1.3455 + 1.5e-4, 3))),
+    "KIN": (("KIN", "KOM"), (np.deg2rad(np.linspace(71.7 - 0.25, 71.7 + 0.25, 3)),
+                             np.deg2rad(np.linspace(89.0 - 4.0, 89.0 + 4.0, 3)))),
+    "STIGMA": (("H3", "STIGMA"), (np.linspace(_FLAGSHIP_H3 - 1e-8, _FLAGSHIP_H3 + 1e-8, 3),
+                                  np.linspace(_FLAGSHIP_STIGMA - 5e-3, _FLAGSHIP_STIGMA + 5e-3,
+                                              3))),
+}
+
+
 def grid_for(model, ftr):
-    """The reference 3x3 (M2, SINI) grid for a binary with M2 and SINI, else
+    """The reference 3x3 grid of a model: `BINARY_GRIDS`' for DDGR, DDK and
+    ELL1H in its STIGMA mode, (M2, SINI) for a binary with M2 and SINI, else
     the spin grid."""
+    for key, grid in BINARY_GRIDS.items():
+        if key in model.param_meta:
+            return grid
     if "M2" in model.param_meta and "SINI" in model.param_meta:
         return ("M2", "SINI"), (
             np.linspace(0.20, 0.30, 3),

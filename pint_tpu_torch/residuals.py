@@ -3,8 +3,9 @@
 
 K1 (`resid_tangent`, csrc/resid_tangent.cu) evaluates the whole forward
 chain per TOA (equatorial or ecliptic astrometry, solar Shapiro, DM, DMX,
-FD, the ELL1 or a Kepler-orbit binary (BT, DD, DDS), spindown, phase
-JUMPs): pulse number, fractional phase, spin frequency and the barycentric
+FD, an ELL1-family binary (ELL1, ELL1H, ELL1K) or a Kepler-orbit one (BT,
+DD, DDS, DDGR, DDK), with PB or the FB orbital-frequency form, spindown,
+phase JUMPs): pulse number, fractional phase, spin frequency and the barycentric
 radio frequency (which kernel K8 reads), plus forward-mode tangents of the
 fractional phase and the frequency for up to `MAX_LANES` free parameters,
 eight lanes per block (more lanes are more blocks in the same launch, each
@@ -33,16 +34,20 @@ from pint_tpu_torch.ops.dd import DD, dd_add_fp, dd_rint, dd_to_float
 
 #: tangent lane codes of csrc/resid_tangent.cu (its L_* enum, in the same
 #: order); F<k> is 16 + k, DM<k> 32 + k, FD<k> 64 + k, the m-th JUMP 80 + m,
-#: the DMX of window column j 128 + j (`_lane`, from the model); the ecliptic
-#: angles share the equatorial ones' lanes
+#: the DMX of window column j 128 + j (`_lane`, from the model), FB<k>
+#: 256 + k; the ecliptic angles share the equatorial ones' lanes
 LANE_CODES = {"RAJ": 0, "DECJ": 1, "PMRA": 2, "PMDEC": 3, "PX": 4,
               "ELONG": 0, "ELAT": 1, "PMELONG": 2, "PMELAT": 3,
               "PB": 5, "A1": 6, "TASC": 7, "EPS1": 8, "EPS2": 9,
               "T0": 48, "ECC": 49, "OM": 50, "OMDOT": 51, "EDOT": 52, "GAMMA": 53,
               "PBDOT": 54, "A1DOT": 55, "M2": 56, "SINI": 57, "SHAPMAX": 58, "DR": 59,
-              "DTH": 60, "A0": 61, "B0": 62}
-L_FD0, L_JUMP0, L_DMX0 = 64, 80, 128
-MAX_FD, MAX_JUMP, MAX_DMX = 15, 48, 128
+              "DTH": 60, "A0": 61, "B0": 62,
+              "H3": 264, "H4": 265, "STIGMA": 266, "LNEDOT": 267, "KIN": 268, "KOM": 269,
+              "MTOT": 270, "XOMDOT": 271, "XPBDOT": 272}
+L_FD0, L_JUMP0, L_DMX0, L_FB0 = 64, 80, 128, 256
+MAX_FD, MAX_JUMP, MAX_DMX, MAX_FB = 15, 48, 128, 8
+#: the most orthometric harmonics K1 evaluates (ELL1H's NHARMS)
+MAX_NHARMS = 20
 MAX_LANES = 128
 #: lanes one block carries (resid_tangent.cu KCHUNK)
 LANE_CHUNK = 8
@@ -59,6 +64,8 @@ def _lane(name: str, model=None) -> int | None:
         return 32 + int(name[2:])
     if name.startswith("FD") and name[2:].isdigit() and 0 < int(name[2:]) <= MAX_FD:
         return L_FD0 + int(name[2:])
+    if name.startswith("FB") and name[2:].isdigit() and int(name[2:]) < MAX_FB:
+        return L_FB0 + int(name[2:])
     if model is not None and "PhaseJump" in model:
         jumps = [mp.name for mp in model["PhaseJump"].mask_params]
         if name in jumps and jumps.index(name) < MAX_JUMP:
@@ -83,7 +90,7 @@ def lane_code(name: str, model=None) -> int:
     raise NotImplementedError(
         f"{name} as a fit parameter has no tangent lane in kernel K1 "
         f"(csrc/resid_tangent.cu); lanes exist for {', '.join(LANE_CODES)}, F<k>, DM<k>, "
-        "FD<k>, JUMPs and DMX")
+        f"FD<k>, FB0-FB{MAX_FB - 1}, JUMPs and DMX")
 
 
 class ResidTangent(NamedTuple):
@@ -164,15 +171,24 @@ def resid_tangent_plain(model: TimingModel, params: dict, tensor: dict,
 _ROW_KEYS = ("t_hi", "t_lo", "freq_mhz", "ssb_obs_pos_ls", "ssb_obs_vel_ls", "obs_sun_pos_ls")
 # the binary block of the parameter row, after RAJ DECJ PMRA PMDEC PX (or
 # their ecliptic counterparts) POSEPOCH DMEPOCH PEPOCH_hi PEPOCH_lo
-# (resid_tangent.cu P_PB_HI ...): PB and
-# the epoch (TASC or T0) as dd pairs, then float64 values; SINI of DDS is
-# 1 - exp(-SHAPMAX), and DSINI its derivative, the SHAPMAX lane's seed
+# (resid_tangent.cu P_PB_HI ...): PB and the epoch (TASC or T0) as dd
+# pairs, the float64 values of `_BIN_F64`, FB0 as a dd pair and FB1-FB7,
+# `_BIN_EXT`, and DDGR's 6 x 6 Jacobian. SINI of DDS is 1 - exp(-SHAPMAX),
+# and DSINI its derivative, the SHAPMAX lane's seed; DDGR's OMDOT, GAMMA,
+# PBDOT, SINI, DR and DTH are `engines.ddgr_derived` of each set, and JAC
+# their derivatives in (MTOT, M2, ECC, A1, PB, XOMDOT), the seeds of those
+# lanes
 _BIN_F64 = ("A1", "A1DOT", "EPS1", "EPS2", "EPS1DOT", "EPS2DOT", "PBDOT", "XPBDOT",
             "M2", "SINI", "ECC", "EDOT", "OM", "OMDOT", "GAMMA", "DR", "DTH", "A0", "B0",
             "DSINI")
-#: binary kinds of the kernel (resid_tangent.cu BIN) and the Kepler models
+_BIN_EXT = ("H3", "H4", "STIGMA", "LNEDOT", "KIN", "KOM")
+#: binary kinds of the kernel (resid_tangent.cu BIN) and each kind's models
+#: (Config::bin_model)
 BIN_NONE, BIN_ELL1, BIN_KEPLER = 0, 1, 2
-KEPLER_MODELS = {"BT": 0, "DD": 1, "DDS": 1}
+KEPLER_MODELS = {"BT": 0, "DD": 1, "DDS": 1, "DDGR": 2, "DDK": 3}
+ELL1_MODELS = {"ELL1": 0, "ELL1H": 1, "ELL1K": 2}
+#: ELL1H's Shapiro modes (Config::h_mode)
+H_MODES = {"h3": 0, "h4": 1, "stigma": 2}
 
 
 class Structure(NamedTuple):
@@ -180,19 +196,23 @@ class Structure(NamedTuple):
 
     has_ast: bool
     bin_kind: int   # BIN_NONE, BIN_ELL1 or BIN_KEPLER
-    bin_model: int  # for BIN_KEPLER: 0 BT, 1 DD (DDS is DD with SINI from SHAPMAX)
+    bin_model: int  # the kind's model: KEPLER_MODELS or ELL1_MODELS
     nd: int
     nf: int
     ecliptic: bool  # the astrometry is AstrometryEcliptic
     n_dmx: int      # DMX windows (0: no DispersionDMX)
     n_fd: int       # FD terms (0: no FD)
     n_jump: int     # phase JUMPs (0: no PhaseJump)
+    n_fb: int       # FB terms (0: the PB form)
+    h_mode: int     # ELL1H: H_MODES
+    nharms: int     # ELL1H: the harmonics of its Shapiro series
 
 
 def _structure(model: TimingModel) -> Structure:
     """The components of `model` as kernel K1 sees them (noise components do
     not enter the phase)."""
-    binaries = {"BinaryELL1": BIN_ELL1, **{f"Binary{m}": BIN_KEPLER for m in KEPLER_MODELS}}
+    binaries = {**{f"Binary{m}": BIN_ELL1 for m in ELL1_MODELS},
+                **{f"Binary{m}": BIN_KEPLER for m in KEPLER_MODELS}}
     allowed = {"AstrometryEquatorial", "AstrometryEcliptic", "SolarSystemShapiro",
                "DispersionDM", "DispersionDMX", "FD", "Spindown", "PhaseJump", "AbsPhase",
                "ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise", *binaries}
@@ -202,27 +222,63 @@ def _structure(model: TimingModel) -> Structure:
     if "Spindown" not in model:
         raise NotImplementedError("kernel K1 needs a Spindown component")
     nd = model["DispersionDM"].num_terms if "DispersionDM" in model else 0
-    kind, flag = BIN_NONE, 0
-    for name in model.component_names:
-        if name in binaries:
-            kind = binaries[name]
-            flag = KEPLER_MODELS.get(name.removeprefix("Binary"), 0)
+    kind, flag, n_fb, h_mode, nharms = BIN_NONE, 0, 0, 0, 0
+    for comp in model.components:
+        if comp.name in binaries:
+            kind = binaries[comp.name]
+            flag = {**ELL1_MODELS, **KEPLER_MODELS}[comp.model_name]
+            n_fb = comp.fb_terms
+            if comp.model_name == "ELL1H":
+                h_mode, nharms = H_MODES[comp.h_mode], comp.nharms
     n_dmx = len(model["DispersionDMX"].windows) if "DispersionDMX" in model else 0
     n_fd = model["FD"].num_terms if "FD" in model else 0
     n_jump = len(model["PhaseJump"].mask_params) if "PhaseJump" in model else 0
     if n_fd > MAX_FD:
         raise NotImplementedError(f"kernel K1 takes at most {MAX_FD} FD terms; got {n_fd}")
+    if n_fb > MAX_FB:
+        raise NotImplementedError(
+            f"kernel K1 takes at most {MAX_FB} FB terms (FB0-FB{MAX_FB - 1}); got {n_fb}")
+    if nharms > MAX_NHARMS:
+        raise NotImplementedError(
+            f"kernel K1 takes at most {MAX_NHARMS} ELL1H harmonics (NHARMS); got {nharms}")
     return Structure(model.astrometry is not None, kind, flag, nd, model["Spindown"].num_terms,
-                     "AstrometryEcliptic" in model, n_dmx, n_fd, n_jump)
+                     "AstrometryEcliptic" in model, n_dmx, n_fd, n_jump, n_fb, h_mode, nharms)
 
 
-def _binary_values(model: TimingModel, params: dict) -> dict:
+def ddgr_jacobian(params: dict) -> tuple[dict, torch.Tensor]:
+    """DDGR's derived values of every parameter set (`engines.ddgr_derived`,
+    leaves (B,) or scalars) and their Jacobian (B, 6, 6): rows
+    `engines.DDGR_DERIVED`, columns d/d `engines.DDGR_INPUTS`. One pass of
+    forward-mode dual tensors (``torch.autograd.forward_ad``, the tangent
+    rules the twin's lanes take) over the inputs repeated once per column,
+    each copy seeded on its own input: no functorch transform, whose
+    decompositions cost ~100 ms a call."""
+    import torch.autograd.forward_ad as fwad
+
+    from pint_tpu_torch.models.binaries import engines as eng
+
+    derived = eng.ddgr_derived(params)
+    B = batch_size(params)
+    k = len(eng.DDGR_INPUTS)
+    X = torch.stack([torch.broadcast_to(leaf_to_f64(params[n]), (B,)) for n in eng.DDGR_INPUTS])
+    seeds = torch.eye(k, dtype=torch.float64, device=X.device)[:, :, None].expand(k, k, B)
+    with fwad.dual_level():
+        x = fwad.make_dual(X.expand(k, k, B).contiguous(), seeds.contiguous())
+        d = eng.ddgr_derived(dict(zip(eng.DDGR_INPUTS, x.unbind(1))))
+        jac = torch.stack([fwad.unpack_dual(d[n]).tangent for n in eng.DDGR_DERIVED])
+    return derived, jac.permute(2, 0, 1)  # (copy = input, derived, B) -> (B, derived, input)
+
+
+def _binary_values(model: TimingModel, params: dict, B: int) -> dict:
     """The binary block's values by name (leaves as the parameters hold
     them; missing ones are absent). DDS's SINI = 1 - exp(-SHAPMAX) is formed
     here, one value per parameter set, with libm.exp as the twin does, and
-    its derivative exp(-SHAPMAX) rides along as DSINI."""
+    its derivative exp(-SHAPMAX) rides along as DSINI; DDGR's derived set
+    and its Jacobian JAC (B, 36) likewise."""
     comp = next(c for c in model.components if c.name.startswith("Binary"))
-    vals = {n: params[n] for n in ("PB", comp.epoch_name, *_BIN_F64) if n in params}
+    vals = {n: params[n] for n in ("PB", comp.epoch_name, *_BIN_F64, *_BIN_EXT)
+            if n in params}
+    vals.update({f"FB{k}": params[f"FB{k}"] for k in range(MAX_FB) if f"FB{k}" in params})
     vals["EPOCH"] = vals.pop(comp.epoch_name)
     if comp.model_name == "DDS":
         from pint_tpu_torch.models.binaries.engines import dds_sini
@@ -230,6 +286,10 @@ def _binary_values(model: TimingModel, params: dict) -> dict:
 
         vals["SINI"] = dds_sini(params["SHAPMAX"])
         vals["DSINI"] = libm.exp(-params["SHAPMAX"])
+    elif comp.model_name == "DDGR":
+        derived, jac = ddgr_jacobian(params)
+        vals.update(derived)
+        vals["JAC"] = jac.reshape(B, 36)
     return vals
 
 
@@ -251,11 +311,17 @@ def _pack_params(model: TimingModel, params: dict, B: int, st: Structure,
         col(leaf_to_f64(params["DMEPOCH"])) if "DMEPOCH" in params else zero,
         col(params["PEPOCH"].hi), col(params["PEPOCH"].lo),
     ]
-    vals = _binary_values(model, params) if st.bin_kind else {}
+    vals = _binary_values(model, params, B) if st.bin_kind else {}
     for n in ("PB", "EPOCH"):
         v = vals.get(n, DD(zero, zero))
         cols += [col(v.hi), col(v.lo)]
     cols += [col(vals[n]) if n in vals else zero for n in _BIN_F64]
+    fb0 = vals.get("FB0", DD(zero, zero))
+    cols += [col(fb0.hi), col(fb0.lo)]
+    cols += [col(vals[f"FB{k}"]) if f"FB{k}" in vals else zero for k in range(1, MAX_FB)]
+    cols += [col(vals[n]) if n in vals else zero for n in _BIN_EXT]
+    jac = vals.get("JAC")
+    cols += [jac[:, j] if jac is not None else zero for j in range(36)]
     for k in range(st.nd):
         cols.append(col(leaf_to_f64(params[f"DM{k}" if k else "DM"])))
     for k in range(st.nf):
@@ -346,10 +412,10 @@ def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> 
     out = [torch.empty((B, n_out), dtype=torch.float64, device=dev) for _ in range(3)]
     tan = [torch.empty((B, slots, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
     fb = torch.empty((B, n_rows), dtype=torch.float64, device=dev)
-    ints = (ctypes.c_int * (14 + MAX_LANES))(
+    ints = (ctypes.c_int * (17 + MAX_LANES))(
         n_rows, n_out, int(has_tzr), int(st.has_ast), st.nd, st.nf, P.shape[1], k,
         st.bin_kind, st.bin_model, int(st.ecliptic), st.n_dmx, st.n_fd, st.n_jump,
-        *(codes + [-1] * (MAX_LANES - k)))
+        st.n_fb, st.h_mode, st.nharms, *(codes + [-1] * (MAX_LANES - k)))
     consts = (ctypes.c_double * 5)(AU_LS, DMCONST, TSUN_S, COS_OBL, SIN_OBL)
     from pint_tpu_torch.ops import build
 

@@ -114,15 +114,21 @@ def test_ell1_delay_and_high_inclination_shapiro(pair):
 
 
 def test_binary_tangent_lanes_and_unported_models():
+    """The ELL1 lanes, and ELL1H (once unported, ROADMAP A8) built from the
+    flagship par with its orthometric parameters on lanes of their own."""
     from pint_tpu_torch.models import get_model
-    from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR
-    from pint_tpu_torch.residuals import lane_code
+    from pint_tpu_torch.profiles import FLAGSHIP_SMOKE_PAR, ell1h_smoke_par
+    from pint_tpu_torch.residuals import lane_code, lane_names
 
     assert [lane_code(n) for n in ("PB", "A1", "TASC", "EPS1", "EPS2", "DM", "DM1")] == [
         5, 6, 7, 8, 9, 32, 33]
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        get_model(FLAGSHIP_SMOKE_PAR.replace("BINARY ELL1", "BINARY ELL1H"), from_text=True,
-                  device="cpu")
+    with pytest.raises(ValueError, match="H3 must be set"):
+        get_model(FLAGSHIP_SMOKE_PAR.replace("BINARY ELL1", "BINARY ELL1H").replace(
+            "SINI 0.99", "STIGMA 0.8"), from_text=True, device="cpu")
+    tm = get_model(ell1h_smoke_par("stigma"), from_text=True, device="cpu")
+    assert "BinaryELL1H" in tm.component_names and "M2" not in tm.params
+    assert [lane_code(n) for n in ("H3", "STIGMA")] == [264, 266]
+    assert lane_names(tm.free_params, tm) == tuple(tm.free_params)
 
 
 def test_apply_delta_projects_onto_domains_bitwise(pair):

@@ -13,15 +13,18 @@ default ephemeris, the N-body window (its cold build takes about a minute).
 ``dd_n16384.tim`` holds ``profiles.DD_SMOKE_PAR`` (an eccentric DD binary)
 over fake TOAs made by pint_tpu under the analytic ephemeris (`DD_RECIPE`);
 ``nanograv_n16384.tim`` ``profiles.NANOGRAV_SMOKE_PAR`` over the flagship's
-epochs with white, ECORR and red noise drawn by pint_tpu (`NANOGRAV_RECIPE`).
-Write them anew with
+epochs with white, ECORR and red noise drawn by pint_tpu (`NANOGRAV_RECIPE`);
+``ddgr_n16384.tim`` and ``ddk_n16384.tim`` ``profiles.DDGR_SMOKE_PAR`` and
+``profiles.DDK_SMOKE_PAR`` in `DD_RECIPE`'s layout (`DDGR_RECIPE`,
+`DDK_RECIPE`). Write them anew with
 
-    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd|nanograv ...]
+    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd|nanograv|ddgr|ddk ...]
 
-(all six without names).
+(all eight without names).
 
 The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`, `dd_pair`,
-`nanograv_pair`) also feed the other ``tests/test_torch_*.py`` files.
+`recipe_pair`, `nanograv_pair`) also feed the other ``tests/test_torch_*.py``
+files.
 """
 
 from __future__ import annotations
@@ -56,6 +59,11 @@ FLAGSHIP_NBODY_RECIPE = {**FLAGSHIP_RECIPE, "n": ARCHIVE_N, "seed": FLAGSHIP_SEE
 DD_RECIPE = {"par": "profiles.DD_SMOKE_PAR", "n": ARCHIVE_N, "seed": 41, "start_mjd": 55000.0,
              "end_mjd": 56000.0, "freq_mhz": [1400.0, 2300.0], "error_us": 1.0, "obs": "gbt",
              "noise": True, "nbody": 0}
+#: DD_RECIPE's layout for the DDGR and DDK binaries (recorded in their .tim)
+DDGR_RECIPE = {**DD_RECIPE, "par": "profiles.DDGR_SMOKE_PAR", "seed": 45}
+DDK_RECIPE = {**DD_RECIPE, "par": "profiles.DDK_SMOKE_PAR", "seed": 47}
+#: the recipes of the binary .tim files, by name
+TIM_RECIPES = {"dd": DD_RECIPE, "ddgr": DDGR_RECIPE, "ddk": DDK_RECIPE}
 #: how the NANOGrav-shaped .tim is made (recorded in its comment line): the
 #: flagship's epoch layout, noise drawn from the model's full covariance
 NANOGRAV_RECIPE = {"par": "profiles.nanograv_smoke_par", "n_dmx": 64, "nf": 30,
@@ -121,55 +129,79 @@ def flagship_nbody_tim(path) -> None:
     Path(path).write_text("".join(lines))
 
 
-@functools.lru_cache(maxsize=2)
-def dd_dataset(n: int, seed: int = DD_RECIPE["seed"]):
-    """(pint_tpu model, toas, build_tensor dict) of profiles.DD_SMOKE_PAR over
-    `n` fake TOAs made as `DD_RECIPE` says (alternating frequencies, white
-    noise from `seed`), once per (n, seed) in a process: callers must not
-    modify it."""
+def recipe_par(recipe: dict) -> str:
+    """The port's par text a recipe names (``profiles.<NAME>``)."""
+    from pint_tpu_torch import profiles
+
+    return getattr(profiles, recipe["par"].removeprefix("profiles."))
+
+
+@functools.lru_cache(maxsize=4)
+def recipe_dataset(name: str, n: int, seed: int | None = None):
+    """(pint_tpu model, toas, build_tensor dict) of the `TIM_RECIPES[name]`
+    par over `n` fake TOAs made as the recipe says (alternating frequencies,
+    white noise from its seed, or `seed`), once per arguments in a process:
+    callers must not modify it."""
     from pint_tpu.io.par import parse_parfile
     from pint_tpu.models.builder import build_model
     from pint_tpu.simulation import make_fake_toas_uniform
-    from pint_tpu_torch.profiles import DD_SMOKE_PAR
 
-    r = DD_RECIPE
-    model = build_model(parse_parfile(DD_SMOKE_PAR, from_text=True))
+    r = TIM_RECIPES[name]
+    model = build_model(parse_parfile(recipe_par(r), from_text=True))
     freqs = np.where(np.arange(n) % 2 == 0, *r["freq_mhz"])
     toas = make_fake_toas_uniform(r["start_mjd"], r["end_mjd"], n, model, obs=r["obs"],
                                   freq_mhz=freqs, error_us=r["error_us"], add_noise=r["noise"],
-                                  rng=np.random.default_rng(seed))
+                                  rng=np.random.default_rng(r["seed"] if seed is None else seed))
     return model, toas, model.build_tensor(toas)
 
 
-def dd_tim(path) -> None:
-    """Write the `DD_RECIPE` dataset as a .tim (pint_tpu's ``TOAs.write_tim``),
-    its recipe in a comment line after the header's first line."""
+def dd_dataset(n: int, seed: int = DD_RECIPE["seed"]):
+    """`recipe_dataset` of profiles.DD_SMOKE_PAR (`DD_RECIPE`)."""
+    return recipe_dataset("dd", n, None if seed == DD_RECIPE["seed"] else seed)
+
+
+def recipe_tim(name: str, path) -> None:
+    """Write the `TIM_RECIPES[name]` dataset as a .tim (pint_tpu's
+    ``TOAs.write_tim``), its recipe in a comment line after the header's
+    first line."""
     import json
 
-    r = DD_RECIPE
-    _, toas, _ = dd_dataset(r["n"], r["seed"])
+    r = TIM_RECIPES[name]
+    _, toas, _ = recipe_dataset(name, r["n"])
     toas.write_tim(str(path))
     lines = Path(path).read_text().splitlines(keepends=True)
     lines.insert(1, f"C Recipe: {json.dumps(r, sort_keys=True)}\n")
     Path(path).write_text("".join(lines))
 
 
-def dd_pair(n: int = 1024, binary: str = "DD"):
+def dd_tim(path) -> None:
+    recipe_tim("dd", path)
+
+
+def recipe_pair(name: str, n: int = 1024, par: str | None = None):
     """(pint_tpu model, toas, tensor, port model, port tensor) on the CPU of
-    the DD dataset, both models parsed from ``profiles.dd_smoke_par(binary)``
-    (BT, DD or DDS over the same TOAs)."""
+    the `TIM_RECIPES[name]` dataset, both models parsed from `par` (default
+    the recipe's own)."""
     from pint_tpu.io.par import parse_parfile
     from pint_tpu.models.builder import build_model
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.prepared import tensor_from_numpy
-    from pint_tpu_torch.profiles import dd_smoke_par
 
-    model, toas, tens = dd_dataset(n)
-    if binary != "DD":
-        model = build_model(parse_parfile(dd_smoke_par(binary), from_text=True))
-    tm = get_model(dd_smoke_par(binary), from_text=True, device="cpu")
+    model, toas, tens = recipe_dataset(name, n)
+    if par is not None:
+        model = build_model(parse_parfile(par, from_text=True))
+    tm = get_model(par or recipe_par(TIM_RECIPES[name]), from_text=True, device="cpu")
     tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
     return model, toas, tens, tm, tt
+
+
+def dd_pair(n: int = 1024, binary: str = "DD"):
+    """(pint_tpu model, toas, tensor, port model, port tensor) on the CPU of
+    the DD dataset, both models parsed from ``profiles.dd_smoke_par(binary)``
+    (BT, DD or DDS over the same TOAs)."""
+    from pint_tpu_torch.profiles import dd_smoke_par
+
+    return recipe_pair("dd", n, None if binary == "DD" else dd_smoke_par(binary))
 
 
 @functools.lru_cache(maxsize=4)
@@ -365,6 +397,24 @@ def test_dd_tim_matches_fresh_export(tmp_path):
     assert json.loads(recipe.removeprefix("C Recipe: ")) == DD_RECIPE
 
 
+@pytest.mark.parametrize("name", ["ddgr", "ddk"])
+def test_binary_tim_matches_fresh_export(tmp_path, name):
+    """The committed DDGR and DDK .tim files parse to the lines of a fresh
+    export of their recipe (`DD_RECIPE`'s layout), and record it."""
+    import json
+
+    from pint_tpu.io.tim import parse_tim
+    from pint_tpu_torch import prepared
+
+    path = getattr(prepared, f"{name.upper()}_TIM")
+    recipe_tim(name, tmp_path / "fresh.tim")
+    fresh, committed = parse_tim(str(tmp_path / "fresh.tim")), parse_tim(str(path))
+    assert len(committed.toas) == TIM_RECIPES[name]["n"]
+    assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
+    recipe = path.read_text().splitlines()[1]
+    assert json.loads(recipe.removeprefix("C Recipe: ")) == TIM_RECIPES[name]
+
+
 def test_nanograv_tim_matches_fresh_export(tmp_path):
     """The committed NANOGrav-shaped .tim parses to the lines of a fresh
     export of `NANOGRAV_RECIPE`, and records the recipe."""
@@ -516,9 +566,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def _write_archive(which) -> None:
-    from pint_tpu_torch.prepared import (DD_TIM, FLAGSHIP_ARCHIVE, FLAGSHIP_NBODY_TIM,
-                                         FLAGSHIP_TIM, NANOGRAV_TIM, SMOKE_ARCHIVE,
-                                         save_prepared)
+    from pint_tpu_torch import prepared
+    from pint_tpu_torch.prepared import (FLAGSHIP_ARCHIVE, FLAGSHIP_NBODY_TIM, FLAGSHIP_TIM,
+                                         NANOGRAV_TIM, SMOKE_ARCHIVE, save_prepared)
 
     for name, path, make in (("smoke", SMOKE_ARCHIVE, export),
                              ("flagship", FLAGSHIP_ARCHIVE, flagship_export)):
@@ -534,19 +584,21 @@ def _write_archive(which) -> None:
     if "nbody" in which:
         flagship_nbody_tim(FLAGSHIP_NBODY_TIM)
         print(f"wrote {FLAGSHIP_NBODY_TIM} ({FLAGSHIP_NBODY_TIM.stat().st_size} bytes)")
-    if "dd" in which:
-        dd_tim(DD_TIM)
-        print(f"wrote {DD_TIM} ({DD_TIM.stat().st_size} bytes)")
+    for name in TIM_RECIPES:
+        if name in which:
+            path = getattr(prepared, f"{name.upper()}_TIM")
+            recipe_tim(name, path)
+            print(f"wrote {path} ({path.stat().st_size} bytes)")
     if "nanograv" in which:
         nanograv_tim(NANOGRAV_TIM)
         print(f"wrote {NANOGRAV_TIM} ({NANOGRAV_TIM.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    names = {"smoke", "flagship", "nbody", "dd", "nanograv"}
+    names = {"smoke", "flagship", "nbody", "dd", "nanograv", "ddgr", "ddk"}
     if sys.argv[1:2] != ["--write"] or not set(sys.argv[2:]) <= names:
         sys.exit("usage: python tests/test_torch_fixture.py --write "
-                 "[smoke|flagship|nbody|dd|nanograv ...]")
+                 "[smoke|flagship|nbody|dd|nanograv|ddgr|ddk ...]")
     sys.path.insert(0, str(REPO))
     import jax
 

@@ -252,15 +252,38 @@ def test_m2_sini_grid_matches_pint_tpu(pair, fitted):
     ("BINARY DD\n", "BINARY DDGR\n"), ("BINARY DD\n", "BINARY DDK\n"),
     ("BINARY DD\n", "BINARY ELL1H\n"), ("BINARY DD\n", "BINARY ELL1K\n"),
     ("PB 0.420737298879 1\n", "FB0 2.75089e-05 1\n")])
-def test_unported_binaries_name_roadmap_a8(change):
-    """The binaries pint_tpu evaluates that the port does not yet, and the
-    FB orbital-frequency form, raise naming their ROADMAP item."""
+def test_other_binaries_build_and_validate(change):
+    """The binaries that once raised naming ROADMAP A8 (DDGR, DDK, ELL1H,
+    ELL1K, and the FB orbital-frequency form) build from DD_SMOKE_PAR's
+    lines with the parameters and validation pint_tpu gives them: DDGR
+    refuses the post-Keplerian lines it derives, the ELL1 family needs TASC,
+    and the FB form takes FB0 as a dd leaf in PB's place."""
+    from pint_tpu.io.par import parse_parfile
+    from pint_tpu.models.builder import build_model
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.profiles import DD_SMOKE_PAR
+    from pint_tpu_torch.ops.dd import DD
 
     assert change[0] in DD_SMOKE_PAR
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        get_model(DD_SMOKE_PAR.replace(*change), from_text=True, device="cpu")
+    par = DD_SMOKE_PAR.replace(*change)
+    if "DDGR" in change[1]:
+        with pytest.raises(ValueError, match="derives"):
+            get_model(par, from_text=True, device="cpu")
+        par = "".join(ln + "\n" for ln in par.splitlines()
+                      if ln.split()[:1] not in (["OMDOT"], ["PBDOT"], ["GAMMA"], ["SINI"]))
+        par += "MTOT 2.678 1\n"
+    if "ELL1" in change[1]:
+        with pytest.raises(ValueError, match="requires TASC"):
+            get_model(par, from_text=True, device="cpu")
+        par = par.replace("T0 55500.2 1\n", "TASC 55500.2 1\nEPS1 1e-5 1\n")
+    tm = get_model(par, from_text=True, device="cpu")
+    jm = build_model(parse_parfile(par, from_text=True))
+    assert tm.component_names == jm.component_names
+    assert sorted(tm.params) == sorted(jm.params)
+    assert sorted(tm.free_params) == sorted(jm.free_params)
+    if "FB0" in change[1]:
+        assert "PB" not in tm.params and isinstance(tm.params["FB0"], DD)
+        assert tm["BinaryDD"].fb_terms == 1
 
 
 @pytest.mark.parametrize("binary", ["BT", "DD", "DDS"])

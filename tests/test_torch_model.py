@@ -119,8 +119,8 @@ def test_float32_anywhere_in_the_chain_raises(pair):
 
 
 @pytest.mark.parametrize("line, item", [
-    ("BINARY DDK", "A8"), ("BINARY DDGR", "A8"), ("DJUMP -f L 0.1 1", "A9"), ("PHOFF 0.1 1", "A9"),
-    ("SIFUNC 2", "A9"), ("PLANET_SHAPIRO Y", "A18"),
+    ("DMJUMP -f L 0.1 1", "A9"), ("TNGWAMP -14.5", "A12"), ("DJUMP -f L 0.1 1", "A9"),
+    ("PHOFF 0.1 1", "A9"), ("SIFUNC 2", "A9"), ("PLANET_SHAPIRO Y", "A18"),
 ])
 def test_unported_components_name_their_roadmap_item(line, item):
     from pint_tpu_torch.models import get_model
@@ -137,6 +137,10 @@ def test_tangent_lanes_cover_the_nonlinear_parameters():
     kepler = ("T0", "ECC", "OM", "OMDOT", "EDOT", "GAMMA", "PBDOT", "A1DOT", "M2", "SINI",
               "SHAPMAX", "DR", "DTH", "A0", "B0")
     assert [lane_code(n) for n in kepler] == list(range(48, 63))
-    for name in ("H3", "KIN"):
+    # the block of the ELL1H, ELL1K, DDK and DDGR parameters, after FB0-FB7
+    rest = ("H3", "H4", "STIGMA", "LNEDOT", "KIN", "KOM", "MTOT", "XOMDOT", "XPBDOT")
+    assert [lane_code(n) for n in rest] == list(range(264, 273))
+    assert [lane_code(f"FB{k}") for k in (0, 7)] == [256, 263]
+    for name in ("FB8", "NHARMS"):
         with pytest.raises(NotImplementedError, match="K1"):
             lane_code(name)
