@@ -196,6 +196,30 @@ under ELL1H (stigma, h4 and h3 modes), ELL1K and the FB form over
    fit each and the (M2, SINI) grid, gated the same;
 39. K1's times at each form's fit and grid shapes.
 
+Then wideband TOAs, ``profiles.WIDEBAND_SMOKE_PAR`` (the NANOGrav-shaped par
+without ECORR, with a DMJUMP on the 800 MHz receiver and DMEFAC/DMEQUAD on
+both; 81 free parameters, 60 Fourier columns) over
+``pint_tpu_torch/data/wideband_n16384.tim`` (one TOA per epoch, each with a
+-pp_dm/-pp_dme DM measurement; ``PINT_TPU_NBODY=0`` set around phases
+40-44; its prepare runs first):
+
+40. K8's DM-row pass (``design.dm_rows``) against its twin, bitwise: the
+   fit's 81 columns, the chi^2 call's none, and the combined design's
+   unweighted rows;
+41. K3 at the stacked [TOA; DM] shape (N = 32,768 rows, the DM rows
+   whitened with weight 1, the noise basis zero on them): the fit's step (p
+   = 81, weighted norms, no centring) and the chi^2 call, within 1e-12
+   relative of the twin and bitwise repeatable;
+42. the prepare (K4 and K5 twice each) against the twins' prepare, ``wb_dm``
+   and ``wb_dme`` equal;
+43. ``fit_auto`` picks ``WidebandDownhillFitter``; its ``fit_toas`` from
+   phase 31's moved start (DMJUMP1 starts at 0) against the twin path, gated
+   as phase 31 (with its witness rule where a witness shows it is needed),
+   DMJUMP1 within 4 sigma of the truth in the .tim's recipe, and the combined
+   design (``designmatrix``) within 1e-10 relative per column of the twins';
+44. the DM-row pass's, K3's and K1's times at the fit's shapes, and the warm
+   wall and busy share of one wideband fit.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
@@ -208,7 +232,9 @@ and K7 twice each; the DD prepare K4 and K5 twice each, its fit K0 and K1,
 its grid K1 and K2; the NANOGrav prepare K4 and K5 twice each, its fit K0,
 K1, K3 and K8's Fourier pass, its grid K1, K8's two passes and K3; the
 slice-7 prepares K4 and K5 twice each, their fits K0 and K1 (and K3 for
-GLS), the DDGR and DDK grids K1 and K2, the others K1, K8 and K3.
+GLS), the DDGR and DDK grids K1 and K2, the others K1, K8 and K3; the
+wideband prepare K4 and K5 twice each, its fit K0, K1, K8's Fourier and DM-row
+passes and K3 (the wideband fit has no grid).
 K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 7. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
@@ -293,6 +319,11 @@ def timed_ms(fn, device, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# profiler passes per measurement: a pass can, rarely, deliver no CUDA
+# activity of a short window (seen once on K6 at 131,072 rows)
+PROFILE_ATTEMPTS = 3
+
+
 def measure(fn, device, reps: int, kernel: str | None = None) -> tuple:
     """(device ms, call ms) of one call of `fn`. Device ms is the summed time
     of the kernels the call runs, from torch.profiler's CUDA activity (only
@@ -300,8 +331,10 @@ def measure(fn, device, reps: int, kernel: str | None = None) -> tuple:
     given); call ms is `timed_ms`,
     which includes the host's time to enqueue the call and bounds the rate of
     back-to-back calls. On the CPU the device time is None. A named kernel
-    the profiler does not see fails the run; a call of library or twin
-    kernels whose device time it does not see is timed by `queued_ms`."""
+    missing from the CUDA activity the profiler delivers fails the run; a
+    call whose device time it does not see (library or twin kernels, or a
+    profile that delivered no CUDA activity in `PROFILE_ATTEMPTS` passes) is
+    timed by `queued_ms`."""
     call = timed_ms(fn, device, reps)
     if device.type != "cuda":
         return None, call
@@ -310,21 +343,22 @@ def measure(fn, device, reps: int, kernel: str | None = None) -> tuple:
     from torch.profiler import ProfilerActivity, profile
 
     pats = (kernel,) if isinstance(kernel, str) else kernel
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and (pats is None or any(p in e.key for p in pats))]
-    us = sum(e.self_device_time_total for e in seen)
-    if us > 0:
-        return us / 1e3 / reps, call
-    if pats is not None:
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen = [e for e in events if pats is None or any(p in e.key for p in pats)]
+        us = sum(e.self_device_time_total for e in seen)
+        if us > 0:
+            return us / 1e3 / reps, call
+    if pats is not None and events:
         raise SmokeFailure(f"the profiler saw no device time of kernel {pats} "
-                           f"(events: {[e.key for e in seen]})")
+                           f"(events: {[e.key for e in events]})")
     queued = queued_ms(fn, reps)
-    print(f"  the profiler read no device time of a call ({len(seen)} kernel events); "
-          f"timed behind a busy queue: {queued:.4g} ms")
+    print(f"  the profiler read no device time of a call ({len(seen)} kernel events of "
+          f"{len(events)}, {PROFILE_ATTEMPTS} tries); timed behind a busy queue: {queued:.4g} ms")
     return queued, call
 
 
@@ -368,14 +402,15 @@ def twins():
     """Route the main path through the plain-torch twins, on the card."""
     from pint_tpu_torch import gridutils, residuals
     from pint_tpu_torch.astro import device_prepare as dp
-    from pint_tpu_torch.fitting import design, gls, wls, woodbury
+    from pint_tpu_torch.fitting import design, gls, wideband, wls, woodbury
     from pint_tpu_torch.models import noise
     from pint_tpu_torch.ops import dd
 
     saved = (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
              gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
              dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
-             gridutils.linear_columns, design.fourier_basis)
+             gridutils.linear_columns, design.fourier_basis, design.dm_rows, wideband.dm_rows,
+             wideband.ecorr_normal_eq)
     residuals.resid_tangent = residuals.resid_tangent_plain
     # K8's twin forms f_bary itself: the kernel's fb argument is dropped
     wls.linear_columns = gridutils.linear_columns = \
@@ -384,6 +419,8 @@ def twins():
     wls.dd_elementwise = dd.dd_elementwise_plain
     gridutils.normal_eq = gridutils.normal_eq_plain
     gls.ecorr_normal_eq = gridutils.ecorr_normal_eq = woodbury.ecorr_normal_eq_plain
+    wideband.ecorr_normal_eq = woodbury.ecorr_normal_eq_plain
+    design.dm_rows = wideband.dm_rows = design.dm_rows_plain
     dp.site_geometry, dp.analytic_ephemeris = dp.site_geometry_plain, dp.analytic_ephemeris_plain
     dp.nbody_serve, dp.chebyshev_eval = dp.nbody_serve_plain, dp.chebyshev_eval_plain
     try:
@@ -392,7 +429,8 @@ def twins():
         (residuals.resid_tangent, wls.dd_elementwise, gridutils.normal_eq,
          gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
          dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
-         gridutils.linear_columns, design.fourier_basis) = saved
+         gridutils.linear_columns, design.fourier_basis, design.dm_rows, wideband.dm_rows,
+         wideband.ecorr_normal_eq) = saved
 
 
 @contextlib.contextmanager
@@ -557,10 +595,13 @@ def fresh_fitter(tensor, device, which: str = "smoke", par: str | None = None):
     DDGR_SMOKE_PAR ("ddgr") or DDK_SMOKE_PAR ("ddk"), or DownhillGLSFitter
     on the flagship par ("flagship"), NANOGRAV_SMOKE_PAR ("nanograv"), or the
     flagship's orbit under ELL1H in its stigma mode ("ell1h"), ELL1K
-    ("ell1k") or in the FB form ("fb"); `par` (text) in place of that par."""
+    ("ell1k") or in the FB form ("fb"), or the WidebandDownhillFitter that
+    ``fit_auto`` picks for WIDEBAND_SMOKE_PAR ("wideband"); `par` (text) in
+    place of that par."""
     import torch
 
-    from pint_tpu_torch.fitting import DownhillGLSFitter, DownhillWLSFitter
+    from pint_tpu_torch.fitting import (DownhillGLSFitter, DownhillWLSFitter,
+                                        WidebandDownhillFitter)
     from pint_tpu_torch.fitting.wls import apply_delta
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch import profiles as pr
@@ -577,6 +618,7 @@ def fresh_fitter(tensor, device, which: str = "smoke", par: str | None = None):
         "ell1h": (pr.ell1h_smoke_par("stigma"), DownhillGLSFitter, FLAGSHIP_SHIFT),
         "ell1k": (pr.ELL1K_SMOKE_PAR, DownhillGLSFitter, FLAGSHIP_SHIFT),
         "fb": (pr.fb_smoke_par(), DownhillGLSFitter, FLAGSHIP_SHIFT),
+        "wideband": (pr.WIDEBAND_SMOKE_PAR, WidebandDownhillFitter, NANOGRAV_SHIFT),
     }[which]
     model = get_model(par or default, from_text=True, device=device)
     free = tuple(model.free_params)
@@ -589,7 +631,7 @@ def fresh_fitter(tensor, device, which: str = "smoke", par: str | None = None):
 def counters():
     from pint_tpu_torch.astro.device_prepare import (analytic_ephemeris, chebyshev_eval,
                                                      nbody_serve, site_geometry)
-    from pint_tpu_torch.fitting.design import fourier_basis, linear_columns
+    from pint_tpu_torch.fitting.design import dm_rows, fourier_basis, linear_columns
     from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq
     from pint_tpu_torch.gridutils import normal_eq
     from pint_tpu_torch.ops.dd import dd_elementwise
@@ -599,7 +641,8 @@ def counters():
             "normal_eq": normal_eq, "ecorr_normal_eq": ecorr_normal_eq,
             "site_geometry": site_geometry, "analytic_ephemeris": analytic_ephemeris,
             "nbody_serve": nbody_serve, "chebyshev_eval": chebyshev_eval,
-            "linear_columns": linear_columns, "fourier_basis": fourier_basis}
+            "linear_columns": linear_columns, "fourier_basis": fourier_basis,
+            "dm_rows": dm_rows}
 
 
 @contextlib.contextmanager
@@ -616,11 +659,11 @@ def counted(into: dict):
     into["normal_eq_passes"] = normal_eq.passes
 
 
-def run_main_path(ftr, device) -> dict:
-    """Fit `ftr` (a fitter built beforehand), then the model's 3x3 grid
-    around the fit (``grid_for``). Each of the two is timed on the host
-    clock, ending in a synchronize, and its launch counts are read from a
-    window of its own."""
+def run_main_path(ftr, device, grid: bool = True) -> dict:
+    """Fit `ftr` (a fitter built beforehand), then (with `grid`) the model's
+    3x3 grid around the fit (``grid_for``). Each of the two is timed on the
+    host clock, ending in a synchronize, and its launch counts are read from
+    a window of its own."""
     from pint_tpu_torch.gridutils import grid_chisq
     from pint_tpu_torch.profiles import grid_for
 
@@ -630,6 +673,9 @@ def run_main_path(ftr, device) -> dict:
         ftr.fit_toas()
         sync(device)
         out["fit_s"] = time.perf_counter() - t0
+    if not grid:
+        out["grid_s"] = 0.0
+        return out
     names, vals = grid_for(ftr.model, ftr)
     with counted(out["grid_launches"]):
         t0 = time.perf_counter()
@@ -701,19 +747,21 @@ def check_grid(main: dict, twin: dict, label: str) -> float:
     return worst_g
 
 
-def profile_main_path(tensor, device, which: str = "smoke", par: str | None = None) -> dict:
-    """The wall of one warm fit + grid without the profiler, then device time
-    by kernel over one more under torch.profiler (CUDA activity only).
-    `busy_share` is that summed kernel time over the unprofiled wall."""
+def profile_main_path(tensor, device, which: str = "smoke", par: str | None = None,
+                      grid: bool = True) -> dict:
+    """The wall of one warm fit + grid (the fit alone without `grid`) without
+    the profiler, then device time by kernel over one more under
+    torch.profiler (CUDA activity only). `busy_share` is that summed kernel
+    time over the unprofiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plain = run_main_path(fresh_fitter(tensor, device, which, par), device)
+    plain = run_main_path(fresh_fitter(tensor, device, which, par), device, grid)
     wall = plain["fit_s"] + plain["grid_s"]
     ftr = fresh_fitter(tensor, device, which, par)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_main_path(ftr, device)
+        run_main_path(ftr, device, grid)
         profiled_wall = time.perf_counter() - t0
     kern = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -735,12 +783,13 @@ K0_KERNEL, K1_KERNEL, K2_KERNEL, K3_KERNEL = ("dd_elementwise_kernel", "resid_ta
 K4_KERNEL, K5_KERNELS = "site_geometry_kernel", ("analytic_ephemeris_kernel",
                                                  "central_difference_kernel")
 K6_KERNEL, K7_KERNEL = "nbody_serve_kernel", "chebyshev_eval_kernel"
-K8_KERNELS = ("linear_columns_kernel", "fourier_basis_kernel")
+K8_KERNELS = ("linear_columns_kernel", "fourier_basis_kernel", "dm_rows_kernel")
 KERNEL_PATTERNS = {"dd_elementwise": K0_KERNEL, "resid_tangent": K1_KERNEL,
                    "normal_eq": K2_KERNEL, "ecorr_normal_eq": K3_KERNEL,
                    "site_geometry": K4_KERNEL, "analytic_ephemeris": K5_KERNELS[0],
                    "nbody_serve": K6_KERNEL, "chebyshev_eval": K7_KERNEL,
-                   "linear_columns": K8_KERNELS[0], "fourier_basis": K8_KERNELS[1]}
+                   "linear_columns": K8_KERNELS[0], "fourier_basis": K8_KERNELS[1],
+                   "dm_rows": K8_KERNELS[2]}
 
 
 def k0_record(model, device) -> dict:
@@ -892,7 +941,8 @@ def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
     parts = [Mn, rr[:, None]] + ([basis.dense.T.expand(B, kd, n)] if kd else [])
     X = (torch.cat(parts, dim=1) * torch.sqrt(w)).contiguous()
     lib, lib_call = measure(lambda: torch.matmul(X, X.transpose(-1, -2)), device, 50)
-    ke, nnz = basis.ke, basis.epochs.rows.shape[0]
+    ke = basis.ke
+    nnz = basis.epochs.rows.shape[0] if basis.epochs is not None else 0
     V = p + 1 + kd
     q = (p + 1) * (p + 2) // 2
     # read r, M, w, Fd, phi and the CSR once; write G, c, chi2, ahat, norm
@@ -976,7 +1026,9 @@ KERNELS = (
      "pint_tpu/fitting/gls.py:77 (gls_step Woodbury pieces) + gls.py:193 (gls_chi2) + "
      "pint_tpu/gridutils.py:112-170 (correlated grid step: centring, equilibration, Woodbury "
      "normal equations, chi2), algebra of fitting/woodbury.py:79-218 with the dense basis "
-     "(s_factor, s_solve, basis_rmatvec, basis_matvec, s_logdet: woodbury.py:92-160)"),
+     "(s_factor, s_solve, basis_rmatvec, basis_matvec, s_logdet: woodbury.py:92-160); the "
+     "stacked [TOA; DM] system of pint_tpu/fitting/wideband.py:104-118 (wb_step's Woodbury "
+     "pieces, row-scaled basis _noise_basis_aug :56) and :206-214 (wb_chi2)"),
     ("site_geometry", "pint_tpu_torch/csrc/site_geometry.cu",
      "pint_tpu/astro/device_prepare.py:91 (prepare_geometry: astro/erot.py "
      "itrf_to_gcrs_posvel)"),
@@ -993,6 +1045,11 @@ KERNELS = (
      "pint_tpu/fitting/design.py:48 (linear_columns: DM, DMX, FD, JUMP closed forms, in the "
      "wls_step, gls_step and grid programs) + pint_tpu/models/noise.py:246-259 "
      "(fourier_basis, PLRedNoise/PLDMNoise basis_and_weights :309-320, :477-484)"),
+    ("dm_rows", "pint_tpu_torch/csrc/linear_columns.cu",
+     "pint_tpu/fitting/wideband.py:40-53 (_weighted_resids' DM block: "
+     "models/timing_model.py:264-276 total_dm over dispersion.py:95 DispersionDM, :186 "
+     "DispersionDMX, :206-225 DispersionJump, and its jax.linearize columns) in the TPU "
+     "programs wb_step (wideband.py:137) and wb_chi2 (wideband.py:216)"),
 )
 
 
@@ -2016,17 +2073,18 @@ def perturbed_fit(tensor, device, which: str, par: str | None = None) -> dict:
     of its diagonal (`perturbed_normal_eq`), or, for a WLS fit, every design
     column by 1e-15 of its scale (`perturbed_design`): the witness of how far
     two fits of an ill-conditioned model may sit apart (`fit_bounds`)."""
-    from pint_tpu_torch.fitting import gls, wls
+    from pint_tpu_torch.fitting import gls, wideband, wls
 
     with twins():
         ftr = fresh_fitter(tensor, device, which, par)
-        plain = gls.ecorr_normal_eq, wls.time_resid_design
+        plain = gls.ecorr_normal_eq, wls.time_resid_design, wideband.ecorr_normal_eq
         gls.ecorr_normal_eq = perturbed_normal_eq(plain[0])
         wls.time_resid_design = perturbed_design(plain[1])
+        wideband.ecorr_normal_eq = perturbed_normal_eq(plain[2])
         try:
             ftr.fit_toas()
         finally:
-            gls.ecorr_normal_eq, wls.time_resid_design = plain
+            gls.ecorr_normal_eq, wls.time_resid_design, wideband.ecorr_normal_eq = plain
     return {"fitter": ftr}
 
 
@@ -2254,6 +2312,194 @@ def nanograv_phases(device, summary: dict, n_dmx: int = 64, nf: int = 30, tim=No
             "windows": {"nanograv_prepare": pl, "nanograv_fit": fit_l, "nanograv_grid": grid_l}}
 
 
+# --- phases 40-44: wideband TOAs (WIDEBAND_SMOKE_PAR) ---------------------------------
+
+
+def wideband_truth(tim) -> float:
+    """The true DMJUMP of a wideband .tim, from the recipe in its comment line."""
+    for line in Path(tim).read_text().splitlines()[:5]:
+        if line.startswith("C Recipe: "):
+            return float(json.loads(line.removeprefix("C Recipe: "))["dmjump_true"])
+    raise SmokeFailure(f"{tim} records no recipe")
+
+
+def dm_rows_record(model, params, tensor, dm_data, sigma, names, device, reps: int) -> dict:
+    """K8's DM-row pass at one shape. No torch call forms timing DM rows, so
+    there is no library yardstick."""
+    from pint_tpu_torch.fitting.design import dm_rows, dm_rows_plain
+
+    args = (model, params, tensor, dm_data, sigma, names)
+    ms, call = measure(lambda: dm_rows(*args), device, reps, K8_KERNELS[2])
+    plain, plain_call = measure(lambda: dm_rows_plain(*args), device, max(1, reps // 10))
+    n, n_rows, L = dm_data.shape[0], tensor["t_hi"].shape[0], len(names)
+    n_dmx = tensor["dmx_onehot"].shape[1] if "dmx_onehot" in tensor else 0
+    n_jump = len(model.dm_only_params)
+    # read t (2), the one-hot row, the masks, dm_data and sigma per row;
+    # write the DM, the residual and L columns. Per row: the DMX dot (2 per
+    # window), the jumps (2 each), the weight's division (~15) and ~5 more;
+    # per column one multiply
+    n_bytes = (n_rows * (2 + n_dmx + n_jump) + 2 * n) * 8 + n * (L + 2) * 8
+    n_ops = n * (2 * n_dmx + 2 * n_jump + 20 + L)
+    b, how = bound_ms(n_bytes, n_ops)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+            "call_ms": call, "plain_call_ms": plain_call, "shape": f"N={n} L={L}",
+            "library_note": "none: no torch call forms timing DM rows"}
+
+
+def wideband_phases(device, summary: dict, tim=None, par: str | None = None) -> dict:
+    """Phases 40-44: profiles.WIDEBAND_SMOKE_PAR (the NANOGrav-shaped par
+    without ECORR, with a DMJUMP and DMEFAC/DMEQUAD; 81 free) from `tim`
+    (default pint_tpu_torch/data/wideband_n16384.tim): K8's DM-row pass and
+    K3 at the stacked [TOA; DM] shape against their twins, the prepare, the
+    wideband fit through ``fit_auto`` against the twin path, its combined
+    design, and the times."""
+    import torch
+
+    from pint_tpu_torch.fitting import fit_auto
+    from pint_tpu_torch.fitting.design import dm_rows, dm_rows_plain
+    from pint_tpu_torch.fitting.gls import _RIDGE as GLS_RIDGE
+    from pint_tpu_torch.fitting.wideband import _weights, stacked_basis
+    from pint_tpu_torch.fitting.wls import time_resid_design
+    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_plain
+    from pint_tpu_torch.prepared import WIDEBAND_TIM
+    from pint_tpu_torch.profiles import WIDEBAND_SMOKE_PAR
+    from pint_tpu_torch.residuals import WidebandTOAResiduals
+
+    tim, par = tim or WIDEBAND_TIM, par or WIDEBAND_SMOKE_PAR
+    on_card = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmpname, knobs(
+            PINT_TPU_NBODY="0", PINT_TPU_EPHEM=None, PINT_TPU_KERNEL_EPHEM=None):
+        tmp = Path(tmpname)
+        main = flagship_tim_path(device, tmp, tim, par)
+        tensor = main["tensor"]
+        start = fresh_fitter(tensor, device, "wideband", par)
+        model, res = start.model, start.resids
+        free = tuple(model.free_params)
+        n_toas = tensor["t_hi"].shape[0] - 1
+        n_dmx = len(model["DispersionDMX"].windows)
+        basis = model.noise_basis_and_weights(model.params, tensor)
+        # free: 12 K1 lanes, the DMX windows, the JUMP, FD1-3 and DMJUMP1
+        check(len(free) == n_dmx + 17 and "DMJUMP1" in free and basis.ke == 0
+              and basis.kd == 2 * model["PLRedNoise"].nf
+              and bool(torch.all(torch.isfinite(res.dm_errors))),
+              f"wideband: {len(free)} free parameters (DMJUMP1 among them), {basis.ke} ECORR "
+              f"epochs, {basis.kd} Fourier columns, a DM measurement on all {n_toas} TOAs")
+
+        print("phase 40: K8's DM-row pass against its twin (bitwise)")
+        unit = torch.ones_like(res.dm_errors)
+        cases = {"fit": (res.dm_errors, free), "chi2": (res.dm_errors, ()),
+                 "design": (unit, free)}
+        for label, (sigma, names) in cases.items():
+            args = (model, model.params, tensor, res.dm_data, sigma, names)
+            got, want = dm_rows(*args), dm_rows_plain(*args)
+            sync(device)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            check(same and got[2].shape == (len(names), n_toas),
+                  f"K8 DM rows ({label}: {len(names)} columns x {n_toas} rows) bitwise equal to "
+                  "the twin")
+        cols = got[2]
+        dm_cols = [n for j, n in enumerate(free) if bool(torch.any(cols[j] != 0))]
+        check(len(dm_cols) == n_dmx + 1 and "DMJUMP1" in dm_cols,
+              f"DM rows: {len(dm_cols)} nonzero columns ({n_dmx} DMX and DMJUMP1)")
+
+        print("phase 41: K3 at the stacked [TOA; DM] shape against its twin")
+        w = _weights(res.errors_s, res.dm_errors)
+        r_t, M_t = time_resid_design(model, free, model.params, tensor, res.toa.weights, True,
+                                     hybrid=False)
+        _, r_dm, M_dm = dm_rows(model, model.params, tensor, res.dm_data, res.dm_errors, free)
+        r = torch.cat([r_t, r_dm])[None]
+        M = torch.cat([M_t.T, M_dm], dim=1)[None].contiguous()
+        sbasis = stacked_basis(model, model.params, tensor, n_toas)
+        k3_inputs = {"step": (r, M, w, sbasis, GLS_RIDGE, False, True),
+                     "chi2": (r, r.new_zeros((1, 0, r.shape[1])), w, sbasis, 0.0, False, False)}
+        k3_err = 0.0
+        for label, args in k3_inputs.items():
+            got, again, want = (ecorr_normal_eq(*args), ecorr_normal_eq(*args),
+                                ecorr_normal_eq_plain(*args))
+            sync(device)
+            tag = f"K3 wideband {label} (N={r.shape[1]}, p={args[1].shape[1]}, kd={sbasis.kd})"
+            for name, g, wv in zip(("G", "c", "chi2", "ahat", "norm"), got, want):
+                err = rel_err(g[0], wv[0])
+                check(err <= 1e-12, f"{tag}: {name} within 1e-12 relative ({err:.3g})")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{tag}: bitwise equal across two runs")
+            k3_err = max(k3_err, float(torch.max(torch.abs(got[2] - want[2]))))
+
+        print("phase 42: get_model_and_toas + build_tensor (wideband)")
+        pl = main["launches"]
+        for name in ("site_geometry", "analytic_ephemeris"):
+            check(pl[name] == (2 if on_card else 0),
+                  f"{name} launched {pl[name]} times (the TOAs and the TZR row)")
+        print("  stage walls (s): " + json.dumps(main["stage_s"])
+              + f"; get_model_and_toas + build_tensor {main['wall_s']:.3f} s")
+        with twins():
+            twin = flagship_tim_path(device, tmp, tim, par)
+        check(torch.equal(tensor["wb_dm"], twin["tensor"]["wb_dm"])
+              and torch.equal(tensor["wb_dme"], twin["tensor"]["wb_dme"]),
+              "wideband prepare: wb_dm and wb_dme equal to the twin path's")
+        compare_tensors(tensor, twin["tensor"], "wideband prepare kernels vs twins")
+
+        print(f"phase 43: fit_auto -> WidebandDownhillFitter.fit_toas ({len(free)} free)")
+        check(type(fit_auto(main["toas"], start.model)) is type(start),
+              "fit_auto picks WidebandDownhillFitter for the wideband TOAs")
+        run = run_main_path(fresh_fitter(tensor, device, "wideband", par), device, grid=False)
+        fit_l = run["fit_launches"]
+        for name in ("dd_elementwise", "resid_tangent", "dm_rows", "ecorr_normal_eq",
+                     "fourier_basis"):
+            check(fit_l[name] > 0 or not on_card,
+                  f"{name} launched {fit_l[name]} times by the wideband fit_toas")
+        with twins():
+            twin_run = run_main_path(fresh_fitter(twin["tensor"], device, "wideband", par),
+                                     device, grid=False)
+        moved = perturbed_fit(twin["tensor"], device, "wideband", par)
+        check_fit(run, twin_run, "wideband", moved)
+        ftr = run["fitter"]
+        truth, dmj = wideband_truth(tim), ftr.values()["DMJUMP1"]
+        sig = ftr.result.uncertainties["DMJUMP1"]
+        check(abs(dmj - truth) <= 4 * sig,
+              f"DMJUMP1 {dmj:.6g} within 4 sigma ({sig:.3g}) of its truth {truth:g}")
+        check(isinstance(ftr.resids, WidebandTOAResiduals)
+              and ftr.result.dof == 2 * n_toas - len(free) - 1,
+              f"wideband dof {ftr.result.dof} (TOAs and DM measurements)")
+        design = ftr.designmatrix()
+        with twins():
+            twin_design = ftr.designmatrix()
+        d_err = max(rel_err(torch.as_tensor(design[:, j]), torch.as_tensor(twin_design[:, j]))
+                    for j in range(design.shape[1]))
+        check(design.shape == (2 * n_toas, len(free)) and d_err <= 1e-10,
+              f"combined design {design.shape} within 1e-10 relative per column of the twins' "
+              f"({d_err:.3g})")
+
+        print("phase 44: wideband kernel times, warm wall and busy share")
+        lanes = tuple(n for n in free if n not in model.dm_only_params)
+        recs = {
+            "dm_rows": dm_rows_record(model, model.params, tensor, res.dm_data, res.dm_errors,
+                                      free, device, 50),
+            "resid_tangent": {
+                f"wideband_fit_{k}": v
+                for k, v in k1_record(model, tensor, model.params, lanes, device, 10).items()
+                if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "ecorr_normal_eq": {f"wideband_{k}": v
+                                for k, v in k3_record(*k3_inputs["step"], device).items()},
+        }
+        if on_card:
+            summary["wideband_profile"] = profile_main_path(tensor, device, "wideband", par,
+                                                            grid=False)
+    fres = ftr.result
+    summary["wideband"] = {
+        "prepare_wall_s": main["wall_s"], "prepare_stage_s": main["stage_s"],
+        "twin_prepare_wall_s": twin["wall_s"], "fit_wall_s": run["fit_s"],
+        "fit_iterations": fres.iterations, "fit_chi2_reduced": fres.reduced_chi2,
+        "dmjump1": dmj, "dmjump1_sigma": sig, "dmjump1_truth": truth,
+        "fit_distance": fit_distance(run, twin_run),
+        "fit_distance_perturbed": fit_distance(moved, twin_run), "design_rel_err": d_err,
+        "normal_matrix_condition": float(twin_run["fitter"].result.singular_values[0]
+                                         / twin_run["fitter"].result.singular_values[-1])}
+    errs = {"dm_rows": 0.0, "ecorr_normal_eq": k3_err}
+    return {"recs": recs, "errs": errs,
+            "windows": {"wideband_prepare": pl, "wideband_fit": fit_l}}
+
+
 # --- phases 34-39: the rest of the binaries (DDGR, DDK, ELL1H, ELL1K, FB) -------------
 
 
@@ -2447,7 +2693,7 @@ def binary_phases(device, summary: dict) -> dict:
 
 
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-39 on `device_name`; returns the summary record."""
+    """Phases 2-44 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -2471,12 +2717,14 @@ def phases(device_name: str = "cuda") -> dict:
     dd = dd_phases(device, summary)
     ng = nanograv_phases(device, summary)
     bins = binary_phases(device, summary)
+    wb = wideband_phases(device, summary)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
-               **ephem["windows"], **dd["windows"], **ng["windows"], **bins["windows"]}
+               **ephem["windows"], **dd["windows"], **ng["windows"], **bins["windows"],
+               **wb["windows"]}
     kernels = []
-    parts = (smoke, flag, prep, ephem, dd, ng, bins)
+    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb)
     for name, src, replaces in KERNELS:
         rec = {k: v for r in parts for k, v in r["recs"].get(name, {}).items()}
         err = max(r["errs"].get(name, 0.0) for r in parts)

@@ -27,9 +27,25 @@
 // (2 pi t_i) f_k into columns 2k and 2k + 1, times scale[i] when given
 // ((1400 MHz / f)^2 for DM noise). Output (2 nf, N), columns before rows.
 //
+// dm_rows (the DM-row pass of the wideband fit): one thread per data row.
+// Replaces the DM block of pint_tpu/fitting/wideband.py:40 _weighted_resids
+// (models/timing_model.py:264 total_dm over dispersion.py:95 DispersionDM,
+// :186 DispersionDMX and :206-225 DispersionJump) and its jax.linearize
+// columns, inside the TPU programs wb_step (wideband.py:137) and wb_chi2
+// (:216). Per row it forms the model DM in the twins' order (TimingModel.
+// total_dm): ((0 + DM(t)) + DMX of the row's window) + (0 - sum of mask_m
+// DMJUMP_m), DM(t) the Horner polynomial of ops/taylor.taylor_horner in
+// dt = (t_hi - DMEPOCH) + t_lo (the DM value alone with one term); the
+// weight sw = 1 / sigma where sigma is finite, else 0; the weighted
+// residual (DM - dm_data) sw; and the weighted DM-row column of every fit
+// parameter: DM<k> the Horner rule run on the k-th unit vector, DMX_j the
+// window's indicator, DMJUMP_m -mask_m, any other parameter 0. Output: DM
+// (N,), residual (N,), columns (L, N), columns before rows.
+//
 // Bound: device-memory bytes. Each output double costs a few operations (a
 // log for FD, a sine and cosine per Fourier pair, ~40 operations) against
-// 8 bytes written; the column pass reads ~2 doubles per row and set.
+// 8 bytes written; the column pass reads ~2 doubles per row and set; the
+// DM-row pass reads ~(4 + n_dmx + n_jump) doubles per row and writes L + 2.
 #include "dd.cuh"
 
 PINT_EXPORT_ERROR_STRING
@@ -114,6 +130,63 @@ fourier_basis_kernel(const double *__restrict__ t, const double *__restrict__ fr
   out[(size_t)(2 * k + 1) * n + i] = c;
 }
 
+constexpr int DM_KIND_NONE = 0, DM_KIND_DM = 1, DM_KIND_DMX = 2, DM_KIND_DMJUMP = 3;
+constexpr int DM_HAS_DM = 1, DM_HAS_DMX = 2, DM_HAS_JUMP = 4;
+
+struct DmIn {
+  const double *t_hi, *t_lo, *coeffs, *onehot, *dmx, *masks, *jumps, *data, *sigma;
+  int nd, n_dmx, n_jump, n_rows, n_out, parts;
+  double dmepoch;
+};
+
+// ops/taylor.taylor_horner: acc = c_last / last!; acc = acc dt + c_i / i!,
+// with c the coefficients (unit: the k-th unit vector, k >= 0)
+__device__ double dm_horner(const DmIn &in, double dt, int unit) {
+  const int last = in.nd - 1;
+  const double cl = unit < 0 ? in.coeffs[last] : (unit == last ? 1.0 : 0.0);
+  double acc = __ddiv_rn(cl, fact(last));
+  for (int i = last - 1; i >= 0; --i) {
+    const double c = unit < 0 ? in.coeffs[i] : (unit == i ? 1.0 : 0.0);
+    acc = __dadd_rn(__dmul_rn(acc, dt), __ddiv_rn(c, fact(i)));
+  }
+  return acc;
+}
+
+// grid: row blocks
+__global__ void __launch_bounds__(THREADS)
+dm_rows_kernel(DmIn in, Codes codes, int L, double *__restrict__ total,
+               double *__restrict__ resid, double *__restrict__ cols) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= in.n_out) return;
+  const double dt = __dadd_rn(__dsub_rn(in.t_hi[i], in.dmepoch), in.t_lo[i]);
+  double dm = 0.0;
+  if (in.parts & DM_HAS_DM) dm = __dadd_rn(dm, in.nd == 1 ? in.coeffs[0] : dm_horner(in, dt, -1));
+  if (in.parts & DM_HAS_DMX) {
+    double w = 0.0;
+    for (int j = 0; j < in.n_dmx; ++j)
+      w = __dadd_rn(w, __dmul_rn(in.onehot[(size_t)i * in.n_dmx + j], in.dmx[j]));
+    dm = __dadd_rn(dm, w);
+  }
+  if (in.parts & DM_HAS_JUMP) {
+    double jv = 0.0;
+    for (int m = 0; m < in.n_jump; ++m)
+      jv = __dsub_rn(jv, __dmul_rn(in.masks[(size_t)m * in.n_rows + i], in.jumps[m]));
+    dm = __dadd_rn(dm, jv);
+  }
+  const double s = in.sigma[i];
+  const double sw = isfinite(s) ? __ddiv_rn(1.0, s) : 0.0;
+  total[i] = dm;
+  resid[i] = __dmul_rn(__dsub_rn(dm, in.data[i]), sw);
+  for (int c = 0; c < L; ++c) {
+    const int kind = codes.kind[c], idx = codes.idx[c];
+    double v = 0.0;
+    if (kind == DM_KIND_DM) v = __dmul_rn(in.nd == 1 ? 1.0 : dm_horner(in, dt, idx), sw);
+    else if (kind == DM_KIND_DMX) v = __dmul_rn(in.onehot[(size_t)i * in.n_dmx + idx], sw);
+    else if (kind == DM_KIND_DMJUMP) v = __dmul_rn(-in.masks[(size_t)idx * in.n_rows + i], sw);
+    cols[(size_t)c * in.n_out + i] = v;
+  }
+}
+
 }  // namespace
 
 // fb (B, n_rows), f (B, n_out), t_hi and t_lo (n_rows,), onehot (n_rows,
@@ -149,5 +222,36 @@ extern "C" int fourier_basis(const double *t, const double *freqs, const double 
   const dim3 grid((n + THREADS - 1) / THREADS, nf);
   fourier_basis_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(t, freqs, scale,
                                                                                 n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t_hi, t_lo (n_rows,); coeffs (nd,) the DM Taylor coefficients (nd >= 1
+// with DM_HAS_DM in parts); onehot (n_rows, n_dmx), dmx (n_dmx,); masks
+// (n_jump, n_rows), jumps (n_jump,); data, sigma (n_out,) the measured DMs
+// and their scaled errors; codes: L kinds then L indices. Outputs total,
+// resid (n_out,) and cols (L, n_out).
+extern "C" int dm_rows(const double *t_hi, const double *t_lo, const double *coeffs, int nd,
+                       double dmepoch, const double *onehot, const double *dmx, int n_dmx,
+                       const double *masks, const double *jumps, int n_jump, const double *data,
+                       const double *sigma, int n_rows, int n_out, int parts, int L,
+                       const int *codes, double *total, double *resid, double *cols,
+                       void *stream) {
+  if (n_out < 1 || n_rows < n_out || L < 0 || L > LMAX || nd < 0 || n_dmx < 0 || n_jump < 0 ||
+      ((parts & DM_HAS_DM) && nd < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Codes cc;
+  for (int c = 0; c < L; ++c) {
+    cc.kind[c] = codes[c];
+    cc.idx[c] = codes[L + c];
+    const int k = cc.kind[c], idx = cc.idx[c];
+    if (k < DM_KIND_NONE || k > DM_KIND_DMJUMP || idx < 0 ||
+        (k == DM_KIND_DM && idx >= nd) || (k == DM_KIND_DMX && idx >= n_dmx) ||
+        (k == DM_KIND_DMJUMP && idx >= n_jump))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DmIn in{t_hi, t_lo, coeffs, onehot, dmx, masks, jumps, data, sigma,
+                nd, n_dmx, n_jump, n_rows, n_out, parts, dmepoch};
+  dm_rows_kernel<<<(n_out + THREADS - 1) / THREADS, THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(in, cc, L, total, resid, cols);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,10 +10,13 @@ tangent lanes of kernel K1 (``residuals.resid_tangent``).
 K8 (`linear_columns`, csrc/linear_columns.cu) writes the closed-form
 columns of DM<k>, DMX, FD<k> and JUMP over every row in one pass, the TZR
 row's value subtracted, from the barycentric frequency K1 hands back
-(``ResidTangent.fb``); and (`fourier_basis`) the interleaved sin/cos
-columns of the power-law noise bases. Their plain twins are
-`linear_columns_plain` (the components' own closed forms) and
-``models/noise.fourier_basis_plain``; on a CPU tensor the wrappers take the
+(``ResidTangent.fb``); (`fourier_basis`) the interleaved sin/cos columns of
+the power-law noise bases; and (`dm_rows`) the DM block of a wideband fit:
+the model DM of every data row, the weighted DM residual and the weighted
+DM-row column of every fit parameter. Their plain twins are
+`linear_columns_plain` (the components' own closed forms),
+``models/noise.fourier_basis_plain`` and `dm_rows_plain` (the components'
+``dm_value`` and ``dm_columns``); on a CPU tensor the wrappers take the
 twins, on a CUDA tensor they launch the kernel or raise.
 """
 
@@ -195,6 +198,124 @@ def _launch_k8_fourier(t, freqs, scale) -> torch.Tensor:
     return out.T
 
 
+def dm_weights(sigma: torch.Tensor) -> torch.Tensor:
+    """1 / sigma where sigma is finite, else 0: the DM rows' weights. The
+    division is by a tensor (IEEE on every device, ROADMAP C8)."""
+    ok = torch.isfinite(sigma)
+    return torch.where(ok, torch.ones_like(sigma) / torch.where(ok, sigma, 1.0), 0.0)
+
+
+def dm_rows_plain(model, params, tensor, dm_data, sigma, names=()):
+    """Twin of K8's DM-row pass: (DM (N,), (DM - dm_data) sw (N,), columns
+    (L, N)) over the data rows, sw = `dm_weights(sigma)`; column l is
+    d DM / d names[l] times sw, 0 for a parameter the model DM does not
+    depend on."""
+    total = model.total_dm(params, tensor)
+    sw = dm_weights(sigma)
+    n = total.shape[0]
+    derivs = {}
+    for c in model.dm_components:
+        derivs.update(c.dm_columns(params, tensor))
+    cols = [derivs[k][:n] * sw if k in derivs else torch.zeros_like(total) for k in names]
+    cols = torch.stack(cols) if cols else total.new_zeros((0, n))
+    return total, (total - dm_data) * sw, cols
+
+
+def dm_rows(model, params, tensor, dm_data, sigma, names=()):
+    """K8's DM-row pass, as `dm_rows_plain`. A CUDA tensor launches the
+    kernel; a CPU tensor takes the twin."""
+    if dm_data.device.type == "cpu":
+        return dm_rows_plain(model, params, tensor, dm_data, sigma, names)
+    out = _launch_k8_dm(model, params, tensor, dm_data, sigma, names)
+    dm_rows.launches += 1
+    return out
+
+
+dm_rows.launches = 0
+
+# DM-row kinds and model parts of csrc/linear_columns.cu
+DM_KIND_NONE, DM_KIND_DM, DM_KIND_DMX, DM_KIND_DMJUMP = 0, 1, 2, 3
+DM_HAS_DM, DM_HAS_DMX, DM_HAS_JUMP = 1, 2, 4
+
+
+def dm_kinds(model, names):
+    """(kinds, indices) of the DM-row columns of `names`: DM<k> -> (DM, k),
+    DMX_nnnn -> (DMX, its window's column), a DMJUMP -> (DMJUMP, its row
+    among the masks), anything else (NONE, 0)."""
+    owner = {}
+    for c in model.dm_components:
+        for i, n in enumerate(c.dm_param_names()):
+            owner[n] = (c, i)
+    kinds, idx = [], []
+    code = {"DispersionDM": DM_KIND_DM, "DispersionDMX": DM_KIND_DMX,
+            "DispersionJump": DM_KIND_DMJUMP}
+    for n in names:
+        if n in owner:
+            c, i = owner[n]
+            kinds.append(code[c.name])
+            idx.append(i)
+        else:
+            kinds.append(DM_KIND_NONE)
+            idx.append(0)
+    return kinds, idx
+
+
+def _launch_k8_dm(model, params, tensor, dm_data, sigma, names):
+    """One launch of K8's DM-row pass."""
+    dev = dm_data.device
+    require_f64("dm_rows", params={n: params[n] for c in model.dm_components
+                                   for n in c.dm_param_names()},
+                tensor={"dm_data": dm_data, "sigma": sigma, "t_hi": tensor["t_hi"]})
+    unknown = {c.name for c in model.dm_components} - {"DispersionDM", "DispersionDMX",
+                                                      "DispersionJump"}
+    if unknown:
+        raise NotImplementedError(f"kernel K8's DM-row pass has no term for {sorted(unknown)}")
+    n_out, n_rows = dm_data.shape[0], tensor["t_hi"].shape[0]
+    if sigma.shape != (n_out,) or n_rows != n_out + int(model.has_abs_phase):
+        raise ValueError(f"dm_rows needs dm_data and sigma ({n_rows - int(model.has_abs_phase)},);"
+                         f" got {tuple(dm_data.shape)}, {tuple(sigma.shape)}")
+    empty = torch.zeros(1, dtype=torch.float64, device=dev)
+    coeffs = onehot = dmx = masks = jumps = empty
+    parts, nd, n_dmx, n_jump, dmepoch = 0, 0, 0, 0, 0.0
+    if "DispersionDM" in model:
+        comp = model["DispersionDM"]
+        parts |= DM_HAS_DM
+        nd = comp.num_terms
+        coeffs = torch.stack([leaf_to_f64(params[n]) for n in comp.coeff_names()])
+        if nd > 1:
+            dmepoch = float(leaf_to_f64(params["DMEPOCH"]))
+    if "DispersionDMX" in model:
+        comp = model["DispersionDMX"]
+        parts |= DM_HAS_DMX
+        onehot, dmx = tensor["dmx_onehot"], comp.dmx_values(params)
+        n_dmx = dmx.shape[0]
+    if "DispersionJump" in model and model["DispersionJump"].mask_params:
+        comp = model["DispersionJump"]
+        parts |= DM_HAS_JUMP
+        masks = torch.stack([tensor[f"mask_{mp.name}"] for mp in comp.mask_params])
+        jumps = torch.stack([leaf_to_f64(params[mp.name]) for mp in comp.mask_params])
+        n_jump = jumps.shape[0]
+    ins = [tensor["t_hi"], tensor["t_lo"], coeffs, onehot, dmx, masks, jumps, dm_data, sigma]
+    for t in ins:
+        if t.dtype != torch.float64 or t.device != dev:
+            raise ValueError(f"dm_rows needs float64 tensors on {dev}")
+    ins = [t.contiguous() for t in ins]
+    kinds, idx = dm_kinds(model, names)
+    L = len(kinds)
+    total, resid = (torch.empty(n_out, dtype=torch.float64, device=dev) for _ in range(2))
+    cols = torch.empty((L, n_out), dtype=torch.float64, device=dev)
+    codes = (ctypes.c_int * max(2 * L, 1))(*kinds, *idx)
+    from pint_tpu_torch.ops import build
+
+    lib = build.library("linear_columns", _declare_k8)
+    build.check(lib, lib.dm_rows(
+        ins[0].data_ptr(), ins[1].data_ptr(), ins[2].data_ptr(), nd, dmepoch, ins[3].data_ptr(),
+        ins[4].data_ptr(), n_dmx, ins[5].data_ptr(), ins[6].data_ptr(), n_jump,
+        ins[7].data_ptr(), ins[8].data_ptr(), n_rows, n_out, parts, L, codes,
+        total.data_ptr(), resid.data_ptr(), cols.data_ptr(), build.stream_of(total)))
+    return total, resid, cols
+
+
 def _declare_k8(lib) -> None:
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.linear_columns.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
@@ -202,3 +323,6 @@ def _declare_k8(lib) -> None:
     lib.linear_columns.restype = ctypes.c_int
     lib.fourier_basis.argtypes = [p, p, p, i, i, p, p]
     lib.fourier_basis.restype = ctypes.c_int
+    lib.dm_rows.argtypes = [p, p, p, i, d, p, p, i, p, p, i, p, p, i, i, i, i,
+                            ctypes.POINTER(ctypes.c_int), p, p, p, p]
+    lib.dm_rows.restype = ctypes.c_int

@@ -116,11 +116,15 @@ def time_resid_design(model: TimingModel, free: tuple, params: dict, tensor: dic
     phase residual in TURNS, before the division by f. Nonlinear columns
     are the tangents of K1, d(r/f) = dr/f - r df/f^2; linear columns are
     closed forms with their weighted mean removed. ``hybrid=False`` takes
-    every column from the tangents, as the JAX package's GLS step does."""
+    every column from the tangents, as the JAX package's GLS step does. A
+    parameter of the model DM alone (DMJUMP) has an exactly zero column,
+    written without a lane."""
+    dm_only = set(model.dm_only_params)
+    timing = tuple(n for n in free if n not in dm_only)
     if hybrid:
-        nonlin, lin_names, owners = linear_split(model, free)
+        nonlin, lin_names, owners = linear_split(model, timing)
     else:
-        nonlin, lin_names, owners = tuple(free), (), {}
+        nonlin, lin_names, owners = timing, (), {}
     mean_free = subtract_mean and not model.has_phase_offset
     out = phase_resid_tangents(model, params, tensor, lanes=nonlin)
     r, f = out.frac[0], out.f[0]
@@ -138,6 +142,8 @@ def time_resid_design(model: TimingModel, free: tuple, params: dict, tensor: dic
             M_l = M_l - weighted_mean(M_l, weights)
         for i, n in enumerate(lin_names):
             cols[n] = M_l[i]
+    for n in dm_only & set(free):
+        cols[n] = torch.zeros_like(r)
     return r / f, torch.stack([cols[n] for n in free], dim=1)
 
 
@@ -258,12 +264,17 @@ class WLSFitter:
         unc = {n: float(u) for n, u in zip(self._free, np.sqrt(diag))}
         for n, u in unc.items():
             self.model.param_meta[n].uncertainty = u
-        self.resids = Residuals(self.toas, self.model, subtract_mean=self.resids.subtract_mean)
+        self.resids = self._rebuild_resids()
         self.result = FitResult(chi2=chi2, dof=self.resids.dof, iterations=it,
                                 converged=converged, uncertainties=unc, covariance=cov,
                                 free_params=list(self._free),
                                 singular_values=s.detach().cpu().numpy())
         return self.result
+
+    def _rebuild_resids(self):
+        """Fresh residuals at the model's current parameters, with the
+        caller's choice of mean subtraction."""
+        return Residuals(self.toas, self.model, subtract_mean=self.resids.subtract_mean)
 
     def values(self) -> dict:
         """{free name: float64 value} of the model's current parameters."""

@@ -1,9 +1,9 @@
 """Model builder: parfile -> components -> TimingModel (counterpart of
 ``pint_tpu/models/builder.py``, restricted to the components ported so far:
 AstrometryEquatorial, AstrometryEcliptic, SolarSystemShapiro, DispersionDM,
-DispersionDMX, FD, PulsarBinary (every BINARY model of pint_tpu, PB or FB
-form), Spindown, PhaseJump,
-AbsPhase, ScaleToaError, EcorrNoise, PLRedNoise, PLDMNoise).
+DispersionDMX, DispersionJump, FD, PulsarBinary (every BINARY model of
+pint_tpu, PB or FB form), Spindown, PhaseJump, AbsPhase, ScaleToaError,
+ScaleDmError, EcorrNoise, PLRedNoise, PLDMNoise).
 
 Mask parameters (``EFAC -f Rcvr1_2_GUPPI 1.02``) number per family in
 parfile order (EFAC1, EFAC2, ...) as in pint_tpu; each reads the tensor
@@ -27,10 +27,10 @@ from pint_tpu_torch.io.tim import mjd_string_to_day_frac
 from pint_tpu_torch.models.astrometry import AstrometryEcliptic, AstrometryEquatorial
 from pint_tpu_torch.models.base import Component
 from pint_tpu_torch.models.binary import make_binary_component
-from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX
+from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX, DispersionJump
 from pint_tpu_torch.models.frequency_dependent import FD
 from pint_tpu_torch.models.noise import (EcorrNoise, NoiseComponent, PLDMNoise, PLRedNoise,
-                                         ScaleToaError)
+                                         ScaleDmError, ScaleToaError)
 from pint_tpu_torch.models.parameter import (MaskParamInfo, ParamSpec, ParamValueMeta,
                                              parse_mask_clause)
 from pint_tpu_torch.models.phase_misc import AbsPhase, PhaseJump
@@ -55,7 +55,6 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
     that the port does not have yet."""
     names = list(pf.names())
     checks = [
-        ("DMJUMP", "DMJUMP" in pf, "A9 (DMJUMP)"),
         ("PHOFF", "PHOFF" in pf, "A9 (PhaseOffset)"),
         ("DJUMP", "DJUMP" in pf, "A9 (DelayJump)"),
         ("GLEP_", any(n.startswith("GLEP_") for n in names), "A9 (Glitch)"),
@@ -67,7 +66,6 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
         ("CORRECT_TROPOSPHERE", _parse_bool(pf.get("CORRECT_TROPOSPHERE", "N")),
          "A9 (troposphere)"),
         ("TNGWAMP", "TNGWAMP" in pf, "A12 (PLGWBNoise)"),
-        ("DMEFAC/DMEQUAD", "DMEFAC" in pf or "DMEQUAD" in pf, "A10 (ScaleDmError)"),
         ("PLANET_SHAPIRO", _parse_bool(pf.get("PLANET_SHAPIRO", "N")),
          "A18 (planet positions from the TOA prepare)"),
     ]
@@ -112,6 +110,8 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         components.append(DispersionDM())
     if any(n.startswith("DMX_") for n in pf.names()):
         components.append(DispersionDMX())
+    if "DMJUMP" in pf:
+        components.append(DispersionJump())
     if any(isinstance(c, (AstrometryEquatorial, AstrometryEcliptic)) for c in components):
         components.append(SolarSystemShapiro())
         meta["PLANET_SHAPIRO"] = False
@@ -141,6 +141,8 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         components.append(PLRedNoise())
     if "TNDMAMP" in pf:
         components.append(PLDMNoise())
+    if "DMEFAC" in pf or "DMEQUAD" in pf:
+        components.append(ScaleDmError())
 
     model = TimingModel(components, meta, device=dev)
     for comp in model.components:

@@ -85,6 +85,22 @@ class DispersionDM(DelayComponent):
         dt = dt_since_epoch_f64(tensor, params["DMEPOCH"])
         return taylor_horner(dt, coeffs)
 
+    def dm_param_names(self) -> list[str]:
+        return self.coeff_names()
+
+    def dm_value(self, params: dict, tensor: dict) -> torch.Tensor:
+        return self.base_dm(params, tensor)
+
+    def dm_columns(self, params: dict, tensor: dict) -> dict:
+        """d base_dm / d DM<k>: the Horner rule run on the k-th unit vector,
+        the tangent pint_tpu's forward mode takes through taylor_horner."""
+        if self.num_terms == 1:
+            return {"DM": torch.ones_like(tensor["t_hi"])}
+        dt = dt_since_epoch_f64(tensor, params["DMEPOCH"])
+        names = self.coeff_names()
+        return {n: taylor_horner(dt, [float(j == k) for j in range(self.num_terms)])
+                for k, n in enumerate(names)}
+
     def delay(self, params: dict, tensor: dict, delay_so_far, xp):
         return dispersion_time_delay(self.base_dm(params, tensor), barycentric_radio_freq(tensor))
 
@@ -158,6 +174,16 @@ class DispersionDMX(DelayComponent):
     def dmx_dm(self, params: dict, tensor: dict) -> torch.Tensor:
         return tensor["dmx_onehot"] @ self.dmx_values(params)
 
+    def dm_param_names(self) -> list[str]:
+        return self.linear_param_names()
+
+    def dm_value(self, params: dict, tensor: dict) -> torch.Tensor:
+        return self.dmx_dm(params, tensor)
+
+    def dm_columns(self, params: dict, tensor: dict) -> dict:
+        onehot = tensor["dmx_onehot"]
+        return {n: onehot[:, j] for j, n in enumerate(self.linear_param_names())}
+
     def delay(self, params: dict, tensor: dict, delay_so_far, xp):
         return dispersion_time_delay(self.dmx_dm(params, tensor), barycentric_radio_freq(tensor))
 
@@ -169,3 +195,28 @@ class DispersionDMX(DelayComponent):
         base = torch.where(torch.isfinite(fb), -DMCONST / (fb * fb), 0.0)
         onehot = tensor["dmx_onehot"][sl]
         return {f"DMX_{i:04d}": base * onehot[:, j] for j, i in enumerate(self.sorted_indices)}
+
+
+class DispersionJump(DelayComponent):
+    """DMJUMP: a constant offset of the measured wideband DMs of a selection
+    (``DMJUMP -f Rcvr_800_GUPPI 0.001 1``). It enters the model DM with a
+    minus sign and no delay (its TOA design column is exactly zero)."""
+
+    category = "dispersion_jump"
+    register = True
+
+    @classmethod
+    def mask_bases(cls):
+        return [ParamSpec("DMJUMP", unit="pc cm^-3", description="DM value offset")]
+
+    def dm_param_names(self) -> list[str]:
+        return [mp.name for mp in self.mask_params]
+
+    def dm_value(self, params: dict, tensor: dict) -> torch.Tensor:
+        out = torch.zeros_like(tensor["t_hi"])
+        for mp in self.mask_params:
+            out = out - tensor[f"mask_{mp.name}"] * leaf_to_f64(params[mp.name])
+        return out
+
+    def dm_columns(self, params: dict, tensor: dict) -> dict:
+        return {mp.name: -tensor[f"mask_{mp.name}"] for mp in self.mask_params}

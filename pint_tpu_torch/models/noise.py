@@ -5,7 +5,9 @@
 Noise enters a fit through two surfaces:
 
 - ``scale_sigma(params, tensor, sigma)``: per-TOA uncertainty rescaling
-  (EFAC/EQUAD), elementwise over the mask columns of the tensor;
+  (EFAC/EQUAD), elementwise over the mask columns of the tensor (and
+  ``scale_dm_sigma`` of ScaleDmError, DMEFAC/DMEQUAD, the wideband DM
+  uncertainties);
 - ``basis_and_weights(params, tensor, sl)``: the correlated-noise basis in
   structured form (``fitting/woodbury.NoiseBasis``). For ECORR it is the
   implicit per-TOA epoch index and the prior variance of each epoch; the
@@ -94,6 +96,35 @@ class ScaleToaError(NoiseComponent):
             ef = leaf_to_f64(params[mp.name])
             sigma = torch.where(m > 0, ef * sigma, sigma)
         return sigma
+
+
+class ScaleDmError(NoiseComponent):
+    """DMEFAC/DMEQUAD rescaling of the wideband DM uncertainties, over each
+    mask: DMEQUADs in quadrature first, then DMEFACs. It acts on the DM
+    block of a wideband fit only, never on the TOA sigmas."""
+
+    category = "scale_dm_error"
+    register = True
+
+    @classmethod
+    def mask_bases(cls):
+        return [ParamSpec("DMEFAC", unit="", description="DM error scale factor"),
+                ParamSpec("DMEQUAD", unit="pc cm^-3", description="DM error added in quadrature")]
+
+    def scale_dm_sigma(self, params, tensor, sigma_dm):
+        for mp in self.mask_params:
+            if mp.base != "DMEQUAD":
+                continue
+            m = tensor[f"mask_{mp.name}"]
+            eq = leaf_to_f64(params[mp.name])
+            sigma_dm = torch.where(m > 0, hypot(sigma_dm, eq), sigma_dm)
+        for mp in self.mask_params:
+            if mp.base != "DMEFAC":
+                continue
+            m = tensor[f"mask_{mp.name}"]
+            ef = leaf_to_f64(params[mp.name])
+            sigma_dm = torch.where(m > 0, ef * sigma_dm, sigma_dm)
+        return sigma_dm
 
 
 def _quantize_epochs(t_s: np.ndarray, dt: float = 1.0, nmin: int = 2) -> list[np.ndarray]:

@@ -112,13 +112,14 @@ class TimingModel:
         that the forward chain reads: the TZR fiducial TOA, prepared through
         the same pipeline (K4 and K5 on the card), appended as the last row;
         TDB as double-double seconds (``device_split``); every component's
-        host columns. The TZR row belongs to no mask. Columns the port does
-        not read yet (planet positions, wideband DMs) raise."""
+        host columns; with -pp_dm flags the wideband DM measurements
+        (``wb_dm``, ``wb_dme``: rows without one, the TZR row included, get
+        an infinite error, zero weight in the DM block). The TZR row belongs
+        to no mask. Columns the port does not read yet (planet positions)
+        raise."""
         from pint_tpu_torch.prepared import tensor_from_numpy
         from pint_tpu_torch.toas import make_tzr_toa, merge_TOAs
 
-        if toas.is_wideband:
-            raise NotImplementedError("wideband TOAs (-pp_dm): not ported yet, ROADMAP A10")
         full = toas
         if self.has_abs_phase:
             tzr = make_tzr_toa(self.meta["TZR_DAY"], self.meta["TZR_HI"], self.meta["TZR_LO"],
@@ -133,6 +134,9 @@ class TimingModel:
                "obs_sun_pos_ls": tens.obs_sun_pos_ls}
         for p, arr in tens.planet_pos_ls.items():
             out[f"obs_{p}_pos_ls"] = arr
+        wb_dm, wb_dme = full.get_wideband_dm()
+        if wb_dm is not None:
+            out["wb_dm"], out["wb_dme"] = wb_dm, wb_dme
         n_rows = t_hi.shape[0]
         for c in self.components:
             for k, col in c.host_columns(full, self.params).items():
@@ -159,6 +163,42 @@ class TimingModel:
         sigma = tensor["error_s"]
         for c in self.noise_components:
             sigma = c.scale_sigma(params, tensor, sigma)
+        if self.has_abs_phase:
+            sigma = sigma[:-1]
+        return sigma
+
+    # --- the wideband DM surface -------------------------------------------------
+
+    @property
+    def dm_components(self) -> list[Component]:
+        """The components with a model DM (``dm_value``), in chain order."""
+        return [c for c in self.components if hasattr(c, "dm_value")]
+
+    @property
+    def dm_only_params(self) -> list[str]:
+        """Parameters that move the model DM and no delay (DMJUMP)."""
+        if "DispersionJump" not in self:
+            return []
+        return self["DispersionJump"].dm_param_names()
+
+    def total_dm(self, params: dict, tensor: dict) -> torch.Tensor:
+        """Model DM at each TOA (pc cm^-3), data rows only: the components'
+        ``dm_value`` summed in chain order (the twin of the model DM that
+        kernel K8's DM-row pass writes)."""
+        tensor = self._with_context(params, tensor)
+        dm = torch.zeros_like(tensor["t_hi"])
+        for c in self.dm_components:
+            dm = dm + c.dm_value(params, tensor)
+        if self.has_abs_phase:
+            dm = dm[:-1]
+        return dm
+
+    def scaled_dm_sigma(self, params: dict, tensor: dict) -> torch.Tensor:
+        """DMEFAC/DMEQUAD-rescaled wideband DM uncertainties, data rows."""
+        sigma = tensor["wb_dme"]
+        for c in self.noise_components:
+            if hasattr(c, "scale_dm_sigma"):
+                sigma = c.scale_dm_sigma(params, tensor, sigma)
         if self.has_abs_phase:
             sigma = sigma[:-1]
         return sigma

@@ -22,7 +22,10 @@ Besides the fixed `COLUMNS`, a model with noise components reads
 - ``dmx_onehot`` (N+1, n_dmx): 1.0 where a row falls in a DMX window (the
   TZR row too: it is a model evaluation, not a selection);
 - ``noise_tspan`` (1, 1): the span of the real TOAs, the power-law
-  noise bases' fundamental period.
+  noise bases' fundamental period;
+- ``wb_dm``, ``wb_dme`` (N+1,): wideband TOAs' DM measurements and their
+  errors (pc cm^-3; an infinite error, zero weight, on rows without one,
+  the TZR row always).
 
 `tensor_from_numpy` and `params_from_numpy` are the bridge from values
 computed by pint_tpu (as numpy; dd leaves as (hi, lo) pairs) to the port.
@@ -47,6 +50,7 @@ _DROPPED = ("t_q0", "t_q1", "t_q2", "t_q3")
 #: the noise and DMX columns (see the module docstring)
 ECORR_COLUMNS = ("ecorr_eidx", "ecorr_widx")
 MODEL_COLUMNS = ("dmx_onehot", "noise_tspan")
+WIDEBAND_COLUMNS = ("wb_dm", "wb_dme")
 
 SMOKE_ARCHIVE = Path(__file__).resolve().parent / "data" / "smoke_n16384.npz"
 #: profiles.FLAGSHIP_SMOKE_PAR over 16,384 sub-band TOAs in 2,048 epochs
@@ -69,14 +73,19 @@ DDK_TIM = Path(__file__).resolve().parent / "data" / "ddk_n16384.tim"
 #: sub-bands, with white, ECORR and red noise drawn by pint_tpu under the
 #: analytic ephemeris: the input of the NANOGrav-shaped path
 NANOGRAV_TIM = Path(__file__).resolve().parent / "data" / "nanograv_n16384.tim"
+#: profiles.WIDEBAND_SMOKE_PAR over 16,384 wideband TOAs (one per epoch, the
+#: two receivers in turn, each with a -pp_dm/-pp_dme DM measurement), noise
+#: drawn by pint_tpu under the analytic ephemeris: the input of the wideband
+#: path
+WIDEBAND_TIM = Path(__file__).resolve().parent / "data" / "wideband_n16384.tim"
 
 
 def carried(names) -> list[str]:
     """The columns of `names` the port carries, in a fixed order: COLUMNS,
-    then the mask columns sorted, then the ECORR, DMX and noise-span
-    columns. Any other column raises, rather than being dropped silently."""
+    then the mask columns sorted, then the ECORR, DMX, noise-span and
+    wideband columns. Any other column raises, rather than being dropped silently."""
     names = set(names)
-    tail = ECORR_COLUMNS + MODEL_COLUMNS
+    tail = ECORR_COLUMNS + MODEL_COLUMNS + WIDEBAND_COLUMNS
     unknown = names - set(COLUMNS) - set(_DROPPED) - set(tail)
     unknown = {k for k in unknown if not k.startswith("mask_")}
     if unknown:

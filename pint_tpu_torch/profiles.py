@@ -251,6 +251,26 @@ TZRFRQ 1400
 NANOGRAV_SMOKE_PAR = nanograv_smoke_par()
 
 
+def wideband_smoke_par(n_dmx: int = 64, nf: int = 30) -> str:
+    """`nanograv_smoke_par` in the form NANOGrav publishes for wideband data:
+    no ECORR (one TOA per observation and receiver), a DMJUMP on the 800 MHz
+    receiver (free, at 0) and fixed DMEFAC and DMEQUAD on both receivers.
+    Free: the NANOGrav par's 80 and DMJUMP1 at the defaults."""
+    par = "".join(line + "\n" for line in nanograv_smoke_par(n_dmx, nf).splitlines()
+                  if not line.startswith("ECORR"))
+    return par.replace("TNREDAMP", """DMJUMP -f Rcvr_800_GUPPI 0 1
+DMEFAC -f Rcvr1_2_GUPPI 1.1
+DMEQUAD -f Rcvr1_2_GUPPI 5e-5
+DMEFAC -f Rcvr_800_GUPPI 1.25
+DMEQUAD -f Rcvr_800_GUPPI 8e-5
+TNREDAMP""")
+
+
+#: the wideband NANOGrav-shaped model at full width: 81 free parameters, 60
+#: Fourier columns; the model of pint_tpu_torch/data/wideband_n16384.tim
+WIDEBAND_SMOKE_PAR = wideband_smoke_par()
+
+
 def spin_grid(model, ftr):
     """3x3 (F0, F1) grid around the model values, +-1 sigma when the fitter
     has uncertainties."""

@@ -215,7 +215,9 @@ def _structure(model: TimingModel) -> Structure:
                 **{f"Binary{m}": BIN_KEPLER for m in KEPLER_MODELS}}
     allowed = {"AstrometryEquatorial", "AstrometryEcliptic", "SolarSystemShapiro",
                "DispersionDM", "DispersionDMX", "FD", "Spindown", "PhaseJump", "AbsPhase",
-               "ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise", *binaries}
+               "ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise",
+               # the model DM's offsets and the DM sigmas' scaling: no delay
+               "DispersionJump", "ScaleDmError", *binaries}
     extra = set(model.component_names) - allowed
     if extra:
         raise NotImplementedError(f"kernel K1 does not evaluate {sorted(extra)}")
@@ -552,3 +554,44 @@ class Residuals:
     def reduced_chi2(self) -> float:
         return self.calc_chi2() / self.dof
 
+
+class WidebandTOAResiduals:
+    """Combined TOA + wideband-DM residuals (pint_tpu
+    ``WidebandTOAResiduals``): the TOA block is a `Residuals`; the DM block
+    is dm_data - total_dm (the model DM from kernel K8's DM-row pass) with
+    the DMEFAC/DMEQUAD-scaled uncertainties; chi^2 adds the two blocks."""
+
+    def __init__(self, toas, model: TimingModel, subtract_mean: bool = True):
+        self.toa = Residuals(toas, model, subtract_mean)
+        self.toas = self.toa.toas
+        self.tensor = self.toa.tensor
+        self.model = model
+        if "wb_dm" not in self.tensor:
+            raise ValueError("TOAs carry no -pp_dm wideband DM measurements")
+        self.dm_errors = model.scaled_dm_sigma(model.params, self.tensor)
+        self.dm_data = self.tensor["wb_dm"][: self.dm_errors.shape[0]]
+
+    @property
+    def errors_s(self) -> torch.Tensor:
+        return self.toa.errors_s
+
+    @property
+    def dm_resids(self) -> torch.Tensor:
+        from pint_tpu_torch.fitting.design import dm_rows
+
+        total = dm_rows(self.model, self.model.params, self.tensor, self.dm_data,
+                        self.dm_errors)[0]
+        return self.dm_data - total
+
+    def calc_chi2(self) -> float:
+        e = self.dm_errors
+        w = torch.where(torch.isfinite(e), 1.0 / e**2, 0.0)
+        return self.toa.calc_chi2() + float(torch.sum(w * self.dm_resids**2))
+
+    @property
+    def dof(self) -> int:
+        return self.toa.dof + int(torch.sum(torch.isfinite(self.dm_errors)))
+
+    @property
+    def reduced_chi2(self) -> float:
+        return self.calc_chi2() / self.dof

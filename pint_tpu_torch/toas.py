@@ -107,6 +107,35 @@ class TOAs:
         """True when any TOA carries a -pp_dm wideband DM measurement."""
         return any("pp_dm" in f for f in self.flags)
 
+    def get_wideband_dm(self) -> tuple[np.ndarray | None, np.ndarray | None]:
+        """(dm [pc cm^-3], dm error) per TOA from the -pp_dm/-pp_dme flags.
+        A row without a measurement gets dm 0 and an infinite error (zero
+        weight); (None, None) when no TOA has one. A row with one flag of the
+        pair and not the other raises."""
+        n = len(self.flags)
+        dm = np.zeros(n)
+        dme = np.full(n, np.inf)
+        has_dm = np.zeros(n, bool)
+        has_dme = np.zeros(n, bool)
+        for i, f in enumerate(self.flags):
+            v = f.get("pp_dm")
+            if v is not None:
+                dm[i] = float(v)
+                has_dm[i] = True
+            e = f.get("pp_dme")
+            if e is not None:
+                dme[i] = float(e)
+                has_dme[i] = True
+        if not has_dm.any():
+            return None, None
+        for a, b, bad in (("pp_dm", "pp_dme", has_dm & ~has_dme),
+                          ("pp_dme", "pp_dm", has_dme & ~has_dm)):
+            if bad.any():
+                raise ValueError(
+                    f"{int(bad.sum())} TOAs carry -{a} without -{b} (first at index "
+                    f"{int(np.flatnonzero(bad)[0])}); wideband DM measurements need both")
+        return dm, dme
+
     def tensor(self) -> TOATensor:
         t_hi, t_lo = self.tdb.seconds_since(TENSOR_EPOCH_MJD)
         return TOATensor(

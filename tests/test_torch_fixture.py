@@ -16,14 +16,16 @@ over fake TOAs made by pint_tpu under the analytic ephemeris (`DD_RECIPE`);
 epochs with white, ECORR and red noise drawn by pint_tpu (`NANOGRAV_RECIPE`);
 ``ddgr_n16384.tim`` and ``ddk_n16384.tim`` ``profiles.DDGR_SMOKE_PAR`` and
 ``profiles.DDK_SMOKE_PAR`` in `DD_RECIPE`'s layout (`DDGR_RECIPE`,
-`DDK_RECIPE`). Write them anew with
+`DDK_RECIPE`); ``wideband_n16384.tim`` ``profiles.WIDEBAND_SMOKE_PAR`` over
+one wideband TOA per epoch with a DM measurement each (`WIDEBAND_RECIPE`).
+Write them anew with
 
-    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd|nanograv|ddgr|ddk ...]
+    JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write [smoke|flagship|nbody|dd|nanograv|ddgr|ddk|wideband ...]
 
-(all eight without names).
+(all nine without names).
 
 The helpers here (`smoke_dataset`, `port_pair`, `flagship_pair`, `dd_pair`,
-`recipe_pair`, `nanograv_pair`) also feed the other ``tests/test_torch_*.py``
+`recipe_pair`, `nanograv_pair`, `wideband_pair`) also feed the other ``tests/test_torch_*.py``
 files.
 """
 
@@ -70,6 +72,21 @@ NANOGRAV_RECIPE = {"par": "profiles.nanograv_smoke_par", "n_dmx": 64, "nf": 30,
                    "n": ARCHIVE_N, "seed": 43, "span_mjd": [56650.0, 57350.0],
                    "error_us": 1.0, "obs": "gbt",
                    "noise": "simulation.add_noise_from_model", "nbody": 0}
+
+#: how the wideband .tim is made (recorded in its comment line): NANOGRAV_RECIPE's
+#: span and receivers with one TOA per epoch, the receivers in turn, each
+#: epoch's frequency the next of its receiver's sub-bands; white and red noise
+#: drawn by pint_tpu, then each TOA's DM measurement: the model's DM, minus
+#: the true DMJUMP on the 800 MHz receiver, plus a normal draw of the
+#: DMEFAC/DMEQUAD-scaled error (`pp_dme` before scaling), from the same
+#: generator after the TOA noise. An epoch within `dmx_edge_clearance_d` of
+#: a DMX window's start moves that far past it, out of the windows' gaps
+WIDEBAND_RECIPE = {"par": "profiles.wideband_smoke_par", "n_dmx": 64, "nf": 30,
+                   "n": ARCHIVE_N, "seed": 49, "span_mjd": [56650.0, 57350.0],
+                   "error_us": 1.0, "obs": "gbt", "toas_per_epoch": 1,
+                   "dmx_edge_clearance_d": 3e-3,
+                   "noise": "simulation.add_noise_from_model", "pp_dme": 1e-4,
+                   "dmjump_true": 2.5e-3, "nbody": 0}
 
 
 def smoke_dataset(n: int, seed: int):
@@ -268,6 +285,84 @@ def nanograv_pair(n: int = 1024, n_dmx: int = 8, nf: int = 10, dm_noise: bool = 
     return model, toas, tens, tm, tt
 
 
+@functools.lru_cache(maxsize=4)
+def wideband_dataset(n: int, seed: int = WIDEBAND_RECIPE["seed"], n_dmx: int = 64,
+                     nf: int = 30):
+    """(pint_tpu model, toas, build_tensor dict) of
+    ``profiles.wideband_smoke_par(n_dmx, nf)`` over `n` wideband TOAs made
+    by `WIDEBAND_RECIPE`; once per arguments in a process: callers must not
+    modify it. Every row lies in exactly one DMX window."""
+    from pint_tpu.io.par import parse_parfile
+    from pint_tpu.models.builder import build_model
+    from pint_tpu.profiles import RECEIVERS
+    from pint_tpu.simulation import add_noise_from_model, make_fake_toas_fromMJDs
+    from pint_tpu_torch.profiles import DMX_SPAN_MJD, wideband_smoke_par
+
+    r = WIDEBAND_RECIPE
+    model = build_model(parse_parfile(wideband_smoke_par(n_dmx, nf), from_text=True))
+    epochs = np.linspace(*r["span_mjd"], n)
+    clear = r["dmx_edge_clearance_d"]
+    for start in np.linspace(*DMX_SPAN_MJD, n_dmx + 1)[1:-1]:
+        near = np.abs(epochs - start) < clear
+        epochs[near] = start + clear
+    mjds, freqs, flags = [], [], []
+    for i, emjd in enumerate(epochs):
+        fname, subbands = RECEIVERS[i % len(RECEIVERS)]
+        mjds.append(emjd)
+        freqs.append(subbands[(i // len(RECEIVERS)) % len(subbands)])
+        flags.append({"f": fname, "fe": fname.split("_GUPPI")[0]})
+    rng = np.random.default_rng(seed)
+    toas = make_fake_toas_fromMJDs(np.array(mjds), model, obs=r["obs"],
+                                   freq_mhz=np.array(freqs), error_us=r["error_us"],
+                                   flags=flags)
+    toas = add_noise_from_model(toas, model, rng=rng)
+    tens = model.build_tensor(toas)
+    dm = np.asarray(model.total_dm(model.xprec.convert_params(model.params), tens))
+    # the scaled error of each row: DMEFAC * hypot(pp_dme, DMEQUAD) of its receiver
+    scale = {}
+    for mp in model["ScaleDmError"].mask_params:
+        scale.setdefault(mp.clause.as_parfile_tokens()[-1], {})[mp.base] = \
+            float(np.asarray(model.params[mp.name]))
+    for i, f in enumerate(toas.flags):
+        sc = scale[f["f"]]
+        sigma = sc["DMEFAC"] * float(np.hypot(r["pp_dme"], sc["DMEQUAD"]))
+        meas = dm[i] - (r["dmjump_true"] if f["f"] == "Rcvr_800_GUPPI" else 0.0) \
+            + rng.standard_normal() * sigma
+        f["pp_dm"], f["pp_dme"] = repr(float(meas)), repr(r["pp_dme"])
+    tens = model.build_tensor(toas)
+    per_row = np.asarray(tens["dmx_onehot"]).sum(axis=1)
+    if not np.all(per_row == 1.0):
+        raise AssertionError(f"{int(np.sum(per_row != 1.0))} rows not in exactly one DMX window")
+    return model, toas, tens
+
+
+def wideband_tim(path) -> None:
+    """Write the `WIDEBAND_RECIPE` dataset as a .tim, its recipe in a comment
+    line after the header's first line."""
+    import json
+
+    r = WIDEBAND_RECIPE
+    _, toas, _ = wideband_dataset(r["n"], r["seed"], r["n_dmx"], r["nf"])
+    toas.write_tim(str(path))
+    lines = Path(path).read_text().splitlines(keepends=True)
+    lines.insert(1, f"C Recipe: {json.dumps(r, sort_keys=True)}\n")
+    Path(path).write_text("".join(lines))
+
+
+def wideband_pair(n: int = 1024, n_dmx: int = 8, nf: int = 10):
+    """(pint_tpu model, toas, tensor, port model, port tensor) on the CPU of
+    the wideband dataset at a narrow width (p = 12 + n_dmx + 5, 2 nf
+    Fourier columns)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.prepared import tensor_from_numpy
+    from pint_tpu_torch.profiles import wideband_smoke_par
+
+    model, toas, tens = wideband_dataset(n, WIDEBAND_RECIPE["seed"], n_dmx, nf)
+    tm = get_model(wideband_smoke_par(n_dmx, nf), from_text=True, device="cpu")
+    tt = tensor_from_numpy({k: np.asarray(v) for k, v in tens.items()}, device="cpu")
+    return model, toas, tens, tm, tt
+
+
 def flagship_export(n: int = ARCHIVE_N, seed: int = FLAGSHIP_SEED):
     """(numpy columns, meta) of a fresh flagship export."""
     from pint_tpu_torch.prepared import carried
@@ -431,6 +526,24 @@ def test_nanograv_tim_matches_fresh_export(tmp_path):
     assert json.loads(recipe.removeprefix("C Recipe: ")) == NANOGRAV_RECIPE
 
 
+def test_wideband_tim_matches_fresh_export(tmp_path):
+    """The committed wideband .tim parses to the lines of a fresh export of
+    `WIDEBAND_RECIPE` (its -pp_dm/-pp_dme flags included), and records the
+    recipe."""
+    import json
+
+    from pint_tpu.io.tim import parse_tim
+    from pint_tpu_torch.prepared import WIDEBAND_TIM
+
+    wideband_tim(tmp_path / "fresh.tim")
+    fresh, committed = parse_tim(str(tmp_path / "fresh.tim")), parse_tim(str(WIDEBAND_TIM))
+    assert len(committed.toas) == WIDEBAND_RECIPE["n"]
+    assert all("pp_dm" in t.flags and "pp_dme" in t.flags for t in committed.toas)
+    assert [vars(t) for t in committed.toas] == [vars(t) for t in fresh.toas]
+    recipe = WIDEBAND_TIM.read_text().splitlines()[1]
+    assert json.loads(recipe.removeprefix("C Recipe: ")) == WIDEBAND_RECIPE
+
+
 def test_flagship_tim_prepares_to_the_archive(tmp_path, monkeypatch):
     """pint_tpu's prepare of the committed .tim gives the archive's columns:
     t (hi + lo) within 5 ps (the tim's 16 decimals of a day round each UTC
@@ -592,13 +705,16 @@ def _write_archive(which) -> None:
     if "nanograv" in which:
         nanograv_tim(NANOGRAV_TIM)
         print(f"wrote {NANOGRAV_TIM} ({NANOGRAV_TIM.stat().st_size} bytes)")
+    if "wideband" in which:
+        wideband_tim(prepared.WIDEBAND_TIM)
+        print(f"wrote {prepared.WIDEBAND_TIM} ({prepared.WIDEBAND_TIM.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
-    names = {"smoke", "flagship", "nbody", "dd", "nanograv", "ddgr", "ddk"}
+    names = {"smoke", "flagship", "nbody", "dd", "nanograv", "ddgr", "ddk", "wideband"}
     if sys.argv[1:2] != ["--write"] or not set(sys.argv[2:]) <= names:
         sys.exit("usage: python tests/test_torch_fixture.py --write "
-                 "[smoke|flagship|nbody|dd|nanograv|ddgr|ddk ...]")
+                 "[smoke|flagship|nbody|dd|nanograv|ddgr|ddk|wideband ...]")
     sys.path.insert(0, str(REPO))
     import jax
 

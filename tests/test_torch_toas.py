@@ -244,11 +244,16 @@ def test_prepare_refuses_what_is_not_ported(tmp_path):
     line = TOALine("x", 1400.0, 57000, 0.25, 0.0, 1.0, "stl_geo", {"telx": "1"})
     with pytest.raises(NotImplementedError, match="A9"):
         prepare_TOAs([line], device="cpu")
+    # wideband TOAs are ported: the tensor carries their DM measurements; a
+    # -pp_dm without its -pp_dme is refused
     wb = TOALine("x", 1400.0, 57000, 0.25, 0.0, 1.0, "gbt", {"pp_dm": "10", "pp_dme": "1"})
     toas = prepare_TOAs([wb], device="cpu")
     model = get_model("PSR X\nF0 100 1\nPEPOCH 57000\n", from_text=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        model.build_tensor(toas)
+    tensor = model.build_tensor(toas)
+    assert tensor["wb_dm"].tolist() == [10.0] and tensor["wb_dme"].tolist() == [1.0]
+    bad = TOALine("x", 1400.0, 57000, 0.25, 0.0, 1.0, "gbt", {"pp_dm": "10"})
+    with pytest.raises(ValueError, match="-pp_dm without -pp_dme"):
+        model.build_tensor(prepare_TOAs([bad], device="cpu"))
     with pytest.raises(ValueError, match="no TOAs"):
         prepare_TOAs([], device="cpu")
     with pytest.raises(KeyError, match="unknown observatory"):
