@@ -220,6 +220,34 @@ both; 81 free parameters, 60 Fourier columns) over
 44. the DM-row pass's, K3's and K1's times at the fit's shapes, and the warm
    wall and busy share of one wideband fit.
 
+Then the single-pulsar noise likelihood on phase 31's NANOGrav fit:
+``fitting.NoiseLikelihood`` (N = 16,384, p_lin = 81: the 80 free parameters'
+K1 tangents and the profiled offset, 2,048 ECORR epochs, 60 Fourier columns, 8
+hyperparameters), built once (K1, K8's Fourier pass):
+
+45. K3's per-set-weight mode (``woodbury.ecorr_normal_eq_sets``: one design,
+   E sets of weights and prior variances) against its twin at E = 1, 8 and
+   256: every output within 1e-12 relative per set and bitwise repeatable; at
+   E = 1 bitwise equal to the shared-weight mode's call on the same inputs,
+   and phase 29's shared-weight calls run again bitwise equal to their first
+   results;
+46. K9 ``noise_grad`` (the likelihood's backward, d lnL / d w and d lnL / d
+   phi) against its twin on the kernel forward's state, marginalized and
+   profiled, at E = 1 and 8: within 1e-12 of each set's largest entry,
+   bitwise repeatable;
+47. ``loglike`` at 5 points, ``loglike_many`` at 256 and ``grad`` at 2
+   against the same likelihood through the twins on the card: the design
+   within 1e-10 relative per column, the likelihoods within 1e-8 relative,
+   the gradient within 1e-8 of its largest entry;
+48. ``optimize()`` (8 Adam restarts, 200 steps) from noise values moved off
+   the truth (`NOISE_START`), against the twin path: the ln posterior above
+   the start's and within 1e-8 relative, eta_hat within 1e-6 prior scales;
+   the DM-noise variant (120 Fourier columns, 10 hyperparameters) through
+   phases 47-48 once;
+49. K3's per-set mode at E = 1, 8, 256 and K9 at E = 1, 8: times; the warm
+   walls of loglike, grad, loglike_many (256) and optimize; the busy share of
+   grad and of optimize.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
@@ -234,8 +262,11 @@ K1, K3 and K8's Fourier pass, its grid K1, K8's two passes and K3; the
 slice-7 prepares K4 and K5 twice each, their fits K0 and K1 (and K3 for
 GLS), the DDGR and DDK grids K1 and K2, the others K1, K8 and K3; the
 wideband prepare K4 and K5 twice each, its fit K0, K1, K8's Fourier and DM-row
-passes and K3 (the wideband fit has no grid).
-K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 7. At the
+passes and K3 (the wideband fit has no grid); the noise likelihood's build K1 and
+K8's Fourier pass, its loglike and loglike_many K3's per-set mode, its grad and
+optimize (each variant's) K3's per-set mode and K9.
+K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 7
+(its per-set mode 5 to 8), K9 2. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs; where the profiler reads no
@@ -402,7 +433,7 @@ def twins():
     """Route the main path through the plain-torch twins, on the card."""
     from pint_tpu_torch import gridutils, residuals
     from pint_tpu_torch.astro import device_prepare as dp
-    from pint_tpu_torch.fitting import design, gls, wideband, wls, woodbury
+    from pint_tpu_torch.fitting import design, gls, noise_like, wideband, wls, woodbury
     from pint_tpu_torch.models import noise
     from pint_tpu_torch.ops import dd
 
@@ -410,7 +441,7 @@ def twins():
              gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
              dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
              gridutils.linear_columns, design.fourier_basis, design.dm_rows, wideband.dm_rows,
-             wideband.ecorr_normal_eq)
+             wideband.ecorr_normal_eq, noise_like.ecorr_normal_eq_sets, noise_like.noise_grad)
     residuals.resid_tangent = residuals.resid_tangent_plain
     # K8's twin forms f_bary itself: the kernel's fb argument is dropped
     wls.linear_columns = gridutils.linear_columns = \
@@ -423,6 +454,8 @@ def twins():
     design.dm_rows = wideband.dm_rows = design.dm_rows_plain
     dp.site_geometry, dp.analytic_ephemeris = dp.site_geometry_plain, dp.analytic_ephemeris_plain
     dp.nbody_serve, dp.chebyshev_eval = dp.nbody_serve_plain, dp.chebyshev_eval_plain
+    noise_like.ecorr_normal_eq_sets = woodbury.ecorr_normal_eq_sets_plain
+    noise_like.noise_grad = noise_like.noise_grad_plain
     try:
         yield
     finally:
@@ -430,7 +463,7 @@ def twins():
          gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
          dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
          gridutils.linear_columns, design.fourier_basis, design.dm_rows, wideband.dm_rows,
-         wideband.ecorr_normal_eq) = saved
+         wideband.ecorr_normal_eq, noise_like.ecorr_normal_eq_sets, noise_like.noise_grad) = saved
 
 
 @contextlib.contextmanager
@@ -632,7 +665,8 @@ def counters():
     from pint_tpu_torch.astro.device_prepare import (analytic_ephemeris, chebyshev_eval,
                                                      nbody_serve, site_geometry)
     from pint_tpu_torch.fitting.design import dm_rows, fourier_basis, linear_columns
-    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq
+    from pint_tpu_torch.fitting.noise_like import noise_grad
+    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_sets
     from pint_tpu_torch.gridutils import normal_eq
     from pint_tpu_torch.ops.dd import dd_elementwise
     from pint_tpu_torch.residuals import resid_tangent
@@ -642,7 +676,8 @@ def counters():
             "site_geometry": site_geometry, "analytic_ephemeris": analytic_ephemeris,
             "nbody_serve": nbody_serve, "chebyshev_eval": chebyshev_eval,
             "linear_columns": linear_columns, "fourier_basis": fourier_basis,
-            "dm_rows": dm_rows}
+            "dm_rows": dm_rows, "ecorr_normal_eq_sets": ecorr_normal_eq_sets,
+            "noise_grad": noise_grad}
 
 
 @contextlib.contextmanager
@@ -1004,7 +1039,8 @@ def phase_k3(model, tensor, ftr, params_b, grid_free, device, extra=None) -> dic
             check(err <= 1e-12, f"{tag}: {name} within 1e-12 relative per set ({err:.3g})")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{tag}: bitwise equal across two runs")
-        out[label] = {"args": args, "chi2_abs_err": float(torch.max(torch.abs(got[2] - want[2])))}
+        out[label] = {"args": args, "out": got,
+                      "chi2_abs_err": float(torch.max(torch.abs(got[2] - want[2])))}
     return out
 
 
@@ -1045,6 +1081,14 @@ KERNELS = (
      "pint_tpu/fitting/design.py:48 (linear_columns: DM, DMX, FD, JUMP closed forms, in the "
      "wls_step, gls_step and grid programs) + pint_tpu/models/noise.py:246-259 "
      "(fourier_basis, PLRedNoise/PLDMNoise basis_and_weights :309-320, :477-484)"),
+    ("ecorr_normal_eq_sets", "pint_tpu_torch/csrc/ecorr_normal_eq.cu",
+     "pint_tpu/fitting/noise_like.py:141-180 (_loglike_fn's Woodbury chi2, log|C| and the "
+     "profiled timing block, as XLA fused it into the TPU programs noise_loglike :802 and "
+     "noise_loglike_batch :806, and into the forward of noise_loglike_grad :811 and "
+     "noise_optimize :367), algebra of fitting/woodbury.py:79-218"),
+    ("noise_grad", "pint_tpu_torch/csrc/noise_grad.cu",
+     "pint_tpu/fitting/noise_like.py:798 (jax.grad of _loglike_fn :141-180: the reverse pass "
+     "of noise_loglike_grad :811 and of value_and_grad inside noise_optimize :327-367)"),
     ("dm_rows", "pint_tpu_torch/csrc/linear_columns.cu",
      "pint_tpu/fitting/wideband.py:40-53 (_weighted_resids' DM block: "
      "models/timing_model.py:264-276 total_dm over dispersion.py:95 DispersionDM, :186 "
@@ -2308,7 +2352,8 @@ def nanograv_phases(device, summary: dict, n_dmx: int = 64, nf: int = 30, tim=No
     errs = {"resid_tangent": max(v["max_abs_err"] for v in stats.values()),
             "ecorr_normal_eq": max(v["chi2_abs_err"] for v in k3.values()),
             "linear_columns": k8_err}
-    return {"recs": recs, "errs": errs,
+    return {"recs": recs, "errs": errs, "fitter": run["fitter"], "tensor": tensor,
+            "toas": main["toas"], "k3": k3, "width": (n_dmx, nf),
             "windows": {"nanograv_prepare": pl, "nanograv_fit": fit_l, "nanograv_grid": grid_l}}
 
 
@@ -2692,8 +2737,384 @@ def binary_phases(device, summary: dict) -> dict:
     return {"recs": recs, "errs": errs, "windows": windows}
 
 
+# --- phases 45-49: the noise likelihood (NANOGRAV_SMOKE_PAR) -------------------------
+
+#: the optimizer's start (phase 48): noise values away from the simulation's
+#: truth (an EQUAD or ECORR at the truth's 0.01 us sits at its prior's edge,
+#: where Adam's first steps leave the prior and the start stays the best point)
+NOISE_START = {"EFAC1": 1.3, "EFAC2": 0.8, "EQUAD1": 1.23e-6, "EQUAD2": 0.87e-6,
+               "ECORR1": 1.11e-6, "ECORR2": 0.93e-6, "TNREDAMP": -13.1, "TNREDGAM": 4.1,
+               "TNDMAMP": -13.3, "TNDMGAM": 3.1}
+#: K3's per-set-weight mode is checked and timed at these numbers of weight
+#: sets (grad, optimize's 8 restarts, loglike_many's bucket), K9 at the first two
+NOISE_SETS = (1, 8, 256)
+K9_KERNELS = ("phi_pass", "row_pass")
+
+
+def noise_points(nl, E: int, seed: int):
+    """(E, h): the start and E - 1 points moved by 0.03 prior scales (EQUAD
+    and ECORR kept inside their priors)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    eta = np.tile(nl.x0, (E, 1))
+    eta[1:] += 0.03 * nl.scales * rng.standard_normal((E - 1, nl.nparams))
+    edge = np.array([n.startswith(("EQUAD", "ECORR")) for n in nl.hyper])
+    return np.where(edge, np.abs(eta), eta)
+
+
+def noise_inputs(nl, eta):
+    """(w (E, N), phi_e (E, ke), phi_d (E, kd)) at the points eta (E, h), as
+    the likelihood forms them."""
+    import torch
+
+    return tuple(x.contiguous() for x in nl._sets(torch.as_tensor(eta, device=nl.device)))
+
+
+def phase_k3_sets(nl, device, k3_old) -> dict:
+    """Phase 45: K3's per-set-weight mode against its twin at each of
+    NOISE_SETS, bitwise repeatable; at E = 1 bitwise equal to the
+    shared-weight mode's B = 1 call (the two share their arithmetic); and
+    phase 29's fit and grid calls run again, bitwise equal to their first
+    results."""
+    import torch
+
+    from pint_tpu_torch.fitting.noise_like import RIDGE
+    from pint_tpu_torch.fitting.woodbury import (ecorr_normal_eq, ecorr_normal_eq_sets,
+                                                 ecorr_normal_eq_sets_plain)
+
+    core = nl._core
+    out = {}
+    for E in NOISE_SETS:
+        w, pe, pd = noise_inputs(nl, noise_points(nl, E, 45))
+        args = (core.r0, core.M, w, core.Fd, core.epochs, pe, pd, RIDGE)
+        got = ecorr_normal_eq_sets(*args)
+        again = ecorr_normal_eq_sets(*args)
+        want = ecorr_normal_eq_sets_plain(*args)
+        sync(device)
+        tag = f"K3 per-set mode (E={E}, p={core.M.shape[0]}, ke={pe.shape[1]}, kd={pd.shape[1]})"
+        for name in want._fields:
+            g, wv = getattr(got, name), getattr(want, name)
+            err = rel_err(g, wv) if name == "norm" else max(rel_err(g[e], wv[e]) for e in range(E))
+            check(err <= 1e-12, f"{tag}: {name} within 1e-12 relative per set ({err:.3g})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: bitwise equal across two runs")
+        if E == 1:
+            basis = nl.model.noise_basis_and_weights(nl._params0, nl.tensor)
+            old = ecorr_normal_eq(core.r0[None], core.M[None], w[0],
+                                  basis._replace(ephi=pe[0], dense_phi=pd[0]), RIDGE)
+            same = all(torch.equal(a, b) for a, b in zip(
+                old, (got.G, got.c, got.chi2, got.ahat, got.norm[None])))
+            check(same, "K3 per-set mode at E = 1 bitwise equal to the shared-weight mode")
+        out[E] = {"args": args, "chi2_abs_err": float(torch.max(torch.abs(got.chi2 - want.chi2)))}
+    for label in ("fit", "grid"):
+        again = ecorr_normal_eq(*k3_old[label]["args"])
+        sync(device)
+        check(all(torch.equal(a, b) for a, b in zip(again, k3_old[label]["out"])),
+              f"K3's shared-weight mode at phase 29's {label} shape bitwise unchanged")
+    return out
+
+
+def phase_k9(nl, device) -> float:
+    """Phase 46: K9 against its twin on the kernel forward's state, both
+    modes, at E = 1 and 8: d lnL / d w and d lnL / d phi within 1e-12 of
+    each set's largest entry, bitwise repeatable. Returns the largest
+    absolute error of d lnL / d w."""
+    import torch
+
+    from pint_tpu_torch.fitting.noise_like import noise_forward, noise_grad, noise_grad_plain
+
+    worst = 0.0
+    for E in NOISE_SETS[:2]:
+        w, pe, pd = noise_inputs(nl, noise_points(nl, E, 46))
+        for marg in (True, False):
+            core = nl._core._replace(marginalize=marg)
+            _, st = noise_forward(core, w, pe, pd)
+            got, again = noise_grad(core, st), noise_grad(core, st)
+            want = noise_grad_plain(core, st)
+            sync(device)
+            tag = f"K9 (E={E}, {'marginalized' if marg else 'profiled'})"
+            for name, g, wv in zip(("dlnL/dw", "dlnL/dphi"), got, want):
+                err = max(rel_err(g[e], wv[e]) for e in range(E))
+                check(err <= 1e-12, f"{tag}: {name} within 1e-12 of the largest entry ({err:.3g})")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{tag}: bitwise equal across two runs")
+            worst = max(worst, float(torch.max(torch.abs(got[0] - want[0]))))
+    return worst
+
+
+def noise_model(fitter, toas, device, width, dm_noise: bool, start: dict):
+    """(model, tensor): ``nanograv_smoke_par(*width)`` (with DM noise) at
+    the fit's timing parameters, its noise values moved by `start`."""
+    import torch
+
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.profiles import nanograv_smoke_par
+
+    model = get_model(nanograv_smoke_par(*width, dm_noise=dm_noise), from_text=True,
+                      device=device)
+    for n, v in fitter.model.params.items():
+        if n in model.params:
+            model.params[n] = v
+    for n, v in start.items():
+        if n in model.params:
+            model.params[n] = torch.tensor(v, dtype=torch.float64, device=device)
+    return model, model.build_tensor(toas)
+
+
+def check_noise_like(nl, twin, device, label: str) -> dict:
+    """The design, loglike at 5 points, loglike_many at 256 and grad at 2
+    of `nl` against the twin path `twin`, each of `nl`'s calls in a launch
+    window of its own. Bounds: the CPU tests' (design 1e-10 per column,
+    likelihoods 1e-8 relative, the gradient 1e-8 of its largest entry)."""
+    import numpy as np
+
+    windows = {k: {} for k in ("loglike", "many", "grad")}
+    r0, M, mn = nl.design
+    tr0, tM, tmn = twin.design
+    derr = max(rel_err(r0, tr0), rel_err(mn, tmn),
+               max(rel_err(M[:, j], tM[:, j]) for j in range(M.shape[1])))
+    check(derr <= 1e-10, f"{label}: design (r0, M per column, Mnorm) within 1e-10 of the "
+                         f"twin path's ({derr:.3g})")
+    pts = noise_points(nl, 5, 47)
+    with counted(windows["loglike"]):
+        ll = np.array([nl.loglike(e) for e in pts])
+    many_pts = noise_points(nl, 256, 48)
+    with counted(windows["many"]):
+        many = nl.loglike_many(many_pts)
+    with counted(windows["grad"]):
+        g = np.array([nl.grad(e) for e in pts[:2]])
+    with twins():
+        tll = np.array([twin.loglike(e) for e in pts])
+        tmany = twin.loglike_many(many_pts)
+        tg = np.array([twin.grad(e) for e in pts[:2]])
+    errs = {"design": derr, "loglike": float(np.max(np.abs(ll - tll) / np.abs(tll))),
+            "loglike_many": float(np.max(np.abs(many - tmany) / np.abs(tmany))),
+            "grad": float(max(np.max(np.abs(a - b)) / np.max(np.abs(b)) for a, b in zip(g, tg)))}
+    check(np.all(np.isfinite(ll)) and errs["loglike"] <= 1e-8,
+          f"{label}: loglike at 5 points within 1e-8 relative ({errs['loglike']:.3g})")
+    check(many.shape == (256,) and errs["loglike_many"] <= 1e-8,
+          f"{label}: loglike_many at 256 points within 1e-8 relative ({errs['loglike_many']:.3g})")
+    check(np.all(np.isfinite(g)) and errs["grad"] <= 1e-8,
+          f"{label}: grad at 2 points within 1e-8 of the largest entry ({errs['grad']:.3g})")
+    on_card = device.type == "cuda"
+    for win, names in (("loglike", ("ecorr_normal_eq_sets",)), ("many", ("ecorr_normal_eq_sets",)),
+                       ("grad", ("ecorr_normal_eq_sets", "noise_grad"))):
+        for name in names:
+            n = windows[win][name]
+            check(n > 0 or not on_card, f"{name} launched {n} times by {label}'s {win}")
+    return {"errs": errs, "windows": windows, "loglike": ll.tolist(),
+            "grad_x0": g[0].tolist()}
+
+
+def check_optimize(nl, twin, device, label: str) -> dict:
+    """optimize() (8 restarts, 200 steps) against the twin path: the best ln
+    posterior above the start's and within 1e-8 relative, eta_hat within
+    1e-6 of each prior scale."""
+    import numpy as np
+    import torch
+
+    window = {}
+    with counted(window):
+        t0 = time.perf_counter()
+        eta, lp = nl.optimize()
+        sync(device)
+        wall = time.perf_counter() - t0
+    with twins():
+        eta_t, lp_t = twin.optimize()
+    with torch.no_grad():
+        start = float(nl._lnpost(torch.as_tensor(nl.x0, device=nl.device)[None])[0])
+    check(lp > start, f"{label}: optimize raised the ln posterior from {start:.10g} to {lp:.10g}")
+    err = abs(lp - lp_t) / abs(lp_t)
+    check(err <= 1e-8, f"{label}: optimize's ln posterior within 1e-8 of the twin path's "
+                       f"({lp:.12g} vs {lp_t:.12g})")
+    moved = float(np.max(np.abs(eta - eta_t) / nl.scales))
+    check(moved <= 1e-6, f"{label}: eta_hat within 1e-6 prior scales of the twin path's "
+                         f"({moved:.3g})")
+    for name in ("ecorr_normal_eq_sets", "noise_grad"):
+        check(window[name] > 0 or device.type != "cuda",
+              f"{name} launched {window[name]} times by {label}'s optimize")
+    return {"window": window, "wall_s": wall, "lnpost": lp, "lnpost_start": start,
+            "lnpost_rel_err": err, "eta_rel_scale_err": moved,
+            "eta_hat": dict(zip(nl.hyper, eta.tolist()))}
+
+
+# K3's per-set mode: each set's ln w_i is a log (~35 operations, as K1's count)
+LOG_OPS = 35
+
+
+def k3_sets_record(core, w, pe, pd, device) -> dict:
+    """K3's per-set-weight mode at E = w.shape[0] weight sets; the library
+    yardstick is the batched cuBLAS Gram X W_e X^T of the augmented rows X =
+    [Mn, r, Fd] alone."""
+    import torch
+
+    from pint_tpu_torch.fitting.noise_like import RIDGE
+    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq_sets, ecorr_normal_eq_sets_plain
+
+    args = (core.r0, core.M, w, core.Fd, core.epochs, pe, pd, RIDGE)
+    E, n = w.shape
+    p, ke, kd = core.M.shape[0], pe.shape[1], pd.shape[1]
+    reps = 20 if E < 256 else 3
+    ms, call = measure(lambda: ecorr_normal_eq_sets(*args), device, reps, K3_KERNEL)
+    whole, _ = measure(lambda: ecorr_normal_eq_sets(*args), device, reps)
+    plain, plain_call = measure(lambda: ecorr_normal_eq_sets_plain(*args), device, 1)
+    X = torch.cat([core.M / core.mnorm[:, None], core.r0[None], core.Fd])
+    Xw = (X[None] * torch.sqrt(w)[:, None, :]).contiguous()
+    lib, lib_call = measure(lambda: torch.matmul(Xw, Xw.mT), device, reps)
+    del Xw
+    nnz = core.epochs.rows.shape[0]
+    V = p + 1 + kd
+    q = (p + 1) * (p + 2) // 2
+    # read r, M, Fd once, each set's w and phi, the CSR; write G, c, chi2,
+    # ahat, log|C| and the backward's De, epoch sums, L, Wz, ad
+    n_bytes = (n * V + E * (n + ke + kd)) * 8 + (ke + 1 + nnz) * 4 \
+        + E * (p * p + p + 2 + 2 * ke + kd + ke * V + kd * (kd + p + 2)) * 8
+    # column norms (3 per value of M); per set: ln w (LOG_OPS per row), the
+    # epoch sums (2 per value and row), each row and epoch weighted (1 per
+    # value); the Gram over rows and epochs and the fold are multiply-adds
+    n_ops = n * p * 3 + E * (n * LOG_OPS + nnz * 2 * V + (n + ke) * V)
+    n_mma = E * ((n + ke) * V * (V + 1) + q * 2 * kd)
+    b, how = bound_ms(n_bytes, n_ops, n_mma)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
+            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
+            "library_call_ms": lib_call, "shape": f"E={E} N={n} p={p} ke={ke} kd={kd}"}
+
+
+def k9_record(core, w, pe, pd, device) -> dict:
+    """K9 at E = w.shape[0] weight sets on the kernel forward's state."""
+    from pint_tpu_torch.fitting.noise_like import noise_forward, noise_grad, noise_grad_plain
+
+    _, st = noise_forward(core, w, pe, pd)
+    E, n = w.shape
+    p, ke, kd = core.M.shape[0], pe.shape[1], pd.shape[1]
+    ms, call = measure(lambda: noise_grad(core, st), device, 20, K9_KERNELS)
+    whole, _ = measure(lambda: noise_grad(core, st), device, 20)
+    plain, plain_call = measure(lambda: noise_grad_plain(core, st), device, 3)
+    V = p + 1 + kd
+    # read M, r, Fd and the epoch index once, each set's w, phi and the
+    # forward's De and epoch sums, and the small factors; write dw and dphi
+    n_bytes = (n * (p + 1 + kd) + p) * 8 + n * 4 \
+        + E * (n + 2 * (ke + kd) + ke * V + p * p + kd * kd + kd * (p + 1) + p) * 8 \
+        + E * (n + ke + kd) * 8
+    # products with g_d and the squared norms through K^-1 and L^-1 are
+    # multiply-adds of matrix products: per row p kd, p (p + 1) / 2 and
+    # kd (kd + 1) / 2, per epoch the same, per dense column p (p + 1) / 2;
+    # the rest ~4 per value
+    rows = p * kd + p * (p + 1) // 2 + kd * (kd + 1) // 2
+    n_mma = E * 2 * ((n + ke) * rows + kd * p * (p + 1) // 2)
+    n_ops = E * 4 * (n + ke) * (p + kd)
+    b, how = bound_ms(n_bytes, n_ops, n_mma)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
+            "shape": f"E={E} N={n} p={p} ke={ke} kd={kd}"}
+
+
+def noise_walls(nl, device) -> dict:
+    """Warm walls (host clock, ending in a synchronize) of loglike, grad,
+    loglike_many (256 points) and optimize, then device time by kernel over
+    one more of each under torch.profiler, and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pts = noise_points(nl, 256, 49)
+    calls = {"loglike": lambda: nl.loglike(nl.x0), "grad": lambda: nl.grad(nl.x0),
+             "loglike_many_256": lambda: nl.loglike_many(pts), "optimize": nl.optimize}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        out[f"{name}_s"] = time.perf_counter() - t0
+    if device.type != "cuda":
+        return out
+    for name in ("grad", "optimize"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls[name]()
+            sync(device)
+        kern = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(us for _, us in kern) / 1e6
+        k9 = sum(us for k, us in kern if any(p in k for p in K9_KERNELS)) / 1e6
+        k3 = sum(us for k, us in kern if K3_KERNEL in k) / 1e6 - k9
+        out[f"{name}_profile"] = {
+            "device_busy_s": busy, "busy_share": busy / out[f"{name}_s"], "k3_s": k3, "k9_s": k9,
+            "top": [[k[:70], us / 1e6] for k, us in sorted(kern, key=lambda r: -r[1])[:6]]}
+    return out
+
+
+def noise_phases(device, summary: dict, ng: dict) -> dict:
+    """Phases 45-49 on phase 31's NANOGrav fit: K3's per-set-weight mode and
+    K9 against their twins, NoiseLikelihood (loglike, loglike_many, grad,
+    optimize) against the twin path, the DM-noise variant once, times."""
+    from pint_tpu_torch.fitting import NoiseLikelihood
+
+    fitter, tensor, (n_dmx, nf) = ng["fitter"], ng["tensor"], ng["width"]
+    model = fitter.model
+    windows = {}
+    with counted(windows.setdefault("noise_build", {})):
+        nl = NoiseLikelihood(tensor, model)
+        sync(device)
+    core = nl._core
+    n = tensor["t_hi"].shape[0] - 1  # the last row is the TZR's
+    shape = (core.r0.shape[0], core.M.shape[0], core.epochs.ke, core.Fd.shape[0], nl.nparams)
+    # p_lin: 12 K1 lanes, the DMX windows, the JUMP, FD1-3 and the offset
+    check(shape == (n, n_dmx + 17, n // 8, 2 * nf, 8),
+          f"noise likelihood at (N, p_lin, ke, kd, h) = {shape}")
+    for name in ("resid_tangent", "fourier_basis"):
+        n = windows["noise_build"][name]
+        check(n > 0 or device.type != "cuda", f"{name} launched {n} times by the build")
+
+    print("phase 45: K3's per-set-weight mode against its twin")
+    k3 = phase_k3_sets(nl, device, ng["k3"])
+
+    print("phase 46: K9 noise_grad against its twin")
+    k9_err = phase_k9(nl, device)
+
+    print("phase 47: NoiseLikelihood (loglike, loglike_many, grad) against the twin path")
+    with twins():
+        twin = NoiseLikelihood(tensor, model)
+    main = check_noise_like(nl, twin, device, "NANOGrav noise")
+    windows.update({f"noise_{k}": v for k, v in main["windows"].items()})
+
+    print("phase 48: optimize (8 restarts, 200 steps) against the twin path; the DM-noise variant")
+    opt = {}
+    for label, dm in (("NANOGrav", False), ("NANOGrav + DM noise", True)):
+        m, t = noise_model(fitter, ng["toas"], device, (n_dmx, nf), dm, NOISE_START)
+        one = NoiseLikelihood(t, m)
+        with twins():
+            one_twin = NoiseLikelihood(t, m)
+        if dm:
+            check(one._core.Fd.shape[0] == 4 * nf and one.nparams == 10,
+                  f"the DM-noise variant: {4 * nf} Fourier columns, 10 hyperparameters")
+            opt["dm_noise_checks"] = check_noise_like(one, one_twin, device, label)["errs"]
+        opt[label] = check_optimize(one, one_twin, device, label)
+        windows["noise_optimize" + ("_dm" if dm else "")] = opt[label].pop("window")
+
+    print("phase 49: K3's per-set mode and K9 times, noise walls and busy share")
+    recs = {"ecorr_normal_eq_sets": {}, "noise_grad": {}}
+    for E in NOISE_SETS:
+        w, pe, pd = noise_inputs(nl, noise_points(nl, E, 49))
+        rec = k3_sets_record(core, w, pe, pd, device)
+        recs["ecorr_normal_eq_sets"].update(rec if E == 1 else
+                                            {f"e{E}_{k}": v for k, v in rec.items()})
+        if E <= 8:
+            rec = k9_record(core, w, pe, pd, device)
+            recs["noise_grad"].update(rec if E == 1 else {f"e{E}_{k}": v for k, v in rec.items()})
+    walls = noise_walls(nl, device)
+    print("  walls (s): " + json.dumps({k: v for k, v in walls.items() if k.endswith("_s")}))
+    summary["noise"] = {"shape": dict(zip(("N", "p_lin", "ke", "kd", "h"), shape)),
+                        "errs": main["errs"], "loglike": main["loglike"],
+                        "grad_x0": main["grad_x0"], "optimize": opt, "walls": walls}
+    errs = {"ecorr_normal_eq_sets": max(v["chi2_abs_err"] for v in k3.values()),
+            "noise_grad": k9_err}
+    return {"recs": recs, "errs": errs, "windows": windows}
+
+
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-44 on `device_name`; returns the summary record."""
+    """Phases 2-49 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -2718,17 +3139,19 @@ def phases(device_name: str = "cuda") -> dict:
     ng = nanograv_phases(device, summary)
     bins = binary_phases(device, summary)
     wb = wideband_phases(device, summary)
+    noise = noise_phases(device, summary, ng)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
                **ephem["windows"], **dd["windows"], **ng["windows"], **bins["windows"],
-               **wb["windows"]}
+               **wb["windows"], **noise["windows"]}
     kernels = []
-    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb)
+    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb, noise)
     for name, src, replaces in KERNELS:
         rec = {k: v for r in parts for k, v in r["recs"].get(name, {}).items()}
         err = max(r["errs"].get(name, 0.0) for r in parts)
-        ptxas = summary.get("ptxas_instances", {}).get(name, {})
+        # the library is the source's (K3's two modes, K8's passes share one)
+        ptxas = summary.get("ptxas_instances", {}).get(Path(src).stem, {})
         # K8's two passes (columns, Fourier) count under its name
         counted_as = (name, "fourier_basis") if name == "linear_columns" else (name,)
         launches = {k: sum(w[c] for c in counted_as) for k, w in windows.items()}

@@ -57,6 +57,18 @@
 //   6. fold_pass: one block per set writes G (symmetric), c and chi2;
 //   7. ahat_pass (ke > 0): one thread per (epoch, set).
 //
+// The per-set-weight mode (ecorr_gram_sets, ecorr_fold_sets) turns the sets
+// around: ONE (r, M) and E sets of weights w (E, N) and prior variances
+// phi_e (E, ke), phi_d (E, kd), the form of pint_tpu's marginalized noise
+// likelihood (fitting/noise_like.py:141-180 _loglike_fn, in the TPU programs
+// noise_loglike, noise_loglike_batch and noise_loglike_grad). The same
+// passes run with set stride 0 on r, M and the norms and set stride N on w;
+// De, the epoch sums and the Fd blocks (which depend on w) are then per set.
+// No centring, unweighted norms (the noise design's Mnorm,
+// noise_like.py:685-687). One more pass, logw_pass, adds sum_i ln w_i per
+// set for the white term of ln|C|. Set 0's arithmetic in the shared-weight
+// mode is exactly what it was before the mode existed.
+//
 // Bound: float64 operations. The Gram is ~N (p + 1 + kd)^2 / 2 multiply-
 // adds per set (about 1e9 at the NANOGrav grid's B = 9, p = 80, kd = 60),
 // against N (p + 1) doubles read per set: far above the H100's float64
@@ -85,7 +97,15 @@ struct Args {
   int B, p, n, ke, kd, centre, weighted;
   int seg_len, row_segs, n_segs;  // gram_pass segments: rows, then epochs
   double *mean, *norm, *esum, *De, *part, *S1;
+  int ws;        // 1: one (r, M), B sets of weights and prior variances
+  double *logw;  // ws: sum_i ln w_i per set (B,)
 };
+
+// the (r, M) set that weight set b reads, and the offsets of set b's
+// weights and of its per-epoch values (De, phi_e)
+__device__ __forceinline__ int design_set(const Args &a, int b) { return a.ws ? 0 : b; }
+__device__ __forceinline__ size_t w_off(const Args &a, int b) { return a.ws ? (size_t)b * a.n : 0; }
+__device__ __forceinline__ size_t e_off(const Args &a, int b) { return a.ws ? (size_t)b * a.ke : 0; }
 
 __host__ __device__ inline int tiles_of(int V) { return (V + T - 1) / T; }
 
@@ -100,6 +120,7 @@ inline int segment_length(int n, int ke, int V, int B) {
 // value x of the augmented row vector [Mn_0 .. Mn_{p-1}, r, Fd_0 ..] of set
 // b at row i, centred and divided as the twin forms it
 __device__ __forceinline__ double row_value(const Args &a, int b, int x, int i) {
+  b = design_set(a, b);
   if (x < a.p)
     return __ddiv_rn(__dsub_rn(a.M[((size_t)b * a.p + x) * a.n + i], a.mean[(size_t)b * (a.p + 1) + 1 + x]),
                      a.norm[(size_t)b * a.p + x]);
@@ -140,14 +161,15 @@ __global__ void __launch_bounds__(THREADS) norm_pass(Args a) {
 __global__ void __launch_bounds__(THREADS) epoch_pass(Args a) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x, x = blockIdx.y, b = blockIdx.z;
   const int V = a.p + 1 + a.kd;
-  if (e >= a.ke || (b > 0 && x > a.p)) return;
+  if (e >= a.ke || (!a.ws && b > 0 && x > a.p)) return;
+  const double *w = a.w + w_off(a, b);
   double acc = 0.0;
   for (int k = a.offsets[e]; k < a.offsets[e + 1]; ++k) {
     const int i = a.rows[k];
-    acc = __dadd_rn(acc, x < V ? __dmul_rn(a.w[i], row_value(a, b, x, i)) : a.w[i]);
+    acc = __dadd_rn(acc, x < V ? __dmul_rn(w[i], row_value(a, b, x, i)) : w[i]);
   }
   if (x < V) a.esum[((size_t)b * a.ke + e) * V + x] = acc;
-  else a.De[e] = __dadd_rn(__ddiv_rn(1.0, a.ephi[e]), acc);
+  else a.De[e_off(a, b) + e] = __dadd_rn(__ddiv_rn(1.0, a.ephi[e_off(a, b) + e]), acc);
 }
 
 // pass 4: one T x T tile (ta <= tc) of set b's partial over one segment
@@ -159,7 +181,9 @@ __global__ void __launch_bounds__(T * T) gram_pass(Args a) {
     ++ta;
   }
   const int tc = ta + rest, b = blockIdx.y, seg = blockIdx.z;
-  if (b > 0 && ta * T > a.p) return;  // the Fd block: set 0's
+  if (!a.ws && b > 0 && ta * T > a.p) return;  // the Fd block: set 0's, where w is shared
+  const int fb = a.ws ? b : 0;  // the set whose Fd block and epoch sums of Fd are read
+  const double *w = a.w + w_off(a, b), *De = a.De + e_off(a, b);
   const bool epochs = seg >= a.row_segs;
   const int count = epochs ? a.ke : a.n;
   const int lo = (epochs ? seg - a.row_segs : seg) * a.seg_len;
@@ -178,8 +202,8 @@ __global__ void __launch_bounds__(T * T) gram_pass(Args a) {
           if (xa < V) va = row_value(a, b, xa, i);
           if (xc < V) vc = row_value(a, b, xc, i);
         } else {
-          if (xa < V) va = a.esum[((size_t)(xa > a.p ? 0 : b) * a.ke + i) * V + xa];
-          if (xc < V) vc = a.esum[((size_t)(xc > a.p ? 0 : b) * a.ke + i) * V + xc];
+          if (xa < V) va = a.esum[((size_t)(xa > a.p ? fb : b) * a.ke + i) * V + xa];
+          if (xc < V) vc = a.esum[((size_t)(xc > a.p ? fb : b) * a.ke + i) * V + xc];
         }
       }
       sa[k][col] = va;
@@ -187,7 +211,7 @@ __global__ void __launch_bounds__(T * T) gram_pass(Args a) {
     }
     for (int k = tid; k < CH; k += T * T) {
       const int i = first + k;
-      sw[k] = i >= hi ? 0.0 : !epochs ? a.w[i] : __ddiv_rn(1.0, a.De[i]);
+      sw[k] = i >= hi ? 0.0 : !epochs ? w[i] : __ddiv_rn(1.0, De[i]);
     }
     __syncthreads();
     double acc = 0.0;
@@ -205,7 +229,7 @@ __global__ void __launch_bounds__(THREADS) s1_pass(Args a) {
   const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= (long)V * V) return;
   const int A = (int)(q / V), C = (int)(q % V);
-  if (A > C || (b > 0 && A > a.p)) return;
+  if (A > C || (!a.ws && b > 0 && A > a.p)) return;
   double rows = 0.0, epochs = 0.0;
   for (int s = 0; s < a.n_segs; ++s) {
     const double v = a.part[(((size_t)b * a.n_segs + s) * V + A) * V + C];
@@ -248,17 +272,30 @@ fold_pass(const double *__restrict__ S1, const double *__restrict__ Wz, int p, i
   }
 }
 
-// pass 7: the epoch amplitudes (s_e - B_e ahat_d) / De_e
+// pass 7: the epoch amplitudes (s_e - B_e ahat_d) / De_e (ws: B_e and De
+// of set b)
 __global__ void __launch_bounds__(THREADS)
 ahat_pass(const double *__restrict__ esum, const double *__restrict__ De,
-          const double *__restrict__ ad, int p, int ke, int kd, double *__restrict__ ahat) {
+          const double *__restrict__ ad, int p, int ke, int kd, int ws, double *__restrict__ ahat) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x, b = blockIdx.y, V = p + 1 + kd;
   if (e >= ke) return;
+  const size_t fe = (size_t)(ws ? b : 0) * ke + e;
   double bz = 0.0;
   for (int k = 0; k < kd; ++k)
-    bz = __dadd_rn(bz, __dmul_rn(esum[(size_t)e * V + p + 1 + k], ad[(size_t)b * kd + k]));
+    bz = __dadd_rn(bz, __dmul_rn(esum[fe * V + p + 1 + k], ad[(size_t)b * kd + k]));
   const double s = esum[((size_t)b * ke + e) * V + p];
-  ahat[(size_t)b * (ke + kd) + e] = __ddiv_rn(kd > 0 ? __dsub_rn(s, bz) : s, De[e]);
+  ahat[(size_t)b * (ke + kd) + e] = __ddiv_rn(kd > 0 ? __dsub_rn(s, bz) : s, De[ws ? fe : e]);
+}
+
+// ws: sum_i ln w_i of set b, in a fixed order
+__global__ void __launch_bounds__(THREADS) logw_pass(Args a) {
+  const int b = blockIdx.x;
+  const double *w = a.w + (size_t)b * a.n;
+  double acc[1] = {0.0};
+  for (int i = threadIdx.x; i < a.n; i += THREADS) acc[0] = __dadd_rn(acc[0], log(w[i]));
+  __shared__ double tot[1];
+  block_sum<THREADS, 1>(acc, tot);
+  if (threadIdx.x == 0) a.logw[b] = tot[0];
 }
 
 }  // namespace
@@ -275,6 +312,49 @@ extern "C" long ecorr_gram_part_size(int B, int p, int n, int ke, int kd) {
   return (long)B * segs * V * V;
 }
 
+namespace {
+
+int launch_gram(const Args &a, cudaStream_t s) {
+  const int B = a.B, p = a.p, V = p + 1 + a.kd, nt = tiles_of(V), ke = a.ke;
+  const int mb = a.ws ? 1 : B;  // the (r, M) sets
+  cudaError_t e;
+  if (a.centre) {
+    mean_pass<<<dim3(p + 1, mb), THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  } else {
+    if ((e = cudaMemsetAsync(a.mean, 0, sizeof(double) * mb * (p + 1), s)) != cudaSuccess)
+      return e;
+  }
+  if (p > 0) {
+    norm_pass<<<dim3(p, mb), THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (a.ws) {
+    logw_pass<<<B, THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (ke > 0) {
+    epoch_pass<<<dim3((ke + THREADS - 1) / THREADS, V + 1, B), THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  gram_pass<<<dim3(nt * (nt + 1) / 2, B, a.n_segs), dim3(T, T), 0, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  s1_pass<<<dim3((V * V + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const double *r, const double *M, const double *w, const double *Fd,
+               const int *offsets, const int *rows, const double *ephi, int B, int p, int n,
+               int ke, int kd, int centre, int weighted, double *mean, double *norm,
+               double *esum, double *De, double *part, double *S1, int ws, double *logw) {
+  const int V = p + 1 + kd, len = segment_length(n, ke, V, B);
+  const int row_segs = (n + len - 1) / len, n_segs = row_segs + (ke + len - 1) / len;
+  return Args{r,        M,   w,        Fd,     offsets, rows, ephi, B,  p,    n,  ke, kd, centre,
+              weighted, len, row_segs, n_segs, mean,    norm, esum, De, part, S1, ws, logw};
+}
+
+}  // namespace
+
 extern "C" int ecorr_gram(const double *r, const double *M, const double *w, const double *Fd,
                           const int *offsets, const int *rows, const double *ephi, int B,
                           int p, int n, int ke, int kd, int centre, int weighted, double *mean,
@@ -282,31 +362,44 @@ extern "C" int ecorr_gram(const double *r, const double *M, const double *w, con
                           void *stream) {
   if (p < 0 || p > PMAX || kd < 0 || kd > KDMAX || B < 1 || B > 65535 || n < 1 || ke < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int V = p + 1 + kd, nt = tiles_of(V), len = segment_length(n, ke, V, B);
-  const int row_segs = (n + len - 1) / len, n_segs = row_segs + (ke + len - 1) / len;
-  const Args a{r,    M,        w,      Fd,   offsets, rows, ephi, B,    p, n, ke, kd, centre,
-               weighted, len, row_segs, n_segs, mean, norm, esum, De,   part, S1};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (centre) {
-    mean_pass<<<dim3(p + 1, B), THREADS, 0, s>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  } else {
-    if ((e = cudaMemsetAsync(mean, 0, sizeof(double) * B * (p + 1), s)) != cudaSuccess) return e;
-  }
-  if (p > 0) {
-    norm_pass<<<dim3(p, B), THREADS, 0, s>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  if (ke > 0) {
-    epoch_pass<<<dim3((ke + THREADS - 1) / THREADS, V + 1, B), THREADS, 0, s>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  gram_pass<<<dim3(nt * (nt + 1) / 2, B, n_segs), dim3(T, T), 0, s>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  s1_pass<<<dim3((V * V + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(a);
+  return launch_gram(make_args(r, M, w, Fd, offsets, rows, ephi, B, p, n, ke, kd, centre,
+                               weighted, mean, norm, esum, De, part, S1, 0, nullptr),
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Passes 2-5 of the per-set-weight mode, and logw_pass. r (n,), M (p, n), w
+// (E, n), Fd (kd, n), the CSR as above, ephi (E, ke). Outputs mean (p + 1,)
+// zeros (no centring), norm (p,) unweighted, logw (E,) = sum_i ln w_i, esum
+// (E, ke, V) and De (E, ke), S1 (E, V, V) whole; part is scratch of
+// ecorr_gram_part_size(E, p, n, ke, kd) doubles.
+extern "C" int ecorr_gram_sets(const double *r, const double *M, const double *w,
+                               const double *Fd, const int *offsets, const int *rows,
+                               const double *ephi, int E, int p, int n, int ke, int kd,
+                               double *mean, double *norm, double *logw, double *esum,
+                               double *De, double *part, double *S1, void *stream) {
+  if (p < 0 || p > PMAX || kd < 0 || kd > KDMAX || E < 1 || E > 65535 || n < 1 || ke < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gram(make_args(r, M, w, Fd, offsets, rows, ephi, E, p, n, ke, kd, 0, 0, mean,
+                               norm, esum, De, part, S1, 1, logw),
+                     static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+int launch_fold(const double *S1, const double *Wz, const double *esum, const double *De,
+                const double *ad, int B, int p, int ke, int kd, double ridge, int ws, double *G,
+                double *c, double *chi2, double *ahat, cudaStream_t s) {
+  if (p < 0 || p > PMAX || kd < 0 || kd > KDMAX || B < 1 || B > 65535 || ke < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fold_pass<<<B, THREADS, 0, s>>>(S1, Wz, p, kd, ridge, G, c, chi2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || ke == 0) return static_cast<int>(e);
+  ahat_pass<<<dim3((ke + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(esum, De, ad, p, ke, kd,
+                                                                      ws, ahat);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
 
 // Passes 6-7. Wz (B, kd, p + 1), ad (B, kd); outputs G (B, p, p), c (B, p),
 // chi2 (B,), and the epoch part of ahat (B, ke + kd).
@@ -314,13 +407,16 @@ extern "C" int ecorr_fold(const double *S1, const double *Wz, const double *esum
                           const double *De, const double *ad, int B, int p, int ke, int kd,
                           double ridge, double *G, double *c, double *chi2, double *ahat,
                           void *stream) {
-  if (p < 0 || p > PMAX || kd < 0 || kd > KDMAX || B < 1 || B > 65535 || ke < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fold_pass<<<B, THREADS, 0, s>>>(S1, Wz, p, kd, ridge, G, c, chi2);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || ke == 0) return static_cast<int>(e);
-  ahat_pass<<<dim3((ke + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(esum, De, ad, p, ke, kd,
-                                                                      ahat);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fold(S1, Wz, esum, De, ad, B, p, ke, kd, ridge, 0, G, c, chi2, ahat,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Passes 6-7 of the per-set-weight mode: the same outputs per weight set, B
+// and De of set b (esum (E, ke, V), De (E, ke)).
+extern "C" int ecorr_fold_sets(const double *S1, const double *Wz, const double *esum,
+                               const double *De, const double *ad, int E, int p, int ke, int kd,
+                               double ridge, double *G, double *c, double *chi2, double *ahat,
+                               void *stream) {
+  return launch_fold(S1, Wz, esum, De, ad, E, p, ke, kd, ridge, 1, G, c, chi2, ahat,
+                     static_cast<cudaStream_t>(stream));
 }

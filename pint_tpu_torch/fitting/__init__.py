@@ -1,9 +1,11 @@
 """Fitting engines (counterpart of ``pint_tpu/fitting``): the WLS, GLS and
-wideband fitters, and `fit_auto`, which picks one."""
+wideband fitters, `fit_auto`, which picks one, and the noise likelihood
+(`NoiseLikelihood`, `noise_param_names`)."""
 
 import logging
 
 from pint_tpu_torch.fitting.gls import DownhillGLSFitter, GLSFitter  # noqa: F401
+from pint_tpu_torch.fitting.noise_like import NoiseLikelihood, noise_param_names  # noqa: F401
 from pint_tpu_torch.fitting.wideband import WidebandDownhillFitter, refuse_unported
 from pint_tpu_torch.fitting.wls import DownhillWLSFitter, FitResult, WLSFitter  # noqa: F401
 

@@ -110,7 +110,8 @@ class FitResult:
 
 
 def time_resid_design(model: TimingModel, free: tuple, params: dict, tensor: dict,
-                      weights: torch.Tensor, subtract_mean: bool, hybrid: bool = True):
+                      weights: torch.Tensor, subtract_mean: bool, hybrid: bool = True,
+                      with_f: bool = False):
     """(r0 (N,), M (N, p)): time residuals and their design matrix in the
     WLS order of the JAX package: the weighted mean is subtracted from the
     phase residual in TURNS, before the division by f. Nonlinear columns
@@ -118,7 +119,7 @@ def time_resid_design(model: TimingModel, free: tuple, params: dict, tensor: dic
     closed forms with their weighted mean removed. ``hybrid=False`` takes
     every column from the tangents, as the JAX package's GLS step does. A
     parameter of the model DM alone (DMJUMP) has an exactly zero column,
-    written without a lane."""
+    written without a lane. ``with_f`` appends the spin frequency f (N,)."""
     dm_only = set(model.dm_only_params)
     timing = tuple(n for n in free if n not in dm_only)
     if hybrid:
@@ -144,7 +145,8 @@ def time_resid_design(model: TimingModel, free: tuple, params: dict, tensor: dic
             cols[n] = M_l[i]
     for n in dm_only & set(free):
         cols[n] = torch.zeros_like(r)
-    return r / f, torch.stack([cols[n] for n in free], dim=1)
+    out = r / f, torch.stack([cols[n] for n in free], dim=1)
+    return (*out, f) if with_f else out
 
 
 def wls_step(model: TimingModel, free: tuple, params: dict, tensor: dict,

@@ -40,6 +40,12 @@ V_i = [Mn_i, r_i, Fd_i] and the epoch sums v_e = sum_{i in e} w_i V_i =
 (without a dense basis the Wz terms vanish). It replaces the Woodbury part
 of the TPU programs ``gls_step``, ``gls_chi2`` and the correlated branch of
 ``grid``.
+
+K3's per-set-weight mode (`ecorr_normal_eq_sets`) turns the sets around for
+the marginalized noise likelihood (``fitting/noise_like.py``): one (r, M)
+and E sets of weights and prior variances, the same passes per weight set,
+plus each set's log|C| and the pieces the likelihood's backward (kernel K9)
+reads: De, the epoch sums [y_e, s_e, B_e], L and Wz.
 """
 
 from __future__ import annotations
@@ -442,3 +448,189 @@ def _declare_k3(lib) -> None:
     lib.ecorr_gram_part_size.restype = ctypes.c_long
     lib.ecorr_fold.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_double, p, p, p, p, p]
     lib.ecorr_fold.restype = ctypes.c_int
+    lib.ecorr_gram_sets.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.ecorr_gram_sets.restype = ctypes.c_int
+    lib.ecorr_fold_sets.argtypes = lib.ecorr_fold.argtypes
+    lib.ecorr_fold_sets.restype = ctypes.c_int
+
+
+# --- K3, per-set-weight mode -----------------------------------------------------
+
+
+class SetsNormalEq(NamedTuple):
+    """K3's per-set-weight output for one design and E weight sets. Absent
+    basis parts are empty tensors (ke or kd = 0).
+
+    G (E, p, p), c (E, p), chi2 (E,): the Woodbury normal equations and
+        r^T C^-1 r, G with the ridge;
+    ahat (E, ke + kd): S^-1 F^T W r, epoch amplitudes first;
+    norm (p,): the design's unweighted column norms;
+    logdet (E,): log|C|;
+    De (E, ke), esum (E, ke, p + 1 + kd): each epoch's 1/phi_e + sum w and
+        sum w [Mn, r, Fd];
+    L (E, kd, kd): the Cholesky factor of the Schur complement Rd;
+    Wz (E, kd, p + 1), ad (E, kd): L^-1 S1[Fd, (Mn, r)] and L^-T Wz_r."""
+
+    G: torch.Tensor
+    c: torch.Tensor
+    chi2: torch.Tensor
+    ahat: torch.Tensor
+    norm: torch.Tensor
+    logdet: torch.Tensor
+    De: torch.Tensor
+    esum: torch.Tensor
+    L: torch.Tensor
+    Wz: torch.Tensor
+    ad: torch.Tensor
+
+
+def _check_sets(r, M, w, Fd, epochs, phi_e, phi_d):
+    """(E, p, n, ke, kd) of a per-set-weight call, shapes checked."""
+    E, n = w.shape
+    p = M.shape[0]
+    ke = 0 if epochs is None else epochs.ke
+    kd = 0 if Fd is None else Fd.shape[0]
+    ok = r.shape == (n,) and M.shape == (p, n) and p <= K3_PMAX and kd <= K3_KDMAX
+    ok = ok and (ke == 0 or (phi_e is not None and phi_e.shape == (E, ke)
+                             and epochs.eidx.shape == (n,)))
+    ok = ok and (kd == 0 or (phi_d is not None and phi_d.shape == (E, kd) and Fd.shape == (kd, n)))
+    if not ok:
+        raise ValueError(
+            f"ecorr_normal_eq_sets needs r (N,), M (p <= {K3_PMAX}, N), w (E, N), Fd "
+            f"(kd <= {K3_KDMAX}, N), phi_e (E, ke), phi_d (E, kd); got r {tuple(r.shape)}, "
+            f"M {tuple(M.shape)}, w {tuple(w.shape)}, Fd {None if Fd is None else tuple(Fd.shape)}, "
+            f"phi_e {None if phi_e is None else tuple(phi_e.shape)}, "
+            f"phi_d {None if phi_d is None else tuple(phi_d.shape)}, ke {ke}")
+    return E, p, n, ke, kd
+
+
+def ecorr_normal_eq_sets_plain(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
+                               Fd: torch.Tensor | None, epochs: EpochIndex | None,
+                               phi_e: torch.Tensor | None, phi_d: torch.Tensor | None,
+                               ridge: float) -> SetsNormalEq:
+    """Twin of K3's per-set-weight mode, in the JAX package's order
+    (``noise_like._loglike_fn``: ``s_factor``, ``cinv_apply``,
+    ``woodbury_chi2``, ``logdet_C``), one weight set at a time, from the raw
+    design M (p, N) with unweighted column norms. The backward's pieces (De,
+    the epoch sums, L, Wz, ad) come from the same factorization."""
+    E, p, n, ke, kd = _check_sets(r, M, w, Fd, epochs, phi_e, phi_d)
+    _, Mn, norm = _step_inputs(r[None], M[None], w[0], False, False)
+    X = Mn[0].T
+    dense = None if kd == 0 else Fd.T
+    eye = torch.eye(p, dtype=torch.float64, device=r.device)
+    aug = torch.cat([X, r[:, None]] + ([dense] if kd else []), dim=1)
+    empty = r.new_zeros
+    outs = []
+    for e in range(E):
+        we = w[e]
+        basis = None
+        if ke or kd:
+            basis = NoiseBasis(dense=dense, dense_phi=phi_d[e] if kd else None,
+                               epochs=epochs if ke else None, ephi=phi_e[e] if ke else None)
+        sf = s_factor(basis, we) if basis is not None else None
+        CinvM = cinv_apply(basis, we, X, sf)
+        G = X.T @ CinvM + ridge * eye
+        c = CinvM.T @ (-r)
+        chi2, (ze, zd) = woodbury_chi2(basis, we, r, sf=sf)
+        ld = logdet_C(basis, we, sf=sf)
+        De = sf.De if ke else empty(0)
+        esum = seg_sum(we[:, None] * aug, epochs) if ke else empty((0, p + 1 + kd))
+        L, Wz, ad = empty((0, 0)), empty((0, p + 1)), empty(0)
+        if kd:
+            L = sf.schur_cf
+            rhs = dense.T @ (we[:, None] * aug[:, :p + 1])
+            if ke:
+                rhs = rhs - sf.B.T @ (esum[:, :p + 1] / De[:, None])
+            Wz = torch.linalg.solve_triangular(L, rhs, upper=False)
+            ad = torch.linalg.solve_triangular(L.T, Wz[:, p:], upper=True)[:, 0]
+        ahat = cat_ahat(ze, zd).to(r.device) if basis is not None else empty(0)
+        outs.append((G, c, chi2, ahat, ld, De, esum, L, Wz, ad))
+    G, c, chi2, ahat, ld, De, esum, L, Wz, ad = (torch.stack(x) for x in zip(*outs))
+    return SetsNormalEq(G=G, c=c, chi2=chi2, ahat=ahat, norm=norm[0], logdet=ld, De=De,
+                        esum=esum, L=L, Wz=Wz, ad=ad)
+
+
+def ecorr_normal_eq_sets(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
+                         Fd: torch.Tensor | None, epochs: EpochIndex | None,
+                         phi_e: torch.Tensor | None, phi_d: torch.Tensor | None,
+                         ridge: float) -> SetsNormalEq:
+    """K3's per-set-weight mode: one design (r (N,), raw M (p, N), unweighted
+    norms, no centring) under E sets of weights w (E, N) and prior variances
+    phi_e (E, ke), phi_d (E, kd) (Fd (kd, N): the dense basis, columns
+    before rows). A CUDA tensor launches the kernel (and raises if it
+    cannot); a CPU tensor takes `ecorr_normal_eq_sets_plain`.
+    `ecorr_normal_eq_sets.launches` counts calls (5 to 8 kernel passes
+    each)."""
+    if r.device.type == "cpu":
+        return ecorr_normal_eq_sets_plain(r, M, w, Fd, epochs, phi_e, phi_d, ridge)
+    out = _launch_k3_sets(r, M, w, Fd, epochs, phi_e, phi_d, ridge)
+    ecorr_normal_eq_sets.launches += 1
+    return out
+
+
+def _launch_k3_sets(r, M, w, Fd, epochs, phi_e, phi_d, ridge) -> SetsNormalEq:
+    """One call of K3's per-set-weight mode: passes 2-5 and the log sums,
+    the E kd x kd Cholesky factors of Rd and the triangular solves
+    (torch.linalg, batched; a factor that fails is NaN), then the fold."""
+    E, p, n, ke, kd = _check_sets(r, M, w, Fd, epochs, phi_e, phi_d)
+    dev = r.device
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    offsets = rows = torch.zeros(1, dtype=torch.int32, device=dev)
+    ephi = Fdc = one
+    if ke:
+        offsets, rows, ephi = epochs.offsets, epochs.rows, phi_e.contiguous()
+        if offsets.device != dev:
+            raise ValueError("the epoch index must lie on r's device")
+    if kd:
+        Fdc = Fd.contiguous()
+    for t in (r, M, w, ephi, Fdc, *(() if not kd else (phi_d,))):
+        if t.dtype != torch.float64 or t.device != dev:
+            raise ValueError("ecorr_normal_eq_sets needs float64 tensors on one device")
+    r, M, w = r.contiguous(), M.contiguous(), w.contiguous()
+    from pint_tpu_torch.ops import build
+
+    lib = build.library("ecorr_normal_eq", _declare_k3)
+    V = p + 1 + kd
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float64, device=dev)
+
+    mean, norm, logw = empty(p + 1), empty(max(p, 1)), empty(E)
+    esum, De, S1 = empty(E, max(ke, 1), V), empty(E, max(ke, 1)), empty(E, V, V)
+    part = empty(lib.ecorr_gram_part_size(E, p, n, ke, kd))
+    build.check(lib, lib.ecorr_gram_sets(
+        r.data_ptr(), M.data_ptr(), w.data_ptr(), Fdc.data_ptr(), offsets.data_ptr(),
+        rows.data_ptr(), ephi.data_ptr(), E, p, n, ke, kd, mean.data_ptr(), norm.data_ptr(),
+        logw.data_ptr(), esum.data_ptr(), De.data_ptr(), part.data_ptr(), S1.data_ptr(),
+        build.stream_of(r)))
+    L, Wz, ad = empty(E, 0, 0), empty(E, 0, p + 1), empty(E, 0)
+    if kd:
+        Rd = S1[:, p + 1:, p + 1:] + torch.diag_embed(1.0 / phi_d)
+        L, info = torch.linalg.cholesky_ex(Rd)
+        L = torch.where((info == 0)[:, None, None], L, float("nan"))
+        Wz = torch.linalg.solve_triangular(L, S1[:, p + 1:, :p + 1], upper=False).contiguous()
+        ad = torch.linalg.solve_triangular(L.mT, Wz[:, :, p:], upper=True)[..., 0].contiguous()
+    G, c, chi2, ahat = empty(E, p, p), empty(E, p), empty(E), empty(E, ke + kd)
+    build.check(lib, lib.ecorr_fold_sets(
+        S1.data_ptr(), Wz.data_ptr(), esum.data_ptr(), De.data_ptr(), ad.data_ptr(), E, p, ke,
+        kd, ridge, G.data_ptr(), c.data_ptr(), chi2.data_ptr(), ahat.data_ptr(),
+        build.stream_of(r)))
+    if kd:
+        ahat[:, ke:] = ad
+    De, esum = De[:, :ke], esum[:, :ke]
+    # log|C| = -sum log w + log|S| + sum log phi (logdet_C's order)
+    sl = torch.zeros(E, dtype=torch.float64, device=dev)
+    if ke:
+        sl = sl + torch.sum(torch.log(De), dim=1)
+    if kd:
+        sl = sl + 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=1, dim2=2)), dim=1)
+    ld = -logw + sl
+    if ke:
+        ld = ld + torch.sum(torch.log(phi_e), dim=1)
+    if kd:
+        ld = ld + torch.sum(torch.log(phi_d), dim=1)
+    return SetsNormalEq(G=G, c=c, chi2=chi2, ahat=ahat, norm=norm[:p], logdet=ld, De=De,
+                        esum=esum, L=L, Wz=Wz, ad=ad)
+
+
+ecorr_normal_eq_sets.launches = 0

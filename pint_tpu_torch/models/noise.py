@@ -14,6 +14,12 @@ Noise enters a fit through two surfaces:
   Woodbury algebra of ``fitting/woodbury.py`` (and kernel K3) never builds
   the (N, k_epoch) membership matrix.
 
+The noise likelihood (``fitting/noise_like.py``) samples the
+hyperparameters that ``hyper_param_names`` lists. Its basis does not depend
+on them, so it is formed once; per evaluation only ``scale_sigma`` and
+``prior_weights`` (the basis's prior variances) run, on leaves that may be
+batched (shape (E, 1)) and that autograd differentiates.
+
 The epoch grouping is host work of ``TimingModel.build_tensor``
 (``EcorrNoise.host_columns``, on the prepared TDB); a prepared archive
 carries its result (``ecorr_eidx``, ``ecorr_widx``).
@@ -59,6 +65,17 @@ class NoiseComponent(Component):
     def scale_sigma(self, params: dict, tensor: dict, sigma):
         """Rescale per-TOA sigmas (seconds); identity by default."""
         return sigma
+
+    def hyper_param_names(self, params: dict) -> list[str]:
+        """The noise hyperparameters this component owns among `params`:
+        the bound mask parameters (EFAC1, EQUAD1, ECORR1, ...); the
+        power-law components name their amplitude and index."""
+        return [mp.name for mp in self.mask_params if mp.name in params]
+
+    def prior_weights(self, params: dict, tensor: dict):
+        """The prior variances of this component's basis columns ((..., k),
+        leading axes those of the parameter leaves), or None."""
+        return None
 
     def basis_and_weights(self, params: dict, tensor: dict, sl):
         """``("epoch", eidx (N_data,) int64, phi (ke,))`` for ECORR,
@@ -194,14 +211,21 @@ class EcorrNoise(NoiseComponent):
                               else np.zeros((1, 0)))
         return cols
 
-    def basis_and_weights(self, params, tensor, sl):
+    def prior_weights(self, params, tensor):
+        """ECORR^2 of each epoch's parameter."""
         widx_arr = tensor["ecorr_widx"]
         if widx_arr.shape[1] == 0:
             return None
-        eidx = tensor["ecorr_eidx"][sl].to(torch.int64)
         widx = widx_arr[0].to(torch.int64)
-        vals = torch.stack([leaf_to_f64(params[mp.name]) for mp in self.mask_params])
-        phi = vals[widx] ** 2
+        vals = torch.stack(torch.broadcast_tensors(
+            *[leaf_to_f64(params[mp.name]) for mp in self.mask_params]), dim=-1)
+        return vals[..., widx] ** 2
+
+    def basis_and_weights(self, params, tensor, sl):
+        phi = self.prior_weights(params, tensor)
+        if phi is None:
+            return None
+        eidx = tensor["ecorr_eidx"][sl].to(torch.int64)
         return ("epoch", eidx, phi)
 
 
@@ -275,15 +299,21 @@ class PowerLawNoise(NoiseComponent):
     def amp_gamma(self, params):
         raise NotImplementedError
 
+    def prior_weights(self, params, tensor):
+        """The power law's variance of each sin and cos column, times the
+        lowest frequency."""
+        freqs = fourier_freqs(self.nf, tensor["noise_tspan"][0, 0])
+        amp, gamma = self.amp_gamma(params)
+        fr = torch.repeat_interleave(freqs, 2)
+        return powerlaw_psd_weights(fr, amp, gamma) * fr[0]
+
     def basis_and_weights(self, params, tensor, sl):
         from pint_tpu_torch.fitting.design import fourier_basis
 
         freqs = fourier_freqs(self.nf, tensor["noise_tspan"][0, 0])
         scale = dm_noise_scale(tensor["freq_mhz"][sl]) if self.dm_scaled else None
         F = fourier_basis(tensor["t_hi"][sl], freqs, scale)
-        amp, gamma = self.amp_gamma(params)
-        fr = torch.repeat_interleave(freqs, 2)
-        return ("dense", F, powerlaw_psd_weights(fr, amp, gamma) * fr[0])
+        return ("dense", F, self.prior_weights(params, tensor))
 
 
 class PLRedNoise(PowerLawNoise):
@@ -318,6 +348,11 @@ class PLRedNoise(PowerLawNoise):
         fac = (86400.0 * 365.24 * 1e6) / (2.0 * np.pi * np.sqrt(3.0))
         return leaf_to_f64(params["RNAMP"]) / fac, -leaf_to_f64(params["RNIDX"])
 
+    def hyper_param_names(self, params):
+        if "TNREDAMP" in params and "TNREDGAM" in params:
+            return ["TNREDAMP", "TNREDGAM"]
+        return [n for n in ("RNAMP", "RNIDX") if n in params]
+
 
 class PLDMNoise(PowerLawNoise):
     """Power-law DM noise: the Fourier basis scaled by (1400 MHz / f)^2 per
@@ -343,3 +378,6 @@ class PLDMNoise(PowerLawNoise):
 
     def amp_gamma(self, params):
         return 10.0 ** leaf_to_f64(params["TNDMAMP"]), leaf_to_f64(params["TNDMGAM"])
+
+    def hyper_param_names(self, params):
+        return [n for n in ("TNDMAMP", "TNDMGAM") if n in params]

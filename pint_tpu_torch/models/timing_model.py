@@ -159,12 +159,13 @@ class TimingModel:
         return any(getattr(c, "introduces_correlated_errors", False) for c in self.components)
 
     def scaled_sigma(self, params: dict, tensor: dict) -> torch.Tensor:
-        """Noise-rescaled per-TOA sigma (seconds), data rows only."""
+        """Noise-rescaled per-TOA sigma (seconds), data rows only (the last
+        axis; leaves of shape (E, 1) give (E, N))."""
         sigma = tensor["error_s"]
         for c in self.noise_components:
             sigma = c.scale_sigma(params, tensor, sigma)
         if self.has_abs_phase:
-            sigma = sigma[:-1]
+            sigma = sigma[..., :-1]
         return sigma
 
     # --- the wideband DM surface -------------------------------------------------
@@ -228,6 +229,24 @@ class TimingModel:
         return NoiseBasis(dense=torch.cat([F.T for F in Fs]).T if Fs else None,
                           dense_phi=torch.cat(phis) if phis else None,
                           epochs=epochs, ephi=ephi)
+
+    def noise_prior_weights(self, params: dict, tensor: dict):
+        """(phi_e, phi_d): the prior variances of the ECORR epochs and of the
+        dense columns in `noise_basis_and_weights`' order (each (..., k) or
+        None), without forming the basis."""
+        ephi, phis = None, []
+        for c in self.noise_components:
+            phi = c.prior_weights(params, tensor)
+            if phi is None:
+                continue
+            if c.category == "ecorr_noise":
+                ephi = phi
+            else:
+                phis.append(phi)
+        if not phis:
+            return ephi, None
+        batch = torch.broadcast_shapes(*(x.shape[:-1] for x in phis))
+        return ephi, torch.cat([x.expand(*batch, x.shape[-1]) for x in phis], dim=-1)
 
     def _epochs(self, tensor: dict, eidx: torch.Tensor, ke: int):
         """The EpochIndex of `eidx`, built once per tensor: cached against the
