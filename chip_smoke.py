@@ -248,6 +248,44 @@ hyperparameters), built once (K1, K8's Fourier pass):
    walls of loglike, grad, loglike_many (256) and optimize; the busy share of
    grad and of optimize.
 
+Then the joint likelihood of a pulsar timing array (``PINT_TPU_NBODY=0`` set
+around phases 50-56): ``profiles.pta_smoke_array(64, 8192, seed=29)``, array A
+(64 pulsars of ``PTA_PAR_TEMPLATE``: RAJ, DECJ, F0, F1 and DM free, EFAC, red
+noise with 5 frequencies, the common background with 6; 524,288 TOAs; p_lin 6,
+m 12, kd 10, 194 hyperparameters):
+
+50. array A simulated on the card by the port's ``simulation.py`` (fake TOAs
+   lying on each model within 1 ns, each pulsar's white and red noise, one
+   Hellings-Downs correlated background), the walls of the simulation, the
+   member designs (64 ``NoiseLikelihood``: K1, K8) and ``PTALikelihood``'s
+   build (K8's Fourier pass on the array's span); the ORF positive definite;
+51. K3's stacked mode (``woodbury.ecorr_normal_eq_stacked``: the E x 64
+   (point, pulsar) sets' Grams over [Mn, G, r]) against its twin at E = 1, 8
+   and 256: every output within 1e-12 relative per set, bitwise repeatable;
+   phase 45's per-set calls and phase 29's shared-weight calls run again,
+   bitwise equal to their first results;
+52. K10 ``pta_grad`` (the blocks' backward) against its twin on the kernel
+   forward's state under the coupling's own cotangent, at E = 1 and 8: within
+   1e-12 of each set's largest entry, bitwise repeatable;
+53. ``PTALikelihood`` on array A (noise values moved off the truth,
+   ``PTA_START``) against the same likelihood through the twins (the
+   members' K1 designs shared, pulsar 0's held to its twin within 1e-10 per
+   column; G, the blocks and the backward through the twins): loglike at 3
+   points, loglike_curn, detection_statistic (ll_hd, ll_curn within 1e-8
+   relative, rho and the optimal statistic within 1e-8), gwb_coefficient_blocks
+   (1e-10), loglike_many at 256 points (1e-8) and grad at 2 points (1e-8 of the
+   largest entry); optimize (8 restarts, 200 steps) with phase 48's gates;
+54. arrays B (8 pulsars of tests/test_pta.py's par, EFAC/EQUAD/ECORR, at 8,192
+   TOAs in 4,096 ECORR epochs) and C (8 pulsars without ECORR at 6,144-8,192
+   TOAs: pad rows in buckets of 8,192): phases 51-53's checks at E = 1 and 8
+   (loglike_many at 8 points, no optimize);
+55. array D (4 pulsars of 1,024 TOAs): the fused loglike within 1e-8 relative
+   of ``dense_joint_program`` (the (4 x 1,024)-square covariance factored by
+   ``torch.linalg.cholesky``), both walls;
+56. K3's stacked mode at E = 1, 8, 256 and K10 at E = 1, 8: times; the warm
+   walls of loglike, grad, loglike_many (256) and optimize (phase 53's, 200
+   steps) on array A; the busy share of grad and of a 20-step optimize.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
@@ -264,9 +302,12 @@ GLS), the DDGR and DDK grids K1 and K2, the others K1, K8 and K3; the
 wideband prepare K4 and K5 twice each, its fit K0, K1, K8's Fourier and DM-row
 passes and K3 (the wideband fit has no grid); the noise likelihood's build K1 and
 K8's Fourier pass, its loglike and loglike_many K3's per-set mode, its grad and
-optimize (each variant's) K3's per-set mode and K9.
+optimize (each variant's) K3's per-set mode and K9; the PTA array's
+simulation K1, K4, K5 and K8's Fourier pass, each PTA likelihood's loglike and
+loglike_many K3's stacked mode, its grad and optimize K3's stacked mode and
+K10.
 K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 7
-(its per-set mode 5 to 8), K9 2. At the
+(its per-set and stacked modes 5 to 8), K9 and K10 2. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs; where the profiler reads no
@@ -433,7 +474,7 @@ def twins():
     """Route the main path through the plain-torch twins, on the card."""
     from pint_tpu_torch import gridutils, residuals
     from pint_tpu_torch.astro import device_prepare as dp
-    from pint_tpu_torch.fitting import design, gls, noise_like, wideband, wls, woodbury
+    from pint_tpu_torch.fitting import design, gls, noise_like, pta_like, wideband, wls, woodbury
     from pint_tpu_torch.models import noise
     from pint_tpu_torch.ops import dd
 
@@ -441,7 +482,8 @@ def twins():
              gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
              dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
              gridutils.linear_columns, design.fourier_basis, design.dm_rows, wideband.dm_rows,
-             wideband.ecorr_normal_eq, noise_like.ecorr_normal_eq_sets, noise_like.noise_grad)
+             wideband.ecorr_normal_eq, noise_like.ecorr_normal_eq_sets, noise_like.noise_grad,
+             pta_like.ecorr_normal_eq_stacked, pta_like.pta_grad)
     residuals.resid_tangent = residuals.resid_tangent_plain
     # K8's twin forms f_bary itself: the kernel's fb argument is dropped
     wls.linear_columns = gridutils.linear_columns = \
@@ -456,6 +498,8 @@ def twins():
     dp.nbody_serve, dp.chebyshev_eval = dp.nbody_serve_plain, dp.chebyshev_eval_plain
     noise_like.ecorr_normal_eq_sets = woodbury.ecorr_normal_eq_sets_plain
     noise_like.noise_grad = noise_like.noise_grad_plain
+    pta_like.ecorr_normal_eq_stacked = woodbury.ecorr_normal_eq_stacked_plain
+    pta_like.pta_grad = pta_like.pta_grad_plain
     try:
         yield
     finally:
@@ -463,7 +507,8 @@ def twins():
          gls.ecorr_normal_eq, gridutils.ecorr_normal_eq, dp.site_geometry,
          dp.analytic_ephemeris, dp.nbody_serve, dp.chebyshev_eval, wls.linear_columns,
          gridutils.linear_columns, design.fourier_basis, design.dm_rows, wideband.dm_rows,
-         wideband.ecorr_normal_eq, noise_like.ecorr_normal_eq_sets, noise_like.noise_grad) = saved
+         wideband.ecorr_normal_eq, noise_like.ecorr_normal_eq_sets, noise_like.noise_grad,
+         pta_like.ecorr_normal_eq_stacked, pta_like.pta_grad) = saved
 
 
 @contextlib.contextmanager
@@ -666,7 +711,9 @@ def counters():
                                                      nbody_serve, site_geometry)
     from pint_tpu_torch.fitting.design import dm_rows, fourier_basis, linear_columns
     from pint_tpu_torch.fitting.noise_like import noise_grad
-    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_sets
+    from pint_tpu_torch.fitting.pta_like import pta_grad
+    from pint_tpu_torch.fitting.woodbury import (ecorr_normal_eq, ecorr_normal_eq_sets,
+                                                 ecorr_normal_eq_stacked)
     from pint_tpu_torch.gridutils import normal_eq
     from pint_tpu_torch.ops.dd import dd_elementwise
     from pint_tpu_torch.residuals import resid_tangent
@@ -677,7 +724,8 @@ def counters():
             "nbody_serve": nbody_serve, "chebyshev_eval": chebyshev_eval,
             "linear_columns": linear_columns, "fourier_basis": fourier_basis,
             "dm_rows": dm_rows, "ecorr_normal_eq_sets": ecorr_normal_eq_sets,
-            "noise_grad": noise_grad}
+            "noise_grad": noise_grad, "ecorr_normal_eq_stacked": ecorr_normal_eq_stacked,
+            "pta_grad": pta_grad}
 
 
 @contextlib.contextmanager
@@ -1089,6 +1137,15 @@ KERNELS = (
     ("noise_grad", "pint_tpu_torch/csrc/noise_grad.cu",
      "pint_tpu/fitting/noise_like.py:798 (jax.grad of _loglike_fn :141-180: the reverse pass "
      "of noise_loglike_grad :811 and of value_and_grad inside noise_optimize :327-367)"),
+    ("ecorr_normal_eq_stacked", "pint_tpu_torch/csrc/ecorr_normal_eq.cu",
+     "pint_tpu/fitting/pta_like.py:169-193 (_pta_core.pulsar_blocks: cinv_inner, woodbury_chi2, "
+     "logdet_C(mask=) per pulsar, vmapped over the array and the points, as XLA fused it into "
+     "the TPU programs pta_loglike :605, pta_loglike_batch :608, the forward of "
+     "pta_loglike_grad :612, pta_detection_stat :680 and pta_gwb_blocks :798), algebra of "
+     "fitting/woodbury.py:79-218"),
+    ("pta_grad", "pint_tpu_torch/csrc/pta_grad.cu",
+     "pint_tpu/fitting/pta_like.py:612 (pta_loglike_grad: jax.grad's reverse pass through "
+     "pulsar_blocks :169-193, and the value_and_grad of pta_optimize, noise_like.py:367)"),
     ("dm_rows", "pint_tpu_torch/csrc/linear_columns.cu",
      "pint_tpu/fitting/wideband.py:40-53 (_weighted_resids' DM block: "
      "models/timing_model.py:264-276 total_dm over dispersion.py:95 DispersionDM, :186 "
@@ -2806,7 +2863,8 @@ def phase_k3_sets(nl, device, k3_old) -> dict:
             same = all(torch.equal(a, b) for a, b in zip(
                 old, (got.G, got.c, got.chi2, got.ahat, got.norm[None])))
             check(same, "K3 per-set mode at E = 1 bitwise equal to the shared-weight mode")
-        out[E] = {"args": args, "chi2_abs_err": float(torch.max(torch.abs(got.chi2 - want.chi2)))}
+        out[E] = {"args": args, "chi2_abs_err": float(torch.max(torch.abs(got.chi2 - want.chi2))),
+                  "G": got.G, "chi2": got.chi2}
     for label in ("fit", "grid"):
         again = ecorr_normal_eq(*k3_old[label]["args"])
         sync(device)
@@ -3110,11 +3168,707 @@ def noise_phases(device, summary: dict, ng: dict) -> dict:
                         "grad_x0": main["grad_x0"], "optimize": opt, "walls": walls}
     errs = {"ecorr_normal_eq_sets": max(v["chi2_abs_err"] for v in k3.values()),
             "noise_grad": k9_err}
+    return {"recs": recs, "errs": errs, "windows": windows, "k3": k3, "k3_old": ng["k3"]}
+
+
+# --- phases 50-56: the joint PTA likelihood (PTA_PAR_TEMPLATE, 64 pulsars) -------------
+
+#: array A: pint_tpu's N-scaling top (64 pulsars, a NANOGrav 15-year array's
+#: size) at 8,192 TOAs a pulsar, the PTA profile's seed
+PTA_SHAPE = (64, 8192, 29)
+#: K3's stacked mode is checked and timed at these numbers of points (grad,
+#: optimize's 8 restarts, loglike_many's bucket), K10 at the first two
+PTA_SETS = (1, 8, 256)
+K10_KERNELS = ("pta_phi_pass", "pta_row_pass")
+#: optimize's start (phase 53): the pulsars' and the background's noise off the
+#: simulation's truth, so that Adam's first steps raise the ln posterior
+PTA_START = {"EFAC1": 1.25, "EQUAD1": 0.45e-6, "ECORR1": 0.65e-6, "TNREDAMP": -13.3,
+             "TNREDGAM": 3.3, "TNGWAMP": -12.95, "TNGWGAM": 4.1}
+#: tests/test_pta.py's par (EFAC/EQUAD/ECORR, red noise, the background), kept
+#: here: that module imports jax
+PTA_TEST_PAR = """
+PSR {name}
+RAJ {raj} 1
+DECJ {decj} 1
+F0 {f0} 1
+F1 -1.46389e-15 1
+PEPOCH 57000
+POSEPOCH 57000
+DM 14.96 1
+EFAC -f Rcvr1_2_GUPPI 1.1
+EQUAD -f Rcvr1_2_GUPPI 0.3
+ECORR -f Rcvr1_2_GUPPI 0.5
+TNREDAMP -13.2
+TNREDGAM 3.0
+TNREDC 4
+TNGWAMP -12.9
+TNGWGAM 4.33
+TNGWC 3
+TZRMJD 57000.1
+TZRSITE gbt
+TZRFRQ 1400
+"""
+PTA_RAGGED_PAR = PTA_TEST_PAR.replace("ECORR -f Rcvr1_2_GUPPI 0.5\n", "")
+
+
+def pta_test_array(device, n_psr: int, n_epochs, par: str, seed: int):
+    """(models, toas) laid out as tests/test_pta.py's ``_array``: `par` at
+    PTA_SKY's positions, n_epochs[k] epochs of 2 TOAs (1400 and 800 MHz, 0.5 s
+    apart, MJD 56600-57400, 1 us), each pulsar's noise, then one correlated
+    background, through the port's simulation on `device`."""
+    import numpy as np
+
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.profiles import pta_sky
+    from pint_tpu_torch.simulation import (add_gwb_to_arrays, add_noise_from_model,
+                                           make_fake_toas_fromMJDs)
+
+    rng = np.random.default_rng(seed)
+    models, toas_list = [], []
+    for k, (name, raj, decj) in enumerate(pta_sky(n_psr)):
+        model = get_model(par.format(name=name, raj=raj, decj=decj, f0=346.531996493 + 0.37 * k),
+                          from_text=True, device=device)
+        mjds = np.repeat(np.linspace(56600.0, 57400.0, int(n_epochs[k])), 2)
+        mjds[1::2] += 0.5 / 86400.0
+        freqs = np.where(np.arange(len(mjds)) % 2 == 0, 1400.0, 800.0)
+        toas = make_fake_toas_fromMJDs(np.sort(mjds), model, obs="gbt", freq_mhz=freqs,
+                                       error_us=1.0, flags=[{"f": "Rcvr1_2_GUPPI"}] * len(mjds))
+        models.append(model)
+        toas_list.append(add_noise_from_model(toas, model, rng=rng, include_common=False))
+    return models, add_gwb_to_arrays(toas_list, models, rng=rng)
+
+
+@contextlib.contextmanager
+def zeroed_residuals(into: list):
+    """Hold every ``simulation.zero_residuals`` of the block to its tolerance:
+    the largest residual of the TOAs it returns goes into `into`."""
+    import torch
+
+    from pint_tpu_torch import simulation
+    from pint_tpu_torch.residuals import Residuals
+
+    saved = simulation.zero_residuals
+
+    def checked(toas, model, *args, **kwargs):
+        out = saved(toas, model, *args, **kwargs)
+        into.append(float(torch.max(torch.abs(Residuals(out, model, subtract_mean=False)
+                                               .time_resids))))
+        return out
+
+    simulation.zero_residuals = checked
+    try:
+        yield
+    finally:
+        simulation.zero_residuals = saved
+
+
+def pta_members(models, toas, device, start: dict | None = None):
+    """One NoiseLikelihood per pulsar (noise values moved by `start`), the
+    wall ending in a synchronize."""
+    import torch
+
+    from pint_tpu_torch.fitting import NoiseLikelihood
+
+    t0 = time.perf_counter()
+    out = []
+    for m, t in zip(models, toas):
+        for n, v in (start or {}).items():
+            if n in m.params:
+                m.params[n] = torch.tensor(v, dtype=torch.float64, device=device)
+        out.append(NoiseLikelihood(t, m))
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def pta_points(pta, E: int, seed: int):
+    """(E, H): the start and E - 1 points moved by 0.03 prior scales (EQUAD and
+    ECORR kept inside their priors)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    eta = np.tile(pta.x0, (E, 1))
+    eta[1:] += 0.03 * pta.scales * rng.standard_normal((E - 1, pta.nparams))
+    edge = np.array([n.split(":")[-1].startswith(("EQUAD", "ECORR")) for n in pta.hyper])
+    return np.where(edge, np.abs(eta), eta)
+
+
+def per_set_err(got, want) -> float:
+    """The largest over the leading (E, N) sets of max |got - want| / max |want|
+    (within the set)."""
+    import torch
+
+    if not want.numel():
+        return 0.0
+    d = torch.abs(got - want).reshape(*want.shape[:2], -1).amax(dim=-1)
+    s = torch.abs(want).reshape(*want.shape[:2], -1).amax(dim=-1)
+    return float(torch.max(torch.where(s > 0, d / s, d)))
+
+
+def pta_inputs(pta, eta):
+    """(w, phi_e, phi_d, phi_gw) at the points eta (E, H), as the likelihood forms them."""
+    import torch
+
+    return pta._sets(torch.as_tensor(eta, device=pta.device))
+
+
+def k3_stacked_args(pta, E: int, seed: int):
+    w, pe, pd, _ = pta_inputs(pta, pta_points(pta, E, seed))
+    c = pta._core
+    return (c.r, c.M, c.G, w, c.Fd, c.epochs, pe if pe.shape[-1] else None,
+            pd if pd.shape[-1] else None)
+
+
+def flipped_rows(pta, args):
+    """`k3_stacked_args` with every pulsar's rows in reverse order: the same
+    sets, summed in another order."""
+    from pint_tpu_torch.fitting.woodbury import stacked_epochs
+
+    r, M, Gc, w, Fd, epochs, pe, pd = args
+    flip = (None if epochs is None
+            else stacked_epochs(pta._core.eidx.flip(-1), epochs.ke))
+    return (r.flip(-1), M.flip(-1), Gc.flip(-1), w.flip(-1),
+            None if Fd is None else Fd.flip(-1), flip, pe, pd)
+
+
+def gate(witness: float) -> float:
+    """The bound of a kernel-to-twin distance: 1e-12, or ten times the twin's
+    own movement when its sums run in another order (the witness), where the
+    sets' conditioning makes that larger."""
+    return max(1e-12, 10.0 * witness)
+
+
+def phase_k3_stacked(pta, device, label: str, sets) -> dict:
+    """K3's stacked mode against its twin at each of `sets` points: every
+    output within 1e-12 relative per (point, pulsar) set, or ten times the
+    twin's distance from itself with each pulsar's rows reversed (`gate`:
+    u_a = G^T C^-1 r and chi2_a cancel where the common block and the
+    pulsar's red-noise columns nearly coincide), and bitwise repeatable."""
+    import torch
+
+    from pint_tpu_torch.fitting.woodbury import (ecorr_normal_eq_stacked,
+                                                 ecorr_normal_eq_stacked_plain)
+
+    out = {}
+    for E in sets:
+        args = k3_stacked_args(pta, E, 51)
+        got = ecorr_normal_eq_stacked(*args)
+        again = ecorr_normal_eq_stacked(*args)
+        want = ecorr_normal_eq_stacked_plain(*args)
+        wit = ecorr_normal_eq_stacked_plain(*flipped_rows(pta, args))
+        sync(device)
+        N, n = args[0].shape
+        tag = (f"{label}: K3 stacked mode (E={E} x N={N}, rows={n}, p={args[1].shape[1]}, "
+               f"m={args[2].shape[1]}, ke={0 if args[5] is None else args[5].ke}, "
+               f"kd={0 if args[4] is None else args[4].shape[1]})")
+
+        def dist(a, b, name):
+            return (rel_err(getattr(a, name), getattr(b, name)) if name == "norm"
+                    else per_set_err(getattr(a, name), getattr(b, name)))
+
+        errs = {name: dist(got, want, name) for name in want._fields}
+        wits = {name: dist(wit, want, name) for name in want._fields}
+        ok = all(errs[k] <= gate(wits[k]) for k in errs)
+        check(ok, f"{tag}: every output within 1e-12 relative per set, or 10x the twin's "
+                  "own distance with the rows reversed (kernel / witness: "
+                  + ", ".join(f"{k} {errs[k]:.2g}/{wits[k]:.2g}" for k in errs) + ")")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: bitwise equal across two runs")
+        out[E] = {"errs": errs, "witness": wits,
+                  "chi2_abs_err": float(torch.max(torch.abs(got.chi2 - want.chi2)))}
+        del got, again, want, wit, args
+    return out
+
+
+def pta_cotangents(pta, E: int, seed: int):
+    """(core, the kernel forward's state, gbar, ldbar): the coupling's own
+    cotangent of each set's Gram and ln|C_a| at E points."""
+    import torch
+
+    from pint_tpu_torch.fitting.pta_like import pta_blocks
+
+    w, pe, pd, phi = pta_inputs(pta, pta_points(pta, E, seed))
+    gram, ld, st = pta_blocks(pta._core, w, pe, pd)
+    gram, ld = gram.requires_grad_(True), ld.requires_grad_(True)
+    gbar, ldbar = torch.autograd.grad(pta._couple(gram, ld, phi, pta._orf_ops).sum(), (gram, ld))
+    return pta._core, st, gbar.contiguous(), ldbar.contiguous()
+
+
+def k10_rounding_bound(core, st, gbar, ldbar):
+    """Each entry's sum of the absolute values of what K10 and its twin add up
+    (the standard bound of a sum's rounding: |error| <= n u sum |terms|), (for
+    d/dw (E, N, n), for d/dphi (E, N, ke + kd)), and n, the longest chain of
+    operations behind an entry: t_i = X_i - F_i Ahat and Ahat_e are bounded by
+    |X_i| + |F_i| |Ahat|, the quadratic forms by |t|^T |Gbar| |t|, the ln|C|
+    terms by |ldbar| (1/w_i + F_i S^-1 F_i^T) and |ldbar| (1/phi + (S^-1)_kk /
+    phi^2). Gbar is indefinite and the two terms of an entry can cancel, so a
+    set whose entries are all small against their terms is held to this bound,
+    not to its largest entry."""
+    import torch
+
+    from pint_tpu_torch.fitting.pta_like import _grad_prep, _sets_of, pta_grad_plain
+
+    E, N, n = st.w.shape
+    S = E * N
+    ke, kd = st.phi_e.shape[-1], st.phi_d.shape[-1]
+    pulsar = torch.arange(S, device=st.w.device) % N
+    X = torch.cat([core.M / st.norm[..., None], core.G, core.r[:, None]], dim=1).mT[pulsar]
+    q = X.shape[-1]
+    G, ld = torch.abs(_sets_of(gbar)), torch.abs(_sets_of(ldbar))
+    Lt, Ad = _grad_prep(st)
+    Ta = torch.abs(X)
+    amps = []
+    if ke:
+        es = _sets_of(st.esum)
+        Ae = (torch.abs(es[..., :q]) + torch.abs(es[..., q:]) @ torch.abs(Ad)) \
+            / _sets_of(st.De)[..., None]
+        amps.append(Ae)
+        eidx = core.eidx.to(torch.int64)[pulsar]
+        idx = torch.where(eidx < 0, ke, eidx)
+        Ta = Ta + torch.cat([Ae, torch.zeros_like(Ae[:, :1])], dim=1)[
+            torch.arange(S, device=X.device)[:, None], idx]
+    if kd:
+        Ta = Ta + torch.abs(core.Fd.mT[pulsar]) @ torch.abs(Ad)
+        amps.append(torch.abs(Ad))
+    # |ldbar| (1/w - F S^-1 F^T) is at most |ldbar| (1/w + F S^-1 F^T) <= 2 |ldbar| / w
+    w = _sets_of(st.w)
+    bw = torch.sum((Ta @ G) * Ta, dim=-1) + 2.0 * ld[:, None] / torch.where(w > 0, w, 1.0)
+    bphi = w.new_zeros((S, 0))
+    if amps:
+        Ah = torch.cat(amps, dim=1)
+        iphi = 1.0 / torch.cat([_sets_of(st.phi_e), _sets_of(st.phi_d)], dim=-1)
+        # (S^-1)_kk <= phi_k
+        bphi = iphi * iphi * torch.sum((Ah @ G) * Ah, dim=-1) + 2.0 * ld[:, None] * iphi
+    return bw.reshape(E, N, n), bphi.reshape(E, N, ke + kd), q + kd + 8
+
+
+def phase_k10(pta, device, label: str) -> float:
+    """K10 against its twin on the kernel forward's state under the coupling's
+    cotangent, at E = 1 and 8: d/dw and d/dphi within 1e-12 of each set's
+    largest entry or, entry by entry, within twice the rounding bound of a sum
+    of its terms (`k10_rounding_bound`: 2 n u sum |terms|, u = 2^-53), and
+    bitwise repeatable. Returns the largest absolute error of d/dw."""
+    import torch
+
+    from pint_tpu_torch.fitting.pta_like import pta_grad, pta_grad_plain
+
+    worst = 0.0
+    for E in PTA_SETS[:2]:
+        core, st, gbar, ldbar = pta_cotangents(pta, E, 52)
+        got, again = pta_grad(core, st, gbar, ldbar), pta_grad(core, st, gbar, ldbar)
+        want = pta_grad_plain(core, st, gbar, ldbar)
+        bounds = k10_rounding_bound(core, st, gbar, ldbar)
+        sync(device)
+        tag = f"{label}: K10 (E={E} x N={st.w.shape[1]})"
+        u = 2.0**-53
+        for name, g, wv, b in zip(("d/dw", "d/dphi"), got, want, bounds[:2]):
+            err = per_set_err(g, wv)
+            ratio = float(torch.max(torch.abs(g - wv) / (2 * bounds[2] * u * b))) \
+                if b.numel() else 0.0
+            check(err <= 1e-12 or ratio <= 1.0,
+                  f"{tag}: {name} within 1e-12 of each set's largest entry ({err:.3g}), or "
+                  f"every entry within twice its sum's rounding bound ({ratio:.3g} of it)")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{tag}: bitwise equal across two runs")
+        worst = max(worst, float(torch.max(torch.abs(got[0] - want[0]))))
+    return worst
+
+
+def check_member_design(nl, model, toas, label: str) -> float:
+    """A member's design (r0, M per column, Mnorm: K1) within 1e-10 relative
+    of the same NoiseLikelihood built through the twins, as phase 47's. The
+    twin path of the PTA likelihood shares the members' designs (built once
+    by K1) and forms everything after them (G by K8, the blocks by K3's
+    stacked mode, the backward by K10) through the twins."""
+    from pint_tpu_torch.fitting import NoiseLikelihood
+
+    with twins():
+        twin = NoiseLikelihood(toas, model)
+    (r0, M, mn), (tr0, tM, tmn) = nl.design, twin.design
+    derr = max(rel_err(r0, tr0), rel_err(mn, tmn),
+               max(rel_err(M[:, j], tM[:, j]) for j in range(M.shape[1])))
+    check(derr <= 1e-10, f"{label}: design (r0, M per column, Mnorm) within 1e-10 of the twin "
+                         f"path's ({derr:.3g})")
+    return derr
+
+
+def check_pta(pta, twin, device, label: str, many: int = 256, opt: bool = True) -> dict:
+    """The PTALikelihood surface of `pta` against the twin path `twin`, each of
+    `pta`'s calls in a launch window of its own: loglike at 3 points,
+    loglike_curn, detection_statistic, gwb_coefficient_blocks, loglike_many at
+    `many` points, grad at 2 points and (with `opt`) optimize (8 restarts, 200
+    steps). Bounds: the likelihoods within 1e-8 relative, the gradient within
+    1e-8 of its largest entry, rho and the optimal statistic within 1e-8, the
+    blocks within 1e-10 of their largest entry; optimize as phase 48."""
+    import numpy as np
+    import torch
+
+    w = {k: {} for k in ("loglike", "curn", "detect", "blocks", "many", "grad", "optimize")}
+    walls = {}
+    pts = pta_points(pta, 3, 53)
+    many_pts = pta_points(pta, many, 54)
+
+    def timed(name, fn):
+        with counted(w[name]):
+            t0 = time.perf_counter()
+            out = fn()
+            sync(device)
+            walls[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    ll = timed("loglike", lambda: np.array([pta.loglike(e) for e in pts]))
+    curn = timed("curn", lambda: pta.loglike_curn(pts[1]))
+    det = timed("detect", lambda: pta.detection_statistic(pts[1]))
+    blk = timed("blocks", lambda: pta.gwb_coefficient_blocks(pts[2]))
+    mny = timed("many", lambda: pta.loglike_many(many_pts))
+    g = timed("grad", lambda: np.array([pta.grad(e) for e in pts[:2]]))
+    with twins():
+        tll = np.array([twin.loglike(e) for e in pts])
+        tcurn = twin.loglike_curn(pts[1])
+        tdet = twin.detection_statistic(pts[1])
+        tblk = twin.gwb_coefficient_blocks(pts[2])
+        tmny = twin.loglike_many(many_pts)
+        tg = np.array([twin.grad(e) for e in pts[:2]])
+    errs = {"loglike": float(np.max(np.abs(ll - tll) / np.abs(tll))),
+            "loglike_curn": abs(curn - tcurn) / abs(tcurn),
+            "ll_hd": abs(det["ll_hd"] - tdet["ll_hd"]) / abs(tdet["ll_hd"]),
+            "ll_curn": abs(det["ll_curn"] - tdet["ll_curn"]) / abs(tdet["ll_curn"]),
+            "rho": float(np.max(np.abs(det["rho"] - tdet["rho"]))),
+            "os": abs(det["os"] - tdet["os"]),
+            "blocks": max(rel_err(torch.as_tensor(blk[k]), torch.as_tensor(tblk[k]))
+                          for k in ("u", "V", "phi")),
+            "loglike_many": float(np.max(np.abs(mny - tmny) / np.abs(tmny))),
+            "grad": float(max(np.max(np.abs(a - b)) / np.max(np.abs(b)) for a, b in zip(g, tg)))}
+    check(np.all(np.isfinite(ll)) and errs["loglike"] <= 1e-8,
+          f"{label}: loglike at 3 points within 1e-8 relative ({errs['loglike']:.3g})")
+    check(errs["loglike_curn"] <= 1e-8 and errs["ll_hd"] <= 1e-8 and errs["ll_curn"] <= 1e-8,
+          f"{label}: loglike_curn and detection_statistic's ll_hd, ll_curn within 1e-8 relative "
+          f"({errs['loglike_curn']:.3g}, {errs['ll_hd']:.3g}, {errs['ll_curn']:.3g})")
+    check(errs["rho"] <= 1e-8 and errs["os"] <= 1e-8,
+          f"{label}: rho ({det['rho'].shape[0]} pairs) and the optimal statistic within 1e-8 "
+          f"({errs['rho']:.3g}, {errs['os']:.3g})")
+    check(errs["blocks"] <= 1e-10, f"{label}: gwb_coefficient_blocks within 1e-10 of the "
+                                   f"largest entry ({errs['blocks']:.3g})")
+    check(mny.shape == (many,) and errs["loglike_many"] <= 1e-8,
+          f"{label}: loglike_many at {many} points within 1e-8 relative "
+          f"({errs['loglike_many']:.3g})")
+    check(np.all(np.isfinite(g)) and errs["grad"] <= 1e-8,
+          f"{label}: grad at 2 points within 1e-8 of the largest entry ({errs['grad']:.3g})")
+    out = {"errs": errs, "walls": walls, "loglike": ll.tolist(), "dll": det["dll"],
+           "os": det["os"]}
+    if opt:
+        eta, lp = timed("optimize", pta.optimize)
+        with twins():
+            eta_t, lp_t = twin.optimize()
+        with torch.no_grad():
+            start = float(pta._lnpost(torch.as_tensor(pta.x0, device=pta.device)[None])[0])
+        check(lp > start, f"{label}: optimize raised the ln posterior from {start:.10g} to "
+                          f"{lp:.10g}")
+        errs["optimize"] = abs(lp - lp_t) / abs(lp_t)
+        check(errs["optimize"] <= 1e-8, f"{label}: optimize's ln posterior within 1e-8 of the "
+                                        f"twin path's ({lp:.12g} vs {lp_t:.12g})")
+        errs["eta_hat"] = float(np.max(np.abs(eta - eta_t) / pta.scales))
+        check(errs["eta_hat"] <= 1e-6, f"{label}: eta_hat within 1e-6 prior scales of the "
+                                       f"twin path's ({errs['eta_hat']:.3g})")
+        out.update(lnpost=lp, lnpost_start=start)
+    on_card = device.type == "cuda"
+    for win, names in (("loglike", ("ecorr_normal_eq_stacked",)),
+                       ("many", ("ecorr_normal_eq_stacked",)),
+                       ("grad", ("ecorr_normal_eq_stacked", "pta_grad")),
+                       ("optimize", ("ecorr_normal_eq_stacked", "pta_grad") if opt else ())):
+        for name in names:
+            n = w[win][name]
+            check(n > 0 or not on_card, f"{name} launched {n} times by {label}'s {win}")
+    out["windows"] = {k: v for k, v in w.items() if v}  # the windows this check ran
+    return out
+
+
+def k3_stacked_record(pta, E: int, device) -> dict:
+    """K3's stacked mode at E points of array A; the library yardstick is the
+    batched cuBLAS Gram X W X^T of each set's augmented rows X = [Mn, G, r, Fd]
+    alone (in chunks of at most 1,024 sets)."""
+    import torch
+
+    from pint_tpu_torch.fitting.woodbury import (ecorr_normal_eq_stacked,
+                                                 ecorr_normal_eq_stacked_plain)
+
+    args = k3_stacked_args(pta, E, 56)
+    r, M, Gc, w, Fd = args[:5]
+    N, n = r.shape
+    p, m = M.shape[1], Gc.shape[1]
+    ke = 0 if args[5] is None else args[5].ke
+    kd = 0 if Fd is None else Fd.shape[1]
+    reps = 20 if E < 256 else 3
+    ms, call = measure(lambda: ecorr_normal_eq_stacked(*args), device, reps, K3_KERNEL)
+    whole, _ = measure(lambda: ecorr_normal_eq_stacked(*args), device, reps)
+    plain, plain_call = measure(lambda: ecorr_normal_eq_stacked_plain(*args), device, 1)
+    X = torch.cat([M / M.pow(2).sum(-1, keepdim=True).sqrt(), Gc, r[:, None]]
+                  + ([Fd] if kd else []), dim=1)  # (N, V, n)
+    chunk = max(1, 1024 // N)
+
+    def library():
+        for e0 in range(0, E, chunk):
+            Xw = X[None] * torch.sqrt(w[e0:e0 + chunk])[:, :, None, :]
+            torch.matmul(Xw, Xw.mT)
+
+    lib, lib_call = measure(library, device, reps)
+    S = E * N
+    V = p + m + 1 + kd
+    nnz = 0 if args[5] is None else args[5].rows.shape[1] * N
+    q = (p + m + 1) * (p + m + 2) // 2
+    # read r, M, G, Fd, the CSR once, each set's w and phi; write G, c, chi2,
+    # ahat, ln|C| and the backward's De, epoch sums, L, Wz, ad
+    n_bytes = (N * n * V + S * (n + ke + kd)) * 8 + N * (ke + 1) * 4 + nnz * 4 \
+        + S * ((p + m) ** 2 + p + m + 2 + 2 * ke + kd + ke * V + kd * (kd + p + m + 2)) * 8
+    # column norms (3 per value of M); per set: ln w (LOG_OPS per row), the
+    # epoch sums, each row and epoch weighted; the Gram and the fold are
+    # multiply-adds
+    n_ops = N * n * p * 3 + S * (n * LOG_OPS + (nnz // N) * 2 * V + (n + ke) * V)
+    n_mma = S * ((n + ke) * V * (V + 1) + q * 2 * kd)
+    b, how = bound_ms(n_bytes, n_ops, n_mma)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
+            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
+            "library_call_ms": lib_call, "library_calls": -(-E // chunk),
+            "shape": f"E={E} N={N} rows={n} p={p} m={m} ke={ke} kd={kd}"}
+
+
+def k10_record(pta, E: int, device) -> dict:
+    """K10 at E points of array A on the kernel forward's state."""
+    from pint_tpu_torch.fitting.pta_like import pta_grad, pta_grad_plain
+
+    core, st, gbar, ldbar = pta_cotangents(pta, E, 56)
+    ms, call = measure(lambda: pta_grad(core, st, gbar, ldbar), device, 20, K10_KERNELS)
+    whole, _ = measure(lambda: pta_grad(core, st, gbar, ldbar), device, 20)
+    plain, plain_call = measure(lambda: pta_grad_plain(core, st, gbar, ldbar), device, 3)
+    _, N, n = st.w.shape
+    S = E * N
+    p, m = core.M.shape[1], core.G.shape[1]
+    q = p + m + 1
+    ke, kd = st.phi_e.shape[-1], st.phi_d.shape[-1]
+    V = q + kd
+    # read M, G, r, Fd and the epoch index once; each set's w, phi, gbar, the
+    # forward's De and epoch sums, and the small factors; write dw and dphi
+    n_bytes = N * n * (q + kd) * 8 + N * n * 4 + S * (n + 2 * (ke + kd) + ke * V + q * q + 1
+                                                      + kd * kd + kd * q) * 8 \
+        + S * (n + ke + kd) * 8
+    # per row: t (q kd), t^T Gbar t over Gbar's symmetric half (q (q + 1) / 2)
+    # and |L^-1 h|^2 (kd (kd + 1) / 2) multiply-adds; per basis column the
+    # same with Ahat; Gbar's symmetrisation q^2 per set; the rest ~4 per value
+    rows = q * kd + q * (q + 1) // 2 + kd * (kd + 1) // 2
+    n_mma = S * 2 * ((n + ke) * rows + kd * q * (q + 1) // 2)
+    n_ops = S * (4 * (n + ke) * (q + kd) + q * q)
+    b, how = bound_ms(n_bytes, n_ops, n_mma)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
+            "shape": f"E={E} N={N} rows={n} p={p} m={m} ke={ke} kd={kd}"}
+
+
+#: the optimize whose busy share phase 56 profiles: 20 of its 200 steps (the
+#: profiler's cost grows with the ~10^5 kernel events of a whole one)
+PTA_PROFILED_STEPS = 20
+
+
+def pta_walls(pta, device, optimize_s: float) -> dict:
+    """Warm walls (host clock, ending in a synchronize) of loglike, grad,
+    loglike_many (256 points) and an optimize of PTA_PROFILED_STEPS steps on
+    array A, with phase 53's optimize wall (`optimize_s`, 200 steps, after
+    warm calls of every piece it runs), then device time by kernel over one
+    more grad and short optimize under torch.profiler, and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pts = pta_points(pta, 256, 56)
+    calls = {"loglike": lambda: pta.loglike(pta.x0), "grad": lambda: pta.grad(pta.x0),
+             "loglike_many_256": lambda: pta.loglike_many(pts),
+             "optimize_20": lambda: pta.optimize(n_steps=PTA_PROFILED_STEPS)}
+    out = {"optimize_200_s": optimize_s}
+    for name, fn in calls.items():
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        out[f"{name}_s"] = time.perf_counter() - t0
+    if device.type != "cuda":
+        return out
+    for name in ("grad", "optimize_20"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls[name]()
+            sync(device)
+        kern = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(us for _, us in kern) / 1e6
+        k10 = sum(us for k, us in kern if any(p in k for p in K10_KERNELS)) / 1e6
+        k3 = sum(us for k, us in kern if K3_KERNEL in k) / 1e6 - k10
+        out[f"{name}_profile"] = {
+            "device_busy_s": busy, "busy_share": busy / out[f"{name}_s"], "k3_s": k3,
+            "k10_s": k10, "top": [[k[:70], us / 1e6]
+                                  for k, us in sorted(kern, key=lambda r: -r[1])[:6]]}
+    return out
+
+
+def pta_phases(device, summary: dict, noise: dict, shape=PTA_SHAPE, small: int = 8192,
+               dense_rows: int = 1024) -> dict:
+    """Phases 50-56 (``PINT_TPU_NBODY=0`` set around them): array A
+    (``pta_smoke_array(*shape)``) built by the port's simulation, K3's stacked
+    mode and K10 against their twins, PTALikelihood against the twin path,
+    arrays B and C (8 pulsars of `small` TOAs: the test par's ECORR epochs;
+    ragged without ECORR), array D (4 pulsars of `dense_rows` TOAs) against
+    the dense joint, and times."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.fitting import PTALikelihood
+    from pint_tpu_torch.fitting.woodbury import ecorr_normal_eq, ecorr_normal_eq_sets
+    from pint_tpu_torch.profiles import pta_smoke_array
+
+    n_psr, n_toas, seed = shape
+    windows, recs, rec = {}, {"ecorr_normal_eq_stacked": {}, "pta_grad": {}}, {}
+    clock = {"t": time.perf_counter(), "phase_s": {}}
+
+    def lap(phase: int) -> None:
+        now = time.perf_counter()
+        clock["phase_s"][phase] = now - clock["t"]
+        clock["t"] = now
+    with knobs(PINT_TPU_NBODY="0", PINT_TPU_EPHEM=None, PINT_TPU_KERNEL_EPHEM=None):
+        print(f"phase 50: array A, pta_smoke_array({n_psr}, {n_toas}, seed={seed}), "
+              "on the card by the port's simulation")
+        zeroed = []
+        with counted(windows.setdefault("pta_simulate", {})), zeroed_residuals(zeroed):
+            t0 = time.perf_counter()
+            models, toas = pta_smoke_array(n_psr, n_toas, seed=seed, device=device)
+            sync(device)
+            sim_s = time.perf_counter() - t0
+        check(len(zeroed) == n_psr and max(zeroed) < 1e-9,
+              f"each pulsar's fake TOAs lie on its model (zero_residuals, largest residual "
+              f"{max(zeroed):.3g} s < 1 ns)")
+        for name in ("resid_tangent", "site_geometry", "analytic_ephemeris", "fourier_basis"):
+            n = windows["pta_simulate"][name]
+            check(n > 0 or device.type != "cuda", f"{name} launched {n} times by the simulation")
+        with counted(windows.setdefault("pta_build", {})):
+            members, design_s = pta_members(models, toas, device, PTA_START)
+            t0 = time.perf_counter()
+            pta = PTALikelihood(members)
+            sync(device)
+            build_s = time.perf_counter() - t0
+        eig = float(np.linalg.eigvalsh(pta.orf).min())
+        check(eig > 0, f"the {n_psr} x {n_psr} Hellings-Downs ORF positive definite (least "
+                       f"eigenvalue {eig:.4g})")
+        dims = (len(members), pta.rows, pta.p_lin, pta._core.G.shape[1],
+                0 if pta._core.Fd is None else pta._core.Fd.shape[1], len(pta.psr_hyper),
+                pta.nparams)
+        check(dims == (n_psr, n_toas, 6, 12, 10, 3, 3 * n_psr + 2),
+              f"array A at (N, rows, p_lin, m, kd, h, eta) = {dims}")
+        rec["array_a"] = {"simulate_s": sim_s, "member_designs_s": design_s,
+                          "pta_build_s": build_s, "zeroed_residual_max_s": max(zeroed),
+                          "orf_min_eig": eig, "dims": dims, "gw_tspan_s": pta.gw_tspan}
+        print("  build walls (s): " + json.dumps({k: v for k, v in rec["array_a"].items()
+                                                  if k.endswith("_s")}))
+
+        lap(50)
+        print("phase 51: K3's stacked mode against its twin; the older modes unchanged")
+        k3 = phase_k3_stacked(pta, device, "array A", PTA_SETS)
+        for E, old in noise["k3"].items():
+            again = ecorr_normal_eq_sets(*old["args"])
+            sync(device)
+            check(torch.equal(again.chi2, old["chi2"]) and torch.equal(again.G, old["G"]),
+                  f"K3's per-set mode at phase 45's E = {E} call bitwise unchanged")
+        for label, old in noise["k3_old"].items():
+            again = ecorr_normal_eq(*old["args"])
+            sync(device)
+            check(all(torch.equal(a, b) for a, b in zip(again, old["out"])),
+                  f"K3's shared-weight mode at phase 29's {label} shape bitwise unchanged")
+
+        lap(51)
+        print("phase 52: K10 pta_grad against its twin")
+        k10_err = phase_k10(pta, device, "array A")
+
+        lap(52)
+        print("phase 53: PTALikelihood on array A against the twin path")
+        derr = check_member_design(members[0], models[0], toas[0], "array A's pulsar 0")
+        with twins():
+            twin = PTALikelihood(members)
+        main = check_pta(pta, twin, device, "array A")
+        main["errs"]["member_design"] = derr
+        windows.update({f"pta_{k}": v for k, v in main.pop("windows").items()})
+        del twin
+
+        lap(53)
+        print("phase 54: arrays B (the test par's ECORR epochs) and C (ragged, no ECORR)")
+        arrays = {}
+        for label, par, epochs, sd in (
+                ("array B", PTA_TEST_PAR, [small // 2] * 8, 5),
+                ("array C", PTA_RAGGED_PAR,
+                 np.linspace(3 * small // 8, small // 2, 8).astype(int), 13)):
+            t0 = time.perf_counter()
+            ms, ts = pta_test_array(device, 8, epochs, par, sd)
+            one, _ = pta_members(ms, ts, device)
+            arr = PTALikelihood(one)
+            sync(device)
+            wall = time.perf_counter() - t0
+            info = {"build_s": wall, "rows": arr.rows, "n_data": [nl._n_data for nl in one],
+                    "ke": 0 if arr._core.epochs is None else arr._core.epochs.ke,
+                    "kd": arr._core.Fd.shape[1], "m": arr._core.G.shape[1]}
+            info["k3"] = phase_k3_stacked(arr, device, label, PTA_SETS[:2])
+            info["k10_err"] = phase_k10(arr, device, label)
+            with twins():
+                tw = PTALikelihood(one)
+            info.update(check_pta(arr, tw, device, label, many=8, opt=False))
+            windows.update({f"pta_{label[-1]}_{k}": v for k, v in info.pop("windows").items()})
+            arrays[label] = info
+            print(f"  {label}: " + json.dumps({k: info[k] for k in
+                                                ("build_s", "rows", "ke", "kd", "m")}))
+        check(arrays["array B"]["ke"] == small // 2 and arrays["array C"]["rows"] == small
+              and min(arrays["array C"]["n_data"]) < small,
+              f"array B with {small // 2} ECORR epochs a pulsar; array C ragged "
+              f"({min(arrays['array C']['n_data'])}-{max(arrays['array C']['n_data'])} TOAs) in "
+              f"buckets of {small} rows")
+
+        lap(54)
+        print(f"phase 55: array D (4 pulsars of {dense_rows} TOAs) against the dense joint")
+        md, td = pta_smoke_array(4, dense_rows, seed=seed, device=device)
+        ptd = PTALikelihood(pta_members(md, td, device)[0])
+        dense = ptd.dense_joint_program()
+        d_out = {}
+        for k, eta in enumerate(pta_points(ptd, 2, 55)):
+            t0 = time.perf_counter()
+            fused = ptd.loglike(eta)
+            sync(device)
+            d_out.setdefault("fused_s", []).append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ref = dense(eta)
+            sync(device)
+            d_out.setdefault("dense_s", []).append(time.perf_counter() - t0)
+            err = abs(fused - ref) / abs(ref)
+            d_out.setdefault("rel_err", []).append(err)
+            check(err <= 1e-8, f"array D point {k}: the fused loglike within 1e-8 relative of "
+                               f"the dense joint ({fused:.12g} vs {ref:.12g})")
+
+        lap(55)
+        print("phase 56: K3's stacked mode and K10 times, PTA walls and busy share")
+        for E in PTA_SETS:
+            r = k3_stacked_record(pta, E, device)
+            recs["ecorr_normal_eq_stacked"].update(r if E == 1 else
+                                                   {f"e{E}_{k}": v for k, v in r.items()})
+            if E <= 8:
+                r = k10_record(pta, E, device)
+                recs["pta_grad"].update(r if E == 1 else {f"e{E}_{k}": v for k, v in r.items()})
+        walls = pta_walls(pta, device, main["walls"]["optimize_s"])
+        print("  walls (s): " + json.dumps({k: v for k, v in walls.items() if k.endswith("_s")}))
+        lap(56)
+        print("  phase walls (s): " + json.dumps(clock["phase_s"]))
+    summary["pta"] = {**rec, "errs": main["errs"], "checked_walls": main["walls"],
+                      "dll": main["dll"], "os": main["os"], "lnpost": main.get("lnpost"),
+                      "lnpost_start": main.get("lnpost_start"),
+                      "k3_errs": {E: v["errs"] for E, v in k3.items()}, "k10_err": k10_err,
+                      "arrays": arrays, "array_d": d_out, "walls": walls,
+                      "phase_s": clock["phase_s"]}
+    errs = {"ecorr_normal_eq_stacked": max(v["chi2_abs_err"] for v in k3.values()),
+            "pta_grad": k10_err}
     return {"recs": recs, "errs": errs, "windows": windows}
 
 
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-49 on `device_name`; returns the summary record."""
+    """Phases 2-56 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -3131,22 +3885,32 @@ def phases(device_name: str = "cuda") -> dict:
             print(f"  {name}: {summary['ptxas'][name]}")
         for fn, (regs, spill) in summary["ptxas_instances"]["resid_tangent"].items():
             print(f"    {fn}: {regs} registers, {spill} bytes of spill stores")
-    smoke = smoke_phases(device, summary)
-    flag = flagship_phases(device, summary)
-    prep = prepare_phases(device, summary, flag)
-    ephem = ephemeris_phases(device, summary)
-    dd = dd_phases(device, summary)
-    ng = nanograv_phases(device, summary)
-    bins = binary_phases(device, summary)
-    wb = wideband_phases(device, summary)
-    noise = noise_phases(device, summary, ng)
+    walls = summary.setdefault("group_s", {})
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(device, summary, *args)
+        walls[name] = time.perf_counter() - t0
+        print(f"  [{name} phases: {walls[name]:.1f} s]")
+        return out
+
+    smoke = timed("smoke", smoke_phases)
+    flag = timed("flagship", flagship_phases)
+    prep = timed("prepare", prepare_phases, flag)
+    ephem = timed("ephemeris", ephemeris_phases)
+    dd = timed("dd", dd_phases)
+    ng = timed("nanograv", nanograv_phases)
+    bins = timed("binaries", binary_phases)
+    wb = timed("wideband", wideband_phases)
+    noise = timed("noise", noise_phases, ng)
+    pta = timed("pta", pta_phases, noise)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
                **ephem["windows"], **dd["windows"], **ng["windows"], **bins["windows"],
-               **wb["windows"], **noise["windows"]}
+               **wb["windows"], **noise["windows"], **pta["windows"]}
     kernels = []
-    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb, noise)
+    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb, noise, pta)
     for name, src, replaces in KERNELS:
         rec = {k: v for r in parts for k, v in r["recs"].get(name, {}).items()}
         err = max(r["errs"].get(name, 0.0) for r in parts)

@@ -86,6 +86,12 @@ class MJDEpoch:
     frac_hi: np.ndarray  # float64
     frac_lo: np.ndarray  # float64
 
+    @classmethod
+    def from_mjd_float(cls, mjd) -> "MJDEpoch":
+        mjd = np.atleast_1d(np.asarray(mjd, np.float64))
+        day = np.floor(mjd)
+        return cls(day.astype(np.int64), mjd - day, np.zeros_like(mjd))
+
     def mjd_float(self) -> np.ndarray:
         return self.day + (self.frac_hi + self.frac_lo)
 

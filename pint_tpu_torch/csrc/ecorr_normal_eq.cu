@@ -69,6 +69,19 @@
 // set for the white term of ln|C|. Set 0's arithmetic in the shared-weight
 // mode is exactly what it was before the mode existed.
 //
+// The stacked mode (ecorr_gram_stacked; its fold is ecorr_fold_sets) runs the per-set
+// passes over the E x N (point, pulsar) sets of pint_tpu's joint PTA
+// likelihood (fitting/pta_like.py:169-193 pulsar_blocks: cinv_inner,
+// woodbury_chi2 and logdet_C(mask=) per pulsar, in the TPU programs
+// pta_loglike, pta_loglike_batch, the forward of pta_loglike_grad,
+// pta_detection_stat and pta_gwb_blocks). Set s = e N + a reads pulsar a's r,
+// M, norms, Fd and CSR by stride (shared by the E points) and point e's w and
+// phi. Its design is X = [Mn, G]: the p columns of M divided by their
+// unweighted norms, then the m columns of the common block G, raw (no norm,
+// no ridge); so the fold's "G" is X^T C^-1 X = [[A, W], [W^T, V]] and its c
+// is -[b; u]. The bucket's pad rows carry w = 0: they add nothing to a sum,
+// and logw_pass skips them (pint_tpu's logdet_C(mask=)).
+//
 // Bound: float64 operations. The Gram is ~N (p + 1 + kd)^2 / 2 multiply-
 // adds per set (about 1e9 at the NANOGrav grid's B = 9, p = 80, kd = 60),
 // against N (p + 1) doubles read per set: far above the H100's float64
@@ -97,13 +110,20 @@ struct Args {
   int B, p, n, ke, kd, centre, weighted;
   int seg_len, row_segs, n_segs;  // gram_pass segments: rows, then epochs
   double *mean, *norm, *esum, *De, *part, *S1;
-  int ws;        // 1: one (r, M), B sets of weights and prior variances
+  int ws;        // 1: one (r, M), B sets of weights and prior variances; 2: stacked
   double *logw;  // ws: sum_i ln w_i per set (B,)
+  // stacked mode: the design's first pn columns are M's (normalized), the
+  // other p - pn the raw common block Gc (npsr, p - pn, n); each pulsar's
+  // CSR has ke + 1 offsets and nnz row ids
+  const double *Gc;
+  int pn, npsr, nnz;
 };
 
 // the (r, M) set that weight set b reads, and the offsets of set b's
 // weights and of its per-epoch values (De, phi_e)
-__device__ __forceinline__ int design_set(const Args &a, int b) { return a.ws ? 0 : b; }
+__device__ __forceinline__ int design_set(const Args &a, int b) {
+  return a.ws == 2 ? b % a.npsr : a.ws ? 0 : b;
+}
 __device__ __forceinline__ size_t w_off(const Args &a, int b) { return a.ws ? (size_t)b * a.n : 0; }
 __device__ __forceinline__ size_t e_off(const Args &a, int b) { return a.ws ? (size_t)b * a.ke : 0; }
 
@@ -121,11 +141,12 @@ inline int segment_length(int n, int ke, int V, int B) {
 // b at row i, centred and divided as the twin forms it
 __device__ __forceinline__ double row_value(const Args &a, int b, int x, int i) {
   b = design_set(a, b);
-  if (x < a.p)
-    return __ddiv_rn(__dsub_rn(a.M[((size_t)b * a.p + x) * a.n + i], a.mean[(size_t)b * (a.p + 1) + 1 + x]),
-                     a.norm[(size_t)b * a.p + x]);
+  if (x < a.pn)
+    return __ddiv_rn(__dsub_rn(a.M[((size_t)b * a.pn + x) * a.n + i], a.mean[(size_t)b * (a.p + 1) + 1 + x]),
+                     a.norm[(size_t)b * a.pn + x]);
+  if (x < a.p) return a.Gc[((size_t)b * (a.p - a.pn) + x - a.pn) * a.n + i];
   if (x == a.p) return __dsub_rn(a.r[(size_t)b * a.n + i], a.mean[(size_t)b * (a.p + 1)]);
-  return a.Fd[(size_t)(x - a.p - 1) * a.n + i];
+  return a.Fd[(a.ws == 2 ? (size_t)b * a.kd * a.n : 0) + (size_t)(x - a.p - 1) * a.n + i];
 }
 
 // pass 1: set b's weighted mean of value x (0: r, 1 + j: M_j)
@@ -145,7 +166,7 @@ __global__ void __launch_bounds__(THREADS) mean_pass(Args a) {
 // pass 2: set b's norm of column j
 __global__ void __launch_bounds__(THREADS) norm_pass(Args a) {
   const int j = blockIdx.x, b = blockIdx.y;
-  const double *v = a.M + ((size_t)b * a.p + j) * a.n;
+  const double *v = a.M + ((size_t)b * a.pn + j) * a.n;
   const double m = a.mean[(size_t)b * (a.p + 1) + 1 + j];
   double acc[1] = {0.0};
   for (int i = threadIdx.x; i < a.n; i += THREADS) {
@@ -154,7 +175,7 @@ __global__ void __launch_bounds__(THREADS) norm_pass(Args a) {
   }
   __shared__ double tot[1];
   block_sum<THREADS, 1>(acc, tot);
-  if (threadIdx.x == 0) a.norm[(size_t)b * a.p + j] = tot[0] == 0.0 ? 1.0 : __dsqrt_rn(tot[0]);
+  if (threadIdx.x == 0) a.norm[(size_t)b * a.pn + j] = tot[0] == 0.0 ? 1.0 : __dsqrt_rn(tot[0]);
 }
 
 // pass 3: epoch sums of w V (value x < V) and, for x == V, De (set 0)
@@ -163,9 +184,11 @@ __global__ void __launch_bounds__(THREADS) epoch_pass(Args a) {
   const int V = a.p + 1 + a.kd;
   if (e >= a.ke || (!a.ws && b > 0 && x > a.p)) return;
   const double *w = a.w + w_off(a, b);
+  const size_t psr = a.ws == 2 ? (size_t)design_set(a, b) : 0;  // the stacked mode's pulsar
+  const int *offsets = a.offsets + psr * (a.ke + 1), *rows = a.rows + psr * a.nnz;
   double acc = 0.0;
-  for (int k = a.offsets[e]; k < a.offsets[e + 1]; ++k) {
-    const int i = a.rows[k];
+  for (int k = offsets[e]; k < offsets[e + 1]; ++k) {
+    const int i = rows[k];
     acc = __dadd_rn(acc, x < V ? __dmul_rn(w[i], row_value(a, b, x, i)) : w[i]);
   }
   if (x < V) a.esum[((size_t)b * a.ke + e) * V + x] = acc;
@@ -292,7 +315,8 @@ __global__ void __launch_bounds__(THREADS) logw_pass(Args a) {
   const int b = blockIdx.x;
   const double *w = a.w + (size_t)b * a.n;
   double acc[1] = {0.0};
-  for (int i = threadIdx.x; i < a.n; i += THREADS) acc[0] = __dadd_rn(acc[0], log(w[i]));
+  for (int i = threadIdx.x; i < a.n; i += THREADS)
+    if (a.ws != 2 || w[i] != 0.0) acc[0] = __dadd_rn(acc[0], log(w[i]));  // stacked: no pad rows
   __shared__ double tot[1];
   block_sum<THREADS, 1>(acc, tot);
   if (threadIdx.x == 0) a.logw[b] = tot[0];
@@ -316,7 +340,7 @@ namespace {
 
 int launch_gram(const Args &a, cudaStream_t s) {
   const int B = a.B, p = a.p, V = p + 1 + a.kd, nt = tiles_of(V), ke = a.ke;
-  const int mb = a.ws ? 1 : B;  // the (r, M) sets
+  const int mb = a.ws == 2 ? a.npsr : a.ws ? 1 : B;  // the (r, M) sets
   cudaError_t e;
   if (a.centre) {
     mean_pass<<<dim3(p + 1, mb), THREADS, 0, s>>>(a);
@@ -325,8 +349,8 @@ int launch_gram(const Args &a, cudaStream_t s) {
     if ((e = cudaMemsetAsync(a.mean, 0, sizeof(double) * mb * (p + 1), s)) != cudaSuccess)
       return e;
   }
-  if (p > 0) {
-    norm_pass<<<dim3(p, mb), THREADS, 0, s>>>(a);
+  if (a.pn > 0) {
+    norm_pass<<<dim3(a.pn, mb), THREADS, 0, s>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (a.ws) {
@@ -346,11 +370,13 @@ int launch_gram(const Args &a, cudaStream_t s) {
 Args make_args(const double *r, const double *M, const double *w, const double *Fd,
                const int *offsets, const int *rows, const double *ephi, int B, int p, int n,
                int ke, int kd, int centre, int weighted, double *mean, double *norm,
-               double *esum, double *De, double *part, double *S1, int ws, double *logw) {
+               double *esum, double *De, double *part, double *S1, int ws, double *logw,
+               const double *Gc = nullptr, int pn = -1, int npsr = 1, int nnz = 0) {
   const int V = p + 1 + kd, len = segment_length(n, ke, V, B);
   const int row_segs = (n + len - 1) / len, n_segs = row_segs + (ke + len - 1) / len;
   return Args{r,        M,   w,        Fd,     offsets, rows, ephi, B,  p,    n,  ke, kd, centre,
-              weighted, len, row_segs, n_segs, mean,    norm, esum, De, part, S1, ws, logw};
+              weighted, len, row_segs, n_segs, mean,    norm, esum, De, part, S1, ws, logw,
+              Gc,       pn < 0 ? p : pn,       npsr,    nnz};
 }
 
 }  // namespace
@@ -381,6 +407,28 @@ extern "C" int ecorr_gram_sets(const double *r, const double *M, const double *w
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_gram(make_args(r, M, w, Fd, offsets, rows, ephi, E, p, n, ke, kd, 0, 0, mean,
                                norm, esum, De, part, S1, 1, logw),
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Passes 2-5 of the stacked mode, and logw_pass, over the E N sets s = e N +
+// a. r (N, n), M (N, p, n), Gc (N, m, n), w (E, N, n), Fd (N, kd, n), offsets
+// (N, ke + 1) and rows (N, nnz) int32 (each pulsar's CSR), ephi (E, N, ke).
+// Outputs mean (N, p + m + 1) zeros, norm (N, p) unweighted, logw (E N,) =
+// the sum of ln w_i over the rows with w_i > 0, esum (E N, ke, V), De (E N,
+// ke), S1 (E N, V, V), V = p + m + 1 + kd; part is scratch of
+// ecorr_gram_part_size(E N, p + m, n, ke, kd) doubles.
+extern "C" int ecorr_gram_stacked(const double *r, const double *M, const double *Gc,
+                                  const double *w, const double *Fd, const int *offsets,
+                                  const int *rows, const double *ephi, int E, int N, int p, int m,
+                                  int n, int ke, int kd, int nnz, double *mean, double *norm,
+                                  double *logw, double *esum, double *De, double *part,
+                                  double *S1, void *stream) {
+  const long B = (long)E * N;
+  if (p < 0 || m < 0 || p + m > PMAX || kd < 0 || kd > KDMAX || E < 1 || N < 1 || B > 65535 ||
+      n < 1 || ke < 0 || nnz < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gram(make_args(r, M, w, Fd, offsets, rows, ephi, (int)B, p + m, n, ke, kd, 0, 0,
+                               mean, norm, esum, De, part, S1, 2, logw, Gc, p, N, nnz),
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -1,11 +1,13 @@
 """Fitting engines (counterpart of ``pint_tpu/fitting``): the WLS, GLS and
-wideband fitters, `fit_auto`, which picks one, and the noise likelihood
-(`NoiseLikelihood`, `noise_param_names`)."""
+wideband fitters, `fit_auto`, which picks one, the noise likelihood
+(`NoiseLikelihood`, `noise_param_names`) and the joint likelihood of a pulsar
+timing array (`PTALikelihood`)."""
 
 import logging
 
 from pint_tpu_torch.fitting.gls import DownhillGLSFitter, GLSFitter  # noqa: F401
 from pint_tpu_torch.fitting.noise_like import NoiseLikelihood, noise_param_names  # noqa: F401
+from pint_tpu_torch.fitting.pta_like import PTALikelihood  # noqa: F401
 from pint_tpu_torch.fitting.wideband import WidebandDownhillFitter, refuse_unported
 from pint_tpu_torch.fitting.wls import DownhillWLSFitter, FitResult, WLSFitter  # noqa: F401
 

@@ -509,6 +509,7 @@ class NoiseLikelihood(MarginalizedPosterior):
         self.priors.update(priors or {})
         self.scales = np.array([_prior_scale(self.priors[n]) for n in self.hyper])
         self.x0 = np.array([float(leaf_to_f64(model.params[n])) for n in self.hyper])
+        self.toas = toas
         self.tensor = tensor_of(toas, model)
         self.device = self.tensor["t_hi"].device
         self._build()
@@ -542,6 +543,49 @@ class NoiseLikelihood(MarginalizedPosterior):
             eidx = epochs.eidx.to(torch.int32)
         self._core = NoiseCore(r0=r0, M=M.T.contiguous(), mnorm=mnorm, Fd=Fd, epochs=epochs,
                                eidx=eidx, marginalize=self.marginalize_timing)
+        self._n_data = n
+
+    def _layout_padded(self, rows: int) -> dict:
+        """The member's operands of a joint array likelihood, padded to
+        `rows` data rows (memoized per bucket): r0 (rows,), the raw design M
+        (p_lin, rows), its norms, the mask (1 real, 0 pad), the pulsar's own
+        basis without the common process (Fd (kd, rows) or None, each row's
+        epoch eidx (rows,) int32, -1 for none, and the epoch count ke), and
+        the row columns the white noise reads (error_s, mask_*) for the
+        weights. Pad rows are zero, in no epoch and in no mask, with error 1:
+        their weight is zero."""
+        cache = self.__dict__.setdefault("_padded_layouts", {})
+        if rows in cache:
+            return cache[rows]
+        n = self._n_data
+        if rows < n:
+            raise ValueError(f"cannot pad {n} data rows into a bucket of {rows}")
+        pad = rows - n
+        dev = self.device
+
+        def rowpad(x, fill=0.0):
+            return torch.nn.functional.pad(x, (0, pad), value=fill)
+
+        c = self._core
+        basis = self.model.noise_basis_and_weights(self._params0, self.tensor,
+                                                   include_common=False)
+        Fd = None
+        eidx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        ke = 0
+        if basis is not None and basis.dense is not None:
+            Fd = rowpad(basis.dense.T.contiguous())
+        if basis is not None and basis.epochs is not None:
+            eidx = basis.epochs.eidx.to(torch.int32)
+            ke = basis.ke
+        cols = {"error_s": rowpad(self.tensor["error_s"][..., :n], 1.0)}
+        for k, v in self.tensor.items():
+            if k.startswith("mask_") and v.dim() == 1:
+                cols[k] = rowpad(v[:n])
+        out = {"r0": rowpad(c.r0), "M": rowpad(c.M), "mnorm": c.mnorm,
+               "mask": rowpad(torch.ones(n, dtype=torch.float64, device=dev)),
+               "Fd": Fd, "eidx": rowpad(eidx, -1), "ke": ke, "cols": cols}
+        cache[rows] = out
+        return out
 
     @property
     def design(self):

@@ -46,6 +46,13 @@ the marginalized noise likelihood (``fitting/noise_like.py``): one (r, M)
 and E sets of weights and prior variances, the same passes per weight set,
 plus each set's log|C| and the pieces the likelihood's backward (kernel K9)
 reads: De, the epoch sums [y_e, s_e, B_e], L and Wz.
+
+K3's stacked mode (`ecorr_normal_eq_stacked`) runs the per-set passes over
+the E x N (point, pulsar) sets of the joint PTA likelihood
+(``fitting/pta_like.py``): set (e, a) reads pulsar a's r, M, Fd and epochs
+by stride, with point e's weights and prior variances, and its Gram takes
+the common process's block G (m columns, un-normalized, no ridge) after the
+design, X = [Mn, G]. Pad rows (w = 0) drop out of every sum and of log|C|.
 """
 
 from __future__ import annotations
@@ -452,6 +459,8 @@ def _declare_k3(lib) -> None:
     lib.ecorr_gram_sets.restype = ctypes.c_int
     lib.ecorr_fold_sets.argtypes = lib.ecorr_fold.argtypes
     lib.ecorr_fold_sets.restype = ctypes.c_int
+    lib.ecorr_gram_stacked.argtypes = [p] * 8 + [i] * 8 + [p] * 7 + [p]
+    lib.ecorr_gram_stacked.restype = ctypes.c_int
 
 
 # --- K3, per-set-weight mode -----------------------------------------------------
@@ -516,38 +525,51 @@ def ecorr_normal_eq_sets_plain(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor
     E, p, n, ke, kd = _check_sets(r, M, w, Fd, epochs, phi_e, phi_d)
     _, Mn, norm = _step_inputs(r[None], M[None], w[0], False, False)
     X = Mn[0].T
+    outs = [_set_plain(r, X, w[e], Fd, epochs, phi_e[e] if ke else None,
+                       phi_d[e] if kd else None, ridge) for e in range(E)]
+    return _stack_sets(outs, 0)._replace(norm=norm[0])
+
+
+def _stack_sets(outs, dim: int) -> SetsNormalEq:
+    """SetsNormalEq's of set groups stacked along `dim`, without norms."""
+    return SetsNormalEq(*(None if x[0] is None else torch.stack(x, dim=dim) for x in zip(*outs)))
+
+
+def _set_plain(r: torch.Tensor, X: torch.Tensor, w: torch.Tensor, Fd: torch.Tensor | None,
+               epochs: EpochIndex | None, phi_e: torch.Tensor | None,
+               phi_d: torch.Tensor | None, ridge: float, mask: torch.Tensor | None = None):
+    """The twins' algebra of one weight set w (N,) over the design X (N, P):
+    a SetsNormalEq of one set without its norms; `mask` is logdet_C's."""
+    p = X.shape[1]
+    ke = 0 if epochs is None else epochs.ke
+    kd = 0 if Fd is None else Fd.shape[0]
     dense = None if kd == 0 else Fd.T
     eye = torch.eye(p, dtype=torch.float64, device=r.device)
     aug = torch.cat([X, r[:, None]] + ([dense] if kd else []), dim=1)
     empty = r.new_zeros
-    outs = []
-    for e in range(E):
-        we = w[e]
-        basis = None
-        if ke or kd:
-            basis = NoiseBasis(dense=dense, dense_phi=phi_d[e] if kd else None,
-                               epochs=epochs if ke else None, ephi=phi_e[e] if ke else None)
-        sf = s_factor(basis, we) if basis is not None else None
-        CinvM = cinv_apply(basis, we, X, sf)
-        G = X.T @ CinvM + ridge * eye
-        c = CinvM.T @ (-r)
-        chi2, (ze, zd) = woodbury_chi2(basis, we, r, sf=sf)
-        ld = logdet_C(basis, we, sf=sf)
-        De = sf.De if ke else empty(0)
-        esum = seg_sum(we[:, None] * aug, epochs) if ke else empty((0, p + 1 + kd))
-        L, Wz, ad = empty((0, 0)), empty((0, p + 1)), empty(0)
-        if kd:
-            L = sf.schur_cf
-            rhs = dense.T @ (we[:, None] * aug[:, :p + 1])
-            if ke:
-                rhs = rhs - sf.B.T @ (esum[:, :p + 1] / De[:, None])
-            Wz = torch.linalg.solve_triangular(L, rhs, upper=False)
-            ad = torch.linalg.solve_triangular(L.T, Wz[:, p:], upper=True)[:, 0]
-        ahat = cat_ahat(ze, zd).to(r.device) if basis is not None else empty(0)
-        outs.append((G, c, chi2, ahat, ld, De, esum, L, Wz, ad))
-    G, c, chi2, ahat, ld, De, esum, L, Wz, ad = (torch.stack(x) for x in zip(*outs))
-    return SetsNormalEq(G=G, c=c, chi2=chi2, ahat=ahat, norm=norm[0], logdet=ld, De=De,
-                        esum=esum, L=L, Wz=Wz, ad=ad)
+    basis = None
+    if ke or kd:
+        basis = NoiseBasis(dense=dense, dense_phi=phi_d, epochs=epochs if ke else None,
+                           ephi=phi_e)
+    sf = s_factor(basis, w) if basis is not None else None
+    CinvM = cinv_apply(basis, w, X, sf)
+    G = X.T @ CinvM + ridge * eye
+    c = CinvM.T @ (-r)
+    chi2, (ze, zd) = woodbury_chi2(basis, w, r, sf=sf)
+    ld = logdet_C(basis, w, sf=sf, mask=mask)
+    De = sf.De if ke else empty(0)
+    esum = seg_sum(w[:, None] * aug, epochs) if ke else empty((0, p + 1 + kd))
+    L, Wz, ad = empty((0, 0)), empty((0, p + 1)), empty(0)
+    if kd:
+        L = sf.schur_cf
+        rhs = dense.T @ (w[:, None] * aug[:, :p + 1])
+        if ke:
+            rhs = rhs - sf.B.T @ (esum[:, :p + 1] / De[:, None])
+        Wz = torch.linalg.solve_triangular(L, rhs, upper=False)
+        ad = torch.linalg.solve_triangular(L.T, Wz[:, p:], upper=True)[:, 0]
+    ahat = cat_ahat(ze, zd).to(r.device) if basis is not None else empty(0)
+    return SetsNormalEq(G=G, c=c, chi2=chi2, ahat=ahat, norm=None, logdet=ld, De=De, esum=esum,
+                        L=L, Wz=Wz, ad=ad)
 
 
 def ecorr_normal_eq_sets(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
@@ -570,8 +592,7 @@ def ecorr_normal_eq_sets(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
 
 def _launch_k3_sets(r, M, w, Fd, epochs, phi_e, phi_d, ridge) -> SetsNormalEq:
     """One call of K3's per-set-weight mode: passes 2-5 and the log sums,
-    the E kd x kd Cholesky factors of Rd and the triangular solves
-    (torch.linalg, batched; a factor that fails is NaN), then the fold."""
+    then `_fold_sets`."""
     E, p, n, ke, kd = _check_sets(r, M, w, Fd, epochs, phi_e, phi_d)
     dev = r.device
     one = torch.ones(1, dtype=torch.float64, device=dev)
@@ -603,23 +624,40 @@ def _launch_k3_sets(r, M, w, Fd, epochs, phi_e, phi_d, ridge) -> SetsNormalEq:
         rows.data_ptr(), ephi.data_ptr(), E, p, n, ke, kd, mean.data_ptr(), norm.data_ptr(),
         logw.data_ptr(), esum.data_ptr(), De.data_ptr(), part.data_ptr(), S1.data_ptr(),
         build.stream_of(r)))
-    L, Wz, ad = empty(E, 0, 0), empty(E, 0, p + 1), empty(E, 0)
+    return _fold_sets(lib, S1, esum, De, logw, phi_e, phi_d, p, ke, kd, ridge)._replace(
+        norm=norm[:p])
+
+
+def _fold_sets(lib, S1, esum, De, logw, phi_e, phi_d, p, ke, kd, ridge):
+    """The tail of K3's per-set and stacked modes over B sets: the kd x kd
+    Cholesky factors of Rd and the triangular solves (torch.linalg, batched; a
+    factor that fails is NaN), the fold (``ecorr_fold_sets``), then log|C| =
+    -sum log w + log|S| + sum log phi in logdet_C's order. Returns a
+    SetsNormalEq over the B sets without its norms; phi_e (B, ke), phi_d (B,
+    kd)."""
+    from pint_tpu_torch.ops import build
+
+    B, dev = S1.shape[0], S1.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float64, device=dev)
+
+    L, Wz, ad = empty(B, 0, 0), empty(B, 0, p + 1), empty(B, 0)
     if kd:
         Rd = S1[:, p + 1:, p + 1:] + torch.diag_embed(1.0 / phi_d)
         L, info = torch.linalg.cholesky_ex(Rd)
         L = torch.where((info == 0)[:, None, None], L, float("nan"))
         Wz = torch.linalg.solve_triangular(L, S1[:, p + 1:, :p + 1], upper=False).contiguous()
         ad = torch.linalg.solve_triangular(L.mT, Wz[:, :, p:], upper=True)[..., 0].contiguous()
-    G, c, chi2, ahat = empty(E, p, p), empty(E, p), empty(E), empty(E, ke + kd)
+    G, c, chi2, ahat = empty(B, p, p), empty(B, p), empty(B), empty(B, ke + kd)
     build.check(lib, lib.ecorr_fold_sets(
-        S1.data_ptr(), Wz.data_ptr(), esum.data_ptr(), De.data_ptr(), ad.data_ptr(), E, p, ke,
+        S1.data_ptr(), Wz.data_ptr(), esum.data_ptr(), De.data_ptr(), ad.data_ptr(), B, p, ke,
         kd, ridge, G.data_ptr(), c.data_ptr(), chi2.data_ptr(), ahat.data_ptr(),
-        build.stream_of(r)))
+        build.stream_of(S1)))
     if kd:
         ahat[:, ke:] = ad
     De, esum = De[:, :ke], esum[:, :ke]
-    # log|C| = -sum log w + log|S| + sum log phi (logdet_C's order)
-    sl = torch.zeros(E, dtype=torch.float64, device=dev)
+    sl = torch.zeros(B, dtype=torch.float64, device=dev)
     if ke:
         sl = sl + torch.sum(torch.log(De), dim=1)
     if kd:
@@ -629,8 +667,168 @@ def _launch_k3_sets(r, M, w, Fd, epochs, phi_e, phi_d, ridge) -> SetsNormalEq:
         ld = ld + torch.sum(torch.log(phi_e), dim=1)
     if kd:
         ld = ld + torch.sum(torch.log(phi_d), dim=1)
-    return SetsNormalEq(G=G, c=c, chi2=chi2, ahat=ahat, norm=norm[:p], logdet=ld, De=De,
-                        esum=esum, L=L, Wz=Wz, ad=ad)
+    return SetsNormalEq(G=G, c=c, chi2=chi2, ahat=ahat, norm=None, logdet=ld, De=De, esum=esum,
+                        L=L, Wz=Wz, ad=ad)
 
 
 ecorr_normal_eq_sets.launches = 0
+
+
+# --- K3, stacked per-pulsar mode -------------------------------------------------
+
+
+class StackedEpochs(NamedTuple):
+    """The ECORR epochs of N pulsars' bucket-padded rows, ke epochs each.
+
+    per     : tuple of N EpochIndex (the twin's)
+    offsets : (N, ke + 1) int32 CSR offsets, one row per pulsar
+    rows    : (N, nnz) int32 row ids (each pulsar's own, padded with 0)
+    """
+
+    per: tuple
+    offsets: torch.Tensor
+    rows: torch.Tensor
+
+    @property
+    def ke(self) -> int:
+        return self.offsets.shape[1] - 1
+
+
+def stacked_epochs(eidx: torch.Tensor, ke: int) -> StackedEpochs:
+    """StackedEpochs of per-pulsar epoch indices eidx (N, rows) (host work,
+    once per array)."""
+    per = tuple(epoch_index(e, ke) for e in eidx)
+    nnz = max(1, max(x.rows.shape[0] for x in per))
+    rows = torch.zeros((len(per), nnz), dtype=torch.int32, device=eidx.device)
+    for a, x in enumerate(per):
+        rows[a, :x.rows.shape[0]] = x.rows
+    return StackedEpochs(per=per, offsets=torch.stack([x.offsets for x in per]), rows=rows)
+
+
+def _check_stacked(r, M, Gc, w, Fd, epochs, phi_e, phi_d):
+    """(E, N, p, m, n, ke, kd) of a stacked call, shapes checked."""
+    E, N, n = w.shape
+    p, m = M.shape[1], Gc.shape[1]
+    ke = 0 if epochs is None else epochs.ke
+    kd = 0 if Fd is None else Fd.shape[1]
+    ok = r.shape == (N, n) and M.shape == (N, p, n) and Gc.shape == (N, m, n)
+    ok = ok and p + m <= K3_PMAX and kd <= K3_KDMAX
+    ok = ok and (ke == 0 or (phi_e is not None and phi_e.shape == (E, N, ke)
+                             and epochs.offsets.shape[0] == N))
+    ok = ok and (kd == 0 or (phi_d is not None and phi_d.shape == (E, N, kd)
+                             and Fd.shape == (N, kd, n)))
+    if not ok:
+        raise ValueError(
+            f"ecorr_normal_eq_stacked needs r (N, n), M (N, p, n), G (N, m, n) with p + m <= "
+            f"{K3_PMAX}, w (E, N, n), Fd (N, kd <= {K3_KDMAX}, n), phi_e (E, N, ke), phi_d "
+            f"(E, N, kd); got r {tuple(r.shape)}, M {tuple(M.shape)}, G {tuple(Gc.shape)}, "
+            f"w {tuple(w.shape)}, Fd {None if Fd is None else tuple(Fd.shape)}, phi_e "
+            f"{None if phi_e is None else tuple(phi_e.shape)}, phi_d "
+            f"{None if phi_d is None else tuple(phi_d.shape)}, ke {ke}")
+    return E, N, p, m, n, ke, kd
+
+
+#: vmap's output dimensions of `_set_plain` (no norms)
+_SET_DIMS = SetsNormalEq(*(None if f == "norm" else 0 for f in SetsNormalEq._fields))
+
+
+def ecorr_normal_eq_stacked_plain(r: torch.Tensor, M: torch.Tensor, Gc: torch.Tensor,
+                                  w: torch.Tensor, Fd: torch.Tensor | None,
+                                  epochs: StackedEpochs | None, phi_e: torch.Tensor | None,
+                                  phi_d: torch.Tensor | None) -> SetsNormalEq:
+    """Twin of K3's stacked mode: pint_tpu's per-pulsar algebra of the joint
+    PTA likelihood (``pta_like._pta_core.pulsar_blocks``: ``cinv_inner``,
+    ``woodbury_chi2``, ``logdet_C(mask=)``): the per-set twin's algebra
+    (`_set_plain`) over each pulsar's E weight sets at once
+    (`torch.func.vmap`, as pint_tpu vmaps it over the points). X = [Mn, G]:
+    the raw design divided by its unweighted norms, then the common block's
+    raw columns; no ridge. Pad rows have w = 0 and stay out of log|C|.
+    Outputs as SetsNormalEq with a leading (E, N): G = X^T C^-1 X (E, N,
+    p + m, p + m), c = -X^T C^-1 r, norm (N, p)."""
+    E, N, p, m, n, ke, kd = _check_stacked(r, M, Gc, w, Fd, epochs, phi_e, phi_d)
+    per, norms = [], []
+    for a in range(N):
+        _, Mn, norm = _step_inputs(r[a][None], M[a][None], w[0, a], False, False)
+        X = torch.cat([Mn[0].T, Gc[a].T], dim=1)
+        mask = (w[0, a] > 0).to(torch.float64)
+
+        def one(we, pe, pd, a=a, X=X, mask=mask):
+            return _set_plain(r[a], X, we, Fd[a] if kd else None, epochs.per[a] if ke else None,
+                              pe if ke else None, pd if kd else None, 0.0, mask)
+
+        none = w[:, a, :0]
+        per.append(torch.func.vmap(one, out_dims=_SET_DIMS)(
+            w[:, a], phi_e[:, a] if ke else none, phi_d[:, a] if kd else none))
+        norms.append(norm[0])
+    return _stack_sets(per, 1)._replace(norm=torch.stack(norms))
+
+
+def ecorr_normal_eq_stacked(r: torch.Tensor, M: torch.Tensor, Gc: torch.Tensor,
+                            w: torch.Tensor, Fd: torch.Tensor | None,
+                            epochs: StackedEpochs | None, phi_e: torch.Tensor | None,
+                            phi_d: torch.Tensor | None) -> SetsNormalEq:
+    """K3's stacked mode: N pulsars' bucket-padded designs (r (N, n), raw M
+    (N, p, n), the common block G (N, m, n), Fd (N, kd, n), their epochs)
+    under E points' weights w (E, N, n) and prior variances phi_e (E, N,
+    ke), phi_d (E, N, kd): E x N sets, set (e, a) reading pulsar a's rows by
+    stride. A CUDA tensor launches the kernel (and raises if it cannot); a
+    CPU tensor takes `ecorr_normal_eq_stacked_plain`.
+    `ecorr_normal_eq_stacked.launches` counts calls (5 to 8 kernel passes
+    each)."""
+    if r.device.type == "cpu":
+        return ecorr_normal_eq_stacked_plain(r, M, Gc, w, Fd, epochs, phi_e, phi_d)
+    out = _launch_k3_stacked(r, M, Gc, w, Fd, epochs, phi_e, phi_d)
+    ecorr_normal_eq_stacked.launches += 1
+    return out
+
+
+ecorr_normal_eq_stacked.launches = 0
+
+
+def _launch_k3_stacked(r, M, Gc, w, Fd, epochs, phi_e, phi_d) -> SetsNormalEq:
+    """One call of K3's stacked mode: passes 2-5 and the log sums over the
+    E N sets (``ecorr_gram_stacked``), then `_fold_sets` with ridge 0 (the
+    per-set mode's fold: each set's own De and epoch sums)."""
+    from pint_tpu_torch.device import require_f64
+    from pint_tpu_torch.ops import build
+
+    E, N, p, m, n, ke, kd = _check_stacked(r, M, Gc, w, Fd, epochs, phi_e, phi_d)
+    require_f64("ecorr_normal_eq_stacked", tensor={
+        "r": r, "M": M, "G": Gc, "w": w, **({"Fd": Fd, "phi_d": phi_d} if kd else {}),
+        **({"phi_e": phi_e} if ke else {})})
+    dev = r.device
+    S, P = E * N, p + m
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    offsets = rows = torch.zeros(1, dtype=torch.int32, device=dev)
+    ephi = Fdc = one
+    nnz = 1
+    if ke:
+        offsets, rows, ephi = epochs.offsets.contiguous(), epochs.rows.contiguous(), \
+            phi_e.contiguous()
+        nnz = rows.shape[1]
+    if kd:
+        Fdc = Fd.contiguous()
+    for t in (r, M, Gc, w, ephi, Fdc, offsets, *(() if not kd else (phi_d,))):
+        if t.device != dev:
+            raise ValueError("ecorr_normal_eq_stacked needs its tensors on one device")
+    r, M, Gc, w = r.contiguous(), M.contiguous(), Gc.contiguous(), w.contiguous()
+    lib = build.library("ecorr_normal_eq", _declare_k3)
+    V = P + 1 + kd
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float64, device=dev)
+
+    mean, norm, logw = empty(N, P + 1), empty(N, max(p, 1)), empty(S)
+    esum, De, S1 = empty(S, max(ke, 1), V), empty(S, max(ke, 1)), empty(S, V, V)
+    part = empty(lib.ecorr_gram_part_size(S, P, n, ke, kd))
+    build.check(lib, lib.ecorr_gram_stacked(
+        r.data_ptr(), M.data_ptr(), Gc.data_ptr(), w.data_ptr(), Fdc.data_ptr(),
+        offsets.data_ptr(), rows.data_ptr(), ephi.data_ptr(), E, N, p, m, n, ke, kd, nnz,
+        mean.data_ptr(), norm.data_ptr(), logw.data_ptr(), esum.data_ptr(), De.data_ptr(),
+        part.data_ptr(), S1.data_ptr(), build.stream_of(r)))
+    out = _fold_sets(lib, S1, esum, De, logw, phi_e.reshape(S, ke) if ke else None,
+                     phi_d.reshape(S, kd) if kd else None, P, ke, kd, 0.0)
+
+    return out._replace(norm=norm[:, :p], **{
+        f: getattr(out, f).reshape(E, N, *getattr(out, f).shape[1:])
+        for f in out._fields if f != "norm"})

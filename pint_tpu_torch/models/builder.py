@@ -3,7 +3,7 @@
 AstrometryEquatorial, AstrometryEcliptic, SolarSystemShapiro, DispersionDM,
 DispersionDMX, DispersionJump, FD, PulsarBinary (every BINARY model of
 pint_tpu, PB or FB form), Spindown, PhaseJump, AbsPhase, ScaleToaError,
-ScaleDmError, EcorrNoise, PLRedNoise, PLDMNoise).
+ScaleDmError, EcorrNoise, PLRedNoise, PLDMNoise, PLGWBNoise).
 
 Mask parameters (``EFAC -f Rcvr1_2_GUPPI 1.02``) number per family in
 parfile order (EFAC1, EFAC2, ...) as in pint_tpu; each reads the tensor
@@ -29,8 +29,8 @@ from pint_tpu_torch.models.base import Component
 from pint_tpu_torch.models.binary import make_binary_component
 from pint_tpu_torch.models.dispersion import DispersionDM, DispersionDMX, DispersionJump
 from pint_tpu_torch.models.frequency_dependent import FD
-from pint_tpu_torch.models.noise import (EcorrNoise, NoiseComponent, PLDMNoise, PLRedNoise,
-                                         ScaleDmError, ScaleToaError)
+from pint_tpu_torch.models.noise import (EcorrNoise, NoiseComponent, PLDMNoise, PLGWBNoise,
+                                         PLRedNoise, ScaleDmError, ScaleToaError)
 from pint_tpu_torch.models.parameter import (MaskParamInfo, ParamSpec, ParamValueMeta,
                                              parse_mask_clause)
 from pint_tpu_torch.models.phase_misc import AbsPhase, PhaseJump
@@ -65,7 +65,6 @@ def _unported(pf: ParFile) -> list[tuple[str, str]]:
         ("PWEP_", any(n.startswith("PWEP_") for n in names), "A9 (piecewise spindown)"),
         ("CORRECT_TROPOSPHERE", _parse_bool(pf.get("CORRECT_TROPOSPHERE", "N")),
          "A9 (troposphere)"),
-        ("TNGWAMP", "TNGWAMP" in pf, "A12 (PLGWBNoise)"),
         ("PLANET_SHAPIRO", _parse_bool(pf.get("PLANET_SHAPIRO", "N")),
          "A18 (planet positions from the TOA prepare)"),
     ]
@@ -141,6 +140,8 @@ def build_model(pf: ParFile, device=None) -> TimingModel:
         components.append(PLRedNoise())
     if "TNDMAMP" in pf:
         components.append(PLDMNoise())
+    if "TNGWAMP" in pf:
+        components.append(PLGWBNoise())
     if "DMEFAC" in pf or "DMEQUAD" in pf:
         components.append(ScaleDmError())
 

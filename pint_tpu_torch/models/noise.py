@@ -212,14 +212,19 @@ class EcorrNoise(NoiseComponent):
         return cols
 
     def prior_weights(self, params, tensor):
-        """ECORR^2 of each epoch's parameter."""
+        """ECORR^2 of each epoch's parameter. An array's stacked
+        ``ecorr_widx`` (N, 1, ke), with parameter leaves (..., N, 1), gives
+        (..., N, ke)."""
         widx_arr = tensor["ecorr_widx"]
-        if widx_arr.shape[1] == 0:
+        if widx_arr.shape[-1] == 0:
             return None
-        widx = widx_arr[0].to(torch.int64)
         vals = torch.stack(torch.broadcast_tensors(
             *[leaf_to_f64(params[mp.name]) for mp in self.mask_params]), dim=-1)
-        return vals[..., widx] ** 2
+        if widx_arr.dim() == 2:
+            return vals[..., widx_arr[0].to(torch.int64)] ** 2
+        widx = widx_arr[:, 0].to(torch.int64)
+        vals = vals[..., 0, :]
+        return torch.gather(vals, -1, widx.expand(*vals.shape[:-1], widx.shape[-1])) ** 2
 
     def basis_and_weights(self, params, tensor, sl):
         phi = self.prior_weights(params, tensor)
@@ -250,14 +255,15 @@ def powerlaw_psd_weights(f: torch.Tensor, amp, gamma) -> torch.Tensor:
 
 def fourier_freqs(nf: int, T: torch.Tensor) -> torch.Tensor:
     """jnp.linspace(1/T, nf/T, nf) in jax's arithmetic: start (1 - s_k) +
-    stop s_k with s_k = k / (nf - 1), the last one stop itself."""
-    start = T.new_full((), 1.0) / T
-    stop = T.new_full((), float(nf)) / T
+    stop s_k with s_k = k / (nf - 1), the last one stop itself. Spans T
+    (...,) give (..., nf)."""
+    start = (T.new_full((), 1.0) / T)[..., None]
+    stop = (T.new_full((), float(nf)) / T)[..., None]
     if nf == 1:
-        return start[None]
+        return start
     div = nf - 1
     step = torch.arange(div, dtype=torch.float64, device=T.device) / T.new_full((), float(div))
-    return torch.cat([start * (1 - step) + stop * step, stop[None]])
+    return torch.cat([start * (1 - step) + stop * step, stop], dim=-1)
 
 
 def dm_noise_scale(freq_mhz: torch.Tensor) -> torch.Tensor:
@@ -300,12 +306,18 @@ class PowerLawNoise(NoiseComponent):
         raise NotImplementedError
 
     def prior_weights(self, params, tensor):
-        """The power law's variance of each sin and cos column, times the
-        lowest frequency."""
-        freqs = fourier_freqs(self.nf, tensor["noise_tspan"][0, 0])
+        """`weights_at` the grid of the span ``noise_tspan`` (1, 1). An
+        array's stacked span (N, 1, 1), with parameter leaves (..., N, 1),
+        gives (..., N, k)."""
+        freqs = fourier_freqs(self.nf, tensor["noise_tspan"][..., 0, 0])
+        return self.weights_at(params, torch.repeat_interleave(freqs, 2, dim=-1))
+
+    def weights_at(self, params, fr: torch.Tensor) -> torch.Tensor:
+        """The power law's variance of each sin and cos column at the
+        frequencies `fr` (..., k), each repeated for its two columns, times
+        the lowest frequency."""
         amp, gamma = self.amp_gamma(params)
-        fr = torch.repeat_interleave(freqs, 2)
-        return powerlaw_psd_weights(fr, amp, gamma) * fr[0]
+        return powerlaw_psd_weights(fr, amp, gamma) * fr[..., :1]
 
     def basis_and_weights(self, params, tensor, sl):
         from pint_tpu_torch.fitting.design import fourier_basis
@@ -381,3 +393,98 @@ class PLDMNoise(PowerLawNoise):
 
     def hyper_param_names(self, params):
         return [n for n in ("TNDMAMP", "TNDMGAM") if n in params]
+
+
+class PLGWBNoise(PowerLawNoise):
+    """The common power-law process of a PTA: the stochastic gravitational-
+    wave background every pulsar shares, with Hellings-Downs correlations
+    between pulsars (`hd_orf`). TNGWAMP (log10 strain amplitude), TNGWGAM
+    (spectral index, 13/3 for a background of binary black holes), TNGWC
+    (frequencies on the common grid).
+
+    Alone (`basis_and_weights`) it is its auto term, a dense block on the
+    pulsar's own span like any red noise; in the joint likelihood the
+    per-pulsar block comes from `gwb_basis` on the span of the whole array,
+    and the pulsar's own basis leaves it out
+    (``TimingModel.noise_basis_and_weights(include_common=False)``), so that
+    the auto term is not counted twice."""
+
+    category = "pl_gwb_noise"
+    register = True
+    count_key = "TNGWC"
+    #: an array-common process: the joint likelihood couples pulsars through it
+    common_process = True
+
+    def __init__(self):
+        super().__init__()
+        self.nf = 10
+
+    @classmethod
+    def param_specs(cls):
+        return [
+            ParamSpec("TNGWAMP", kind="float", description="log10 GWB strain amplitude"),
+            ParamSpec("TNGWGAM", kind="float", description="GWB spectral index (13/3 for SMBHBs)"),
+            ParamSpec("TNGWC", kind="int", description="number of GWB frequencies"),
+        ]
+
+    def validate(self, params, meta):
+        self.nf = int(meta.get(self.count_key, 10))
+        if "TNGWAMP" not in params or "TNGWGAM" not in params:
+            raise ValueError("PLGWBNoise needs TNGWAMP and TNGWGAM")
+
+    def amp_gamma(self, params):
+        return 10.0 ** leaf_to_f64(params["TNGWAMP"]), leaf_to_f64(params["TNGWGAM"])
+
+    def hyper_param_names(self, params):
+        return [n for n in ("TNGWAMP", "TNGWGAM") if n in params]
+
+    def gwb_basis(self, params: dict, tensor: dict, sl, tspan: torch.Tensor):
+        """(G (N_data, 2 nf), phi_gw (2 nf,)) on the common span `tspan` (a
+        float64 tensor): every pulsar of an array passes the same span, so
+        that the frequencies line up across the pulsars."""
+        from pint_tpu_torch.fitting.design import fourier_basis
+
+        freqs = fourier_freqs(self.nf, tspan)
+        G = fourier_basis(tensor["t_hi"][sl], freqs)
+        return G, self.weights_at(params, torch.repeat_interleave(freqs, 2))
+
+
+def hd_orf(cos_sep: torch.Tensor) -> torch.Tensor:
+    """Hellings-Downs overlap reduction function of the separation cosine:
+    Gamma = 1.5 x ln x - x / 4 + 1 / 2, x = (1 - cos) / 2 (distinct pulsars;
+    `orf_matrix` sets the diagonal). The log is the C library's on the CPU
+    (``ops/libm.py``), as the JAX package's."""
+    from pint_tpu_torch.ops import libm
+
+    x = 0.5 * (1.0 - cos_sep)
+    xs = torch.where(x > 0, x, 1.0)
+    return 1.5 * x * libm.log(xs) - 0.25 * x + 0.5
+
+
+def orf_matrix(positions: np.ndarray) -> np.ndarray:
+    """(N, N) Hellings-Downs matrix of an array's unit sky vectors (host):
+    `hd_orf` off the diagonal, 1 on it (the auto term with the pulsar term)."""
+    pos = np.asarray(positions, float)
+    cos = np.clip(pos @ pos.T, -1.0, 1.0)
+    out = hd_orf(torch.as_tensor(cos)).numpy().copy()
+    np.fill_diagonal(out, 1.0)
+    return out
+
+
+def pulsar_position(model) -> np.ndarray:
+    """(3,) ICRS unit vector of a model's pulsar on the host, from RAJ/DECJ
+    or ELONG/ELAT (proper motion is below the ORF's accuracy)."""
+    from pint_tpu_torch.models.astrometry import ecliptic_to_icrs, unit_vector
+
+    p = model.params
+
+    def angle(name):
+        return torch.as_tensor(float(leaf_to_f64(p[name])), dtype=torch.float64)
+
+    if "RAJ" in p and "DECJ" in p:
+        return unit_vector(angle("RAJ"), angle("DECJ")).numpy()
+    if "ELONG" in p and "ELAT" in p:
+        return ecliptic_to_icrs(unit_vector(angle("ELONG"), angle("ELAT"))).numpy()
+    raise ValueError(
+        f"model {model.psr_name!r} has no astrometry parameters; cannot "
+        "place it on the sky for the Hellings-Downs ORF")

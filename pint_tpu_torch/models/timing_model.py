@@ -67,6 +67,10 @@ class TimingModel:
         return any(c.category == "absolute_phase" for c in self.components)
 
     @property
+    def psr_name(self) -> str:
+        return self.meta.get("PSR", "")
+
+    @property
     def has_phase_offset(self) -> bool:
         return False  # PhaseOffset (PHOFF) is not ported yet (ROADMAP A9)
 
@@ -204,17 +208,43 @@ class TimingModel:
             sigma = sigma[:-1]
         return sigma
 
-    def noise_basis_and_weights(self, params: dict, tensor: dict):
+    @property
+    def common_noise_component(self):
+        """The array-common noise process (PLGWBNoise) of the model, or None.
+        At most one: the joint PTA likelihood couples pulsars through it."""
+        out = [c for c in self.noise_components if getattr(c, "common_process", False)]
+        if len(out) > 1:
+            raise ValueError(
+                f"model carries {len(out)} common noise processes; the "
+                "joint PTA likelihood supports exactly one")
+        return out[0] if out else None
+
+    def gwb_common_basis(self, params: dict, tensor: dict, tspan: torch.Tensor):
+        """(G (N_data, m), phi_gw (m,)) of the common process on the array's
+        span `tspan`, or None without one: the pulsar's block of the joint
+        likelihood's ORF (x) diag(phi_gw) coupling (fitting/pta_like.py)."""
+        c = self.common_noise_component
+        if c is None:
+            return None
+        sl = slice(None, -1) if self.has_abs_phase else slice(None)
+        return c.gwb_basis(params, tensor, sl, tspan)
+
+    def _noise_parts(self, include_common: bool):
+        return [c for c in self.noise_components
+                if include_common or not getattr(c, "common_process", False)]
+
+    def noise_basis_and_weights(self, params: dict, tensor: dict, include_common: bool = True):
         """Structured correlated-noise basis (fitting/woodbury.NoiseBasis) or
         None: the dense Fourier parts concatenated in component order, the
         ECORR epochs kept implicit (their index becomes a CSR once per
-        tensor)."""
+        tensor). ``include_common=False`` leaves the common process out: the
+        joint PTA likelihood carries it through the ORF instead."""
         from pint_tpu_torch.fitting.woodbury import NoiseBasis
 
         sl = slice(None, -1) if self.has_abs_phase else slice(None)
         Fs, phis = [], []
         epochs = ephi = None
-        for c in self.noise_components:
+        for c in self._noise_parts(include_common):
             out = c.basis_and_weights(params, tensor, sl)
             if out is None:
                 continue
@@ -230,12 +260,12 @@ class TimingModel:
                           dense_phi=torch.cat(phis) if phis else None,
                           epochs=epochs, ephi=ephi)
 
-    def noise_prior_weights(self, params: dict, tensor: dict):
+    def noise_prior_weights(self, params: dict, tensor: dict, include_common: bool = True):
         """(phi_e, phi_d): the prior variances of the ECORR epochs and of the
         dense columns in `noise_basis_and_weights`' order (each (..., k) or
         None), without forming the basis."""
         ephi, phis = None, []
-        for c in self.noise_components:
+        for c in self._noise_parts(include_common):
             phi = c.prior_weights(params, tensor)
             if phi is None:
                 continue

@@ -32,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("dd_elementwise", "resid_tangent", "normal_eq", "ecorr_normal_eq",
            "site_geometry", "analytic_ephemeris", "nbody_serve", "chebyshev_eval",
-           "linear_columns", "noise_grad")
+           "linear_columns", "noise_grad", "pta_grad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

@@ -1,5 +1,6 @@
 """Workload profiles (counterpart of ``pint_tpu/profiles.py``): the parfiles
-of the smoke and flagship-shaped workloads and their default scan grids."""
+of the smoke and flagship-shaped workloads, their default scan grids, and the
+PTA array (`PTA_PAR_TEMPLATE`, `pta_sky`, `pta_smoke_array`)."""
 
 from __future__ import annotations
 
@@ -315,3 +316,110 @@ def grid_for(model, ftr):
             np.sin(np.deg2rad(np.linspace(86.25, 88.5, 3))),
         )
     return spin_grid(model, ftr)
+
+
+#: the PTA par: spin, astrometry and DM free, EFAC on one receiver, the
+#: pulsar's red noise and the common background (TNGWAMP/TNGWGAM bind
+#: models/noise.py PLGWBNoise; a strong amplitude, so that recovery is
+#: informative)
+PTA_PAR_TEMPLATE = """
+PSR {name}
+RAJ {raj} 1
+DECJ {decj} 1
+F0 {f0} 1
+F1 -1.46389e-15 1
+PEPOCH 57000
+POSEPOCH 57000
+DM 14.96 1
+EFAC -f Rcvr1_2_GUPPI 1.1
+TNREDAMP -13.5
+TNREDGAM 3.0
+TNREDC 5
+TNGWAMP -12.8
+TNGWGAM 4.33
+TNGWC 6
+TZRMJD 57000.1
+TZRSITE gbt
+TZRFRQ 1400
+"""
+
+#: fixed sky grid (name, RAJ, DECJ) spread over the sphere so that the pair
+#: angles sample the Hellings-Downs curve; an N-pulsar array takes the first
+#: N rows
+PTA_SKY = (
+    ("PTA0000", "04:37:15.9", "-47:15:09.1"),
+    ("PTA0001", "07:40:45.79", "66:20:33.6"),
+    ("PTA0002", "19:09:47.4", "-37:44:14.4"),
+    ("PTA0003", "16:43:38.1", "-12:24:58.7"),
+    ("PTA0004", "00:02:58.2", "54:31:25.6"),
+    ("PTA0005", "10:12:33.4", "53:07:02.5"),
+    ("PTA0006", "21:24:43.8", "-33:58:44.9"),
+    ("PTA0007", "13:00:00.0", "05:00:00.0"),
+)
+
+
+def _hms(hours: float) -> str:
+    h = int(hours)
+    rem = (hours - h) * 60.0
+    m = int(rem)
+    return f"{h:02d}:{m:02d}:{(rem - m) * 60.0:07.4f}"
+
+
+def _dms(deg: float) -> str:
+    sign = "-" if deg < 0 else ""
+    deg = abs(deg)
+    d = int(deg)
+    rem = (deg - d) * 60.0
+    m = int(rem)
+    return f"{sign}{d:02d}:{m:02d}:{(rem - m) * 60.0:06.3f}"
+
+
+def pta_sky(n_pulsars: int):
+    """The first `n_pulsars` rows of the array's sky: PTA_SKY, extended past
+    8 by an index-only low-discrepancy map (golden-angle RA, an irrational
+    stride in sin(dec), |dec| below ~72 deg). Row k depends on k alone."""
+    rows = list(PTA_SKY[:n_pulsars])
+    golden = np.pi * (3.0 - np.sqrt(5.0))
+    for k in range(len(rows), n_pulsars):
+        ra_hours = (k * golden / (2.0 * np.pi)) % 1.0 * 24.0
+        sin_dec = np.clip(2.0 * ((k * np.sqrt(2.0)) % 1.0) - 1.0, -0.95, 0.95)
+        dec_deg = float(np.degrees(np.arcsin(sin_dec)))
+        rows.append((f"PTA{k:04d}", _hms(ra_hours), _dms(dec_deg)))
+    return tuple(rows)
+
+
+def pta_smoke_array(n_pulsars: int, ntoas: int, seed: int = 29, gwb_amp: float | None = None,
+                    device=None):
+    """(models, toas_list): an N-pulsar array on `device` (CUDA unless 'cpu'),
+    each pulsar PTA_PAR_TEMPLATE at its PTA_SKY position with ntoas TOAs
+    (ntoas / 2 epochs at 1400 and 800 MHz, 0.5 s apart, MJD 56300-57700, 0.5
+    us), its own white and red noise drawn from its model, then one
+    Hellings-Downs correlated draw of the common background over the array.
+    `gwb_amp` sets the injected log10 amplitude only: the models keep the
+    template's, and the draws are the same at any amplitude."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import (add_gwb_to_arrays, add_noise_from_model,
+                                           make_fake_toas_fromMJDs)
+
+    rng = np.random.default_rng(seed)
+    sky = pta_sky(n_pulsars)
+    models, toas_list, inject_models = [], [], []
+    for k in range(n_pulsars):
+        name, raj, decj = sky[k]
+        par = PTA_PAR_TEMPLATE.format(name=name, raj=raj, decj=decj, f0=346.531996493 + 0.37 * k)
+        if gwb_amp is not None:
+            inject_models.append(get_model(par.replace("TNGWAMP -12.8", f"TNGWAMP {gwb_amp}"),
+                                           from_text=True, device=device))
+        model = get_model(par, from_text=True, device=device)
+        n_epochs = max(ntoas // 2, 4)
+        mjds = np.repeat(np.linspace(56300.0, 57700.0, n_epochs), 2)
+        mjds[1::2] += 0.5 / 86400.0
+        freqs = np.where(np.arange(len(mjds)) % 2 == 0, 1400.0, 800.0)
+        flags = [{"f": "Rcvr1_2_GUPPI"} for _ in mjds]
+        toas = make_fake_toas_fromMJDs(np.sort(mjds), model, obs="gbt", freq_mhz=freqs,
+                                       error_us=0.5, flags=flags)
+        toas = add_noise_from_model(toas, model, rng=rng, include_common=False)
+        models.append(model)
+        toas_list.append(toas)
+    return models, add_gwb_to_arrays(toas_list, inject_models if gwb_amp is not None else models,
+                                     rng=rng)

@@ -215,7 +215,7 @@ def _structure(model: TimingModel) -> Structure:
                 **{f"Binary{m}": BIN_KEPLER for m in KEPLER_MODELS}}
     allowed = {"AstrometryEquatorial", "AstrometryEcliptic", "SolarSystemShapiro",
                "DispersionDM", "DispersionDMX", "FD", "Spindown", "PhaseJump", "AbsPhase",
-               "ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise",
+               "ScaleToaError", "EcorrNoise", "PLRedNoise", "PLDMNoise", "PLGWBNoise",
                # the model DM's offsets and the DM sigmas' scaling: no delay
                "DispersionJump", "ScaleDmError", *binaries}
     extra = set(model.component_names) - allowed

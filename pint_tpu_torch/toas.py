@@ -98,6 +98,13 @@ class TOAs:
     utc_raw: ptime.MJDEpoch | None = None  # site-arrival UTC, before the clock chain
     #: host wall seconds of the prepare's stages
     stage_s: dict[str, float] = field(default_factory=dict)
+    #: the clock-chain settings of the prepare (simulation re-prepares with them)
+    include_gps: bool = True
+    include_bipm: bool = False
+    bipm_version: str = "BIPM2019"
+    #: accumulated |time shift| (s) since the geometry columns were computed
+    #: (``simulation._reprepare``'s fast path)
+    geom_stale_s: float = 0.0
 
     def __len__(self):
         return len(self.error_us)
@@ -341,6 +348,9 @@ def prepare_arrays(utc: ptime.MJDEpoch, error_us: np.ndarray, freq: np.ndarray,
         planets=planets,
         utc_raw=utc,
         stage_s=stage_s,
+        include_gps=include_gps,
+        include_bipm=include_bipm,
+        bipm_version=bipm_version,
     )
     return toas
 

@@ -640,6 +640,7 @@ def test_port_imports_no_jax_and_nothing_of_pint_tpu():
         "import pint_tpu_torch.astro.device_prepare, pint_tpu_torch.astro.nbody\n"
         "import pint_tpu_torch.astro.spk, pint_tpu_torch.astro.spk_write\n"
         "import pint_tpu_torch.astro.kernel_ephemeris, pint_tpu_torch.models.binaries.kepler\n"
+        "import pint_tpu_torch.fitting.pta_like, pint_tpu_torch.simulation\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'pint_tpu' or m.startswith('pint_tpu.'))\n"
