@@ -286,11 +286,28 @@ m 12, kd 10, 194 hyperparameters):
    walls of loglike, grad, loglike_many (256) and optimize (phase 53's, 200
    steps) on array A; the busy share of grad and of a 20-step optimize.
 
+Last, the .tim pulse-number offsets and TRACK -2 (ROADMAP C11,
+``PINT_TPU_NBODY=0`` set around it):
+
+57. two .tim files of 16,384 SMOKE_PAR TOAs simulated on the card, with a
+   PHASE command, -padd, -phase and -pn flags, through ``get_model_and_toas``:
+   K1 with the tensor's ``delta_pn`` and ``track_pn`` bitwise against its
+   twin without the TZR row (and within 1 ps, pulse numbers equal, with it),
+   under TRACK -2 and nearest; the tracked pulse numbers are the flags; the
+   downhill WLS fit under TRACK -2 from phase 6's moved start, gated as phase
+   6 against the twin path.
+
+Phase 2 also prints K3's Gram as built: the DMMA (float64 tensor-core)
+instructions in its library's SASS (``cuobjdump -sass``; none fails the run)
+and each gram_pass instance's registers and spills, which every K3 record
+repeats.
+
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
 fitter and its start shift are built outside the windows; the twin runs do
 not count), and around each ``get_model_and_toas`` + ``build_tensor`` of
-phases 16, 19, 21, 22 and 24 and each fit of phases 21 and 22.
+phases 16, 19, 21, 22 and 24 and each fit of phases 21, 22 and 57 (which must
+launch K1).
 The SMOKE fit must launch K0 and K1, its grid K1 and K2; the flagship fit
 K0, K1 and K3, its grid K0, K1 and K3; the analytic prepare K4 and K5 twice
 each; the default prepare K4 and K6 twice each, the pack and SPK prepares K4
@@ -306,14 +323,18 @@ optimize (each variant's) K3's per-set mode and K9; the PTA array's
 simulation K1, K4, K5 and K8's Fourier pass, each PTA likelihood's loglike and
 loglike_many K3's stacked mode, its grad and optimize K3's stacked mode and
 K10.
-K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 3 to 7
-(its per-set and stacked modes 5 to 8), K9 and K10 2. At the
+K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 4 to 8
+(its per-set and stacked modes 5 to 9), K9 and K10 2. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs; where the profiler reads no
 device time of such a call, CUDA events around calls queued behind a spin
 kernel, so that the host's enqueue is not timed), and ``call_ms`` the
 CUDA-event time per call, which includes the host's time to enqueue it.
+K3's records take ``ms`` and ``library_ms`` as medians of K3_ROUNDS rounds
+measured in turn, with their spreads, and time each call once more by CUDA
+events behind a spin kernel (``queued_ms``, ``library_queued_ms``): late in
+a run the profiler has read less than those for some calls.
 ``bound_ms`` is the larger of the bytes the function must move over
 3.35 TB/s and its float64 operations over their peak rate: 67 TFLOP/s for
 the multiply-adds of K2's and K3's Grams, a matrix product the tensor cores
@@ -451,6 +472,12 @@ def queued_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def named(name: str, pats) -> bool:
+    """Whether a kernel's profile name holds the pattern `pats` (one string
+    or a tuple of them)."""
+    return any(p in name for p in ((pats,) if isinstance(pats, str) else pats))
 
 
 def sync(device) -> None:
@@ -853,16 +880,17 @@ def profile_main_path(tensor, device, which: str = "smoke", par: str | None = No
             "warm_fit_launches": plain["fit_launches"],
             "warm_grid_launches": plain["grid_launches"],
             "profiled_wall_s": profiled_wall, "device_busy_s": busy, "busy_share": busy / wall,
-            "kernel_s": {k: sum(us for name, us, _ in kern if pat in name) / 1e6
+            "kernel_s": {k: sum(us for name, us, _ in kern if named(name, pat)) / 1e6
                          for k, pat in KERNEL_PATTERNS.items()},
             "top": [[name[:70], us / 1e6, n] for name, us, n in sorted(kern, key=lambda r: -r[1])[:8]]}
 
 
 # --- the kernels record ----------------------------------------------------------------
 
-# substrings of the kernels' names in a profile (K2 and K3 are three passes)
+# substrings of the kernels' names in a profile (K2 and K3 are several passes;
+# K3's Gram is a template, gram_pass<32> or gram_pass<64>)
 K0_KERNEL, K1_KERNEL, K2_KERNEL, K3_KERNEL = ("dd_elementwise_kernel", "resid_tangent_kernel",
-                                              "pass_", "_pass(")
+                                              "pass_", ("_pass(", "_pass<"))
 K4_KERNEL, K5_KERNELS = "site_geometry_kernel", ("analytic_ephemeris_kernel",
                                                  "central_difference_kernel")
 K6_KERNEL, K7_KERNEL = "nbody_serve_kernel", "chebyshev_eval_kernel"
@@ -1004,6 +1032,77 @@ def k2_record(r, M, w, device) -> dict:
 P_ROW_LEN = 84
 
 
+_K3_BUILD: dict = {}
+
+
+def k3_build_info() -> dict:
+    """K3's Gram as built: each gram_pass instance's registers and spill
+    store bytes (ptxas) and the DMMA (float64 tensor-core) instructions in
+    its library's SASS (``cuobjdump -sass``; None where there is no
+    library, as on the CPU). Read once a run."""
+    import shutil
+
+    from pint_tpu_torch.ops import build
+
+    if not _K3_BUILD:
+        rep = build.ptxas_report("ecorr_normal_eq")
+        _K3_BUILD["gram_ptxas"] = {k: {"registers": r, "spill_store_bytes": sp}
+                                   for k, (r, sp) in rep.items() if "gram_pass" in k}
+        lib = build.build_dir() / "libecorr_normal_eq.so"
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        dmma = None
+        if lib.exists() and os.path.exists(tool):
+            sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                                  timeout=300).stdout
+            dmma = sum(1 for ln in sass.splitlines() if " DMMA" in ln)
+        _K3_BUILD["sass_dmma"] = dmma
+    return dict(_K3_BUILD)
+
+
+def k3_with_build(rec: dict) -> dict:
+    """A K3 record with its build's registers, spills and DMMA count,
+    printed on a line of its own."""
+    info = k3_build_info()
+    print(f"  K3 {rec['shape']}: {rec['ms']} ms {rec['ms_spread']} (queued {rec['queued_ms']}), "
+          f"library {rec['library_ms']} ms {rec['library_spread']} (queued "
+          f"{rec['library_queued_ms']}); gram_pass ptxas "
+          f"{json.dumps(info['gram_ptxas'])}; SASS DMMA instructions {info['sass_dmma']}")
+    return {**rec, **info}
+
+
+#: rounds in which K3 and its library yardstick are measured in turn
+K3_ROUNDS = 5
+
+
+def k3_against_library(kernel, library, device, reps: int) -> dict:
+    """K3's device ms (its own passes) and its library yardstick's, each
+    `measure`d over `reps` calls, in turn for K3_ROUNDS rounds in this
+    process: the medians (``ms``, ``library_ms``; call ms likewise) and each
+    one's [least, most] over the rounds (``ms_spread``,
+    ``library_spread``); and, without the profiler, each call's device ms
+    from CUDA events behind a busy queue (``queued_ms``, K3's whole call;
+    ``library_queued_ms``: `queued_ms`). On the CPU one round, with no
+    device time."""
+    import statistics
+
+    rounds = K3_ROUNDS if device.type == "cuda" else 1
+    got = {"ms": [], "call_ms": [], "library_ms": [], "library_call_ms": []}
+    for _ in range(rounds):
+        for key, fn, kernel_name in (("", kernel, K3_KERNEL), ("library_", library, None)):
+            ms, call = measure(fn, device, reps, kernel_name)
+            got[key + "ms"].append(ms)
+            got[key + "call_ms"].append(call)
+    out = {}
+    for key, vals in got.items():
+        out[key] = None if vals[0] is None else statistics.median(vals)
+    for key, spread in (("ms", "ms_spread"), ("library_ms", "library_spread")):
+        out[spread] = None if got[key][0] is None else [min(got[key]), max(got[key])]
+    cuda = device.type == "cuda"
+    out["queued_ms"] = queued_ms(kernel, reps) if cuda else None
+    out["library_queued_ms"] = queued_ms(library, reps) if cuda else None
+    return out
+
+
 def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
     """K3 at one shape; `ms` is the device time of K3's own passes, `call_device_ms`
     that of the whole call (with the kd x kd Cholesky and triangular solves
@@ -1016,14 +1115,14 @@ def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
 
     args = (r, M, w, basis, ridge, centre, weighted_norm)
     B, p, n = M.shape
-    ms, call = measure(lambda: ecorr_normal_eq(*args), device, 50, K3_KERNEL)
     whole, _ = measure(lambda: ecorr_normal_eq(*args), device, 50)
     plain, plain_call = measure(lambda: ecorr_normal_eq_plain(*args), device, 5)
     rr, Mn, _ = _step_inputs(r, M, w, centre, weighted_norm)
     kd = basis.kd
     parts = [Mn, rr[:, None]] + ([basis.dense.T.expand(B, kd, n)] if kd else [])
     X = (torch.cat(parts, dim=1) * torch.sqrt(w)).contiguous()
-    lib, lib_call = measure(lambda: torch.matmul(X, X.transpose(-1, -2)), device, 50)
+    timed = k3_against_library(lambda: ecorr_normal_eq(*args),
+                               lambda: torch.matmul(X, X.transpose(-1, -2)), device, 50)
     ke = basis.ke
     nnz = basis.epochs.rows.shape[0] if basis.epochs is not None else 0
     V = p + 1 + kd
@@ -1044,9 +1143,9 @@ def k3_record(r, M, w, basis, ridge, centre, weighted_norm, device) -> dict:
              + nnz * 2 * kd + (n + ke) * kd)
     n_mma = B * ((n + ke) * 2 * per_set + q * 2 * kd) + (n + ke) * kd * (kd + 1)
     b, how = bound_ms(n_bytes, n_ops, n_mma)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
-            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
-            "library_call_ms": lib_call, "shape": f"B={B} N={n} p={p} ke={ke} kd={kd}"}
+    return k3_with_build({**timed, "plain_ms": plain, "bound_ms": b, "bound_by": how,
+                          "call_device_ms": whole, "plain_call_ms": plain_call,
+                          "shape": f"B={B} N={n} p={p} ke={ke} kd={kd}"})
 
 
 def phase_k3(model, tensor, ftr, params_b, grid_free, device, extra=None) -> dict:
@@ -3014,12 +3113,12 @@ def k3_sets_record(core, w, pe, pd, device) -> dict:
     E, n = w.shape
     p, ke, kd = core.M.shape[0], pe.shape[1], pd.shape[1]
     reps = 20 if E < 256 else 3
-    ms, call = measure(lambda: ecorr_normal_eq_sets(*args), device, reps, K3_KERNEL)
     whole, _ = measure(lambda: ecorr_normal_eq_sets(*args), device, reps)
     plain, plain_call = measure(lambda: ecorr_normal_eq_sets_plain(*args), device, 1)
     X = torch.cat([core.M / core.mnorm[:, None], core.r0[None], core.Fd])
     Xw = (X[None] * torch.sqrt(w)[:, None, :]).contiguous()
-    lib, lib_call = measure(lambda: torch.matmul(Xw, Xw.mT), device, reps)
+    timed = k3_against_library(lambda: ecorr_normal_eq_sets(*args),
+                               lambda: torch.matmul(Xw, Xw.mT), device, reps)
     del Xw
     nnz = core.epochs.rows.shape[0]
     V = p + 1 + kd
@@ -3034,9 +3133,9 @@ def k3_sets_record(core, w, pe, pd, device) -> dict:
     n_ops = n * p * 3 + E * (n * LOG_OPS + nnz * 2 * V + (n + ke) * V)
     n_mma = E * ((n + ke) * V * (V + 1) + q * 2 * kd)
     b, how = bound_ms(n_bytes, n_ops, n_mma)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
-            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
-            "library_call_ms": lib_call, "shape": f"E={E} N={n} p={p} ke={ke} kd={kd}"}
+    return k3_with_build({**timed, "plain_ms": plain, "bound_ms": b, "bound_by": how,
+                          "call_device_ms": whole, "plain_call_ms": plain_call,
+                          "shape": f"E={E} N={n} p={p} ke={ke} kd={kd}"})
 
 
 def k9_record(core, w, pe, pd, device) -> dict:
@@ -3096,7 +3195,7 @@ def noise_walls(nl, device) -> dict:
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy = sum(us for _, us in kern) / 1e6
         k9 = sum(us for k, us in kern if any(p in k for p in K9_KERNELS)) / 1e6
-        k3 = sum(us for k, us in kern if K3_KERNEL in k) / 1e6 - k9
+        k3 = sum(us for k, us in kern if named(k, K3_KERNEL)) / 1e6 - k9
         out[f"{name}_profile"] = {
             "device_busy_s": busy, "busy_share": busy / out[f"{name}_s"], "k3_s": k3, "k9_s": k9,
             "top": [[k[:70], us / 1e6] for k, us in sorted(kern, key=lambda r: -r[1])[:6]]}
@@ -3598,7 +3697,6 @@ def k3_stacked_record(pta, E: int, device) -> dict:
     ke = 0 if args[5] is None else args[5].ke
     kd = 0 if Fd is None else Fd.shape[1]
     reps = 20 if E < 256 else 3
-    ms, call = measure(lambda: ecorr_normal_eq_stacked(*args), device, reps, K3_KERNEL)
     whole, _ = measure(lambda: ecorr_normal_eq_stacked(*args), device, reps)
     plain, plain_call = measure(lambda: ecorr_normal_eq_stacked_plain(*args), device, 1)
     X = torch.cat([M / M.pow(2).sum(-1, keepdim=True).sqrt(), Gc, r[:, None]]
@@ -3610,7 +3708,7 @@ def k3_stacked_record(pta, E: int, device) -> dict:
             Xw = X[None] * torch.sqrt(w[e0:e0 + chunk])[:, :, None, :]
             torch.matmul(Xw, Xw.mT)
 
-    lib, lib_call = measure(library, device, reps)
+    timed = k3_against_library(lambda: ecorr_normal_eq_stacked(*args), library, device, reps)
     S = E * N
     V = p + m + 1 + kd
     nnz = 0 if args[5] is None else args[5].rows.shape[1] * N
@@ -3625,10 +3723,10 @@ def k3_stacked_record(pta, E: int, device) -> dict:
     n_ops = N * n * p * 3 + S * (n * LOG_OPS + (nnz // N) * 2 * V + (n + ke) * V)
     n_mma = S * ((n + ke) * V * (V + 1) + q * 2 * kd)
     b, how = bound_ms(n_bytes, n_ops, n_mma)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": lib,
-            "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
-            "library_call_ms": lib_call, "library_calls": -(-E // chunk),
-            "shape": f"E={E} N={N} rows={n} p={p} m={m} ke={ke} kd={kd}"}
+    return k3_with_build({**timed, "plain_ms": plain, "bound_ms": b, "bound_by": how,
+                          "call_device_ms": whole, "plain_call_ms": plain_call,
+                          "library_calls": -(-E // chunk),
+                          "shape": f"E={E} N={N} rows={n} p={p} m={m} ke={ke} kd={kd}"})
 
 
 def k10_record(pta, E: int, device) -> dict:
@@ -3698,7 +3796,7 @@ def pta_walls(pta, device, optimize_s: float) -> dict:
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy = sum(us for _, us in kern) / 1e6
         k10 = sum(us for k, us in kern if any(p in k for p in K10_KERNELS)) / 1e6
-        k3 = sum(us for k, us in kern if K3_KERNEL in k) / 1e6 - k10
+        k3 = sum(us for k, us in kern if named(k, K3_KERNEL)) / 1e6 - k10
         out[f"{name}_profile"] = {
             "device_busy_s": busy, "busy_share": busy / out[f"{name}_s"], "k3_s": k3,
             "k10_s": k10, "top": [[k[:70], us / 1e6]
@@ -3867,8 +3965,148 @@ def pta_phases(device, summary: dict, noise: dict, shape=PTA_SHAPE, small: int =
     return {"recs": recs, "errs": errs, "windows": windows}
 
 
+# --- phase 57: pulse-number offsets and TRACK -2 (ROADMAP C11) ---------------------
+
+#: the phase's fake TOAs: SMOKE_PAR at gbt over two years, 1 us white noise
+C11_TOAS = 16384
+
+
+def c11_tims(device, tmp: Path) -> dict:
+    """Two .tim files of C11_TOAS fake SMOKE_PAR TOAs simulated on `device`:
+    "offsets" (PHASE 0.5 over TOAs 100-299, -padd 0.25 on 400-599, -phase
+    -0.125 on 700-899, -pn on every TOA, one turn above the nearest pulse on
+    1,000-1,099) and "fit" (whole-turn offsets: PHASE 1 over 1,200-1,399,
+    -padd 2 on 200-399, -phase -1 on 500-599, and -pn flags that follow
+    them)."""
+    import numpy as np
+
+    from pint_tpu_torch.io.tim import TOALine, write_tim
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.profiles import SMOKE_PAR
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.simulation import add_noise_from_model, make_fake_toas_fromMJDs
+
+    rng = np.random.default_rng(57)
+    model = get_model(SMOKE_PAR, from_text=True, device=device)
+    mjds = np.sort(rng.uniform(54700.0, 55400.0, C11_TOAS))
+    freqs = np.where(np.arange(C11_TOAS) % 2, 1400.0, 2300.0)
+    toas = make_fake_toas_fromMJDs(mjds, model, obs="gbt", freq_mhz=freqs, error_us=1.0)
+    toas = add_noise_from_model(toas, model, rng)
+    pn = Residuals(toas, model).pulse_numbers.cpu().numpy()
+    ep = toas.utc_raw
+    base = tmp / "c11_base.tim"
+    write_tim([TOALine(name=f"c11_{i}", freq_mhz=float(toas.freq_mhz[i]), mjd_day=int(ep.day[i]),
+                       mjd_frac_hi=float(ep.frac_hi[i]), mjd_frac_lo=float(ep.frac_lo[i]),
+                       error_us=float(toas.error_us[i]), obs="gbt") for i in range(C11_TOAS)],
+              str(base))
+    lines = base.read_text().splitlines()
+    head = [ln for ln in lines if not ln.startswith("c11_")]
+    body = [ln for ln in lines if ln.startswith("c11_")]
+
+    def tim(name, flags, blocks, shift):
+        out = list(head)
+        for i, line in enumerate(body):
+            out += [f"PHASE {t!r}" for first, _, t in blocks if i == first]
+            out.append(f"{line} {flags.get(i, '')} -pn {int(pn[i] + shift[i])}".replace("  ", " "))
+            out += [f"PHASE {-t!r}" for _, last, t in blocks if i == last]
+        path = tmp / f"c11_{name}.tim"
+        path.write_text("\n".join(out) + "\n")
+        return path
+
+    flags = {i: "-padd 0.25" for i in range(400, 600)}
+    flags.update({i: "-phase -0.125" for i in range(700, 900)})
+    shift = np.zeros(C11_TOAS)
+    shift[1000:1100] = 1.0
+    offsets = tim("offsets", flags, ((100, 299, 0.5),), shift)
+    flags = {i: "-padd 2" for i in range(200, 400)}
+    flags.update({i: "-phase -1" for i in range(500, 600)})
+    shift = np.zeros(C11_TOAS)
+    shift[200:400] += 2.0
+    shift[500:600] -= 1.0
+    shift[1200:1400] += 1.0
+    fit = tim("fit", flags, ((1200, 1399, 1.0),), shift)
+    return {"offsets": offsets, "fit": fit}
+
+
+def pulse_number_phases(device, summary: dict) -> dict:
+    """Phase 57: the .tim pulse-number offsets (-padd, -phase, the PHASE
+    command) and TRACK -2's -pn pulse numbers through the port on the card:
+    K1 with the tensor's ``delta_pn`` and ``track_pn`` against its twin
+    (bitwise without the TZR row, as phase 34; within 1 ps with it, pulse
+    numbers equal), the tracked pulse numbers equal to the flags, and the
+    downhill WLS fit of SMOKE_PAR under TRACK -2 from a moved start against
+    the twin path (phase 6's gates)."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.fitting import DownhillWLSFitter
+    from pint_tpu_torch.fitting.wls import apply_delta
+    from pint_tpu_torch.models import get_model_and_toas
+    from pint_tpu_torch.profiles import SMOKE_PAR
+    from pint_tpu_torch.residuals import Residuals
+
+    print(f"phase 57: pulse-number offsets and TRACK -2 (C11), {C11_TOAS} fake TOAs from .tim")
+    out = {"windows": {}, "recs": {}, "errs": {}}
+    with tempfile.TemporaryDirectory() as tmp, knobs(PINT_TPU_NBODY="0"):
+        tims = c11_tims(device, Path(tmp))
+        lanes = ("RAJ", "DECJ", "F0", "F1", "DM")
+        errs = []
+        for k, (label, par) in enumerate((("no TZR, TRACK -2", strip_tzr(SMOKE_PAR) + "TRACK -2\n"),
+                                          ("no TZR, nearest", strip_tzr(SMOKE_PAR)),
+                                          ("TRACK -2", SMOKE_PAR + "TRACK -2\n"),
+                                          ("nearest", SMOKE_PAR))):
+            path = Path(tmp) / f"c11_{k}.par"
+            path.write_text(par)
+            model, toas = get_model_and_toas(str(path), str(tims["offsets"]), device=device)
+            res = Residuals(toas, model)
+            tensor = res.tensor
+            check("delta_pn" in tensor and ("track_pn" in tensor) == ("TRACK" in label),
+                  f"C11 {label}: the tensor carries delta_pn"
+                  + (" and track_pn" if "TRACK" in label else ", no track_pn"))
+            if "no TZR" in label:
+                r = compare_k1_exact(model, model.params, tensor, lanes, device, f"C11 K1 {label}")
+            else:
+                r = compare_k1(model, model.params, tensor, lanes, device, 1e-12, f"C11 K1 {label}")
+            errs.append(r["max_abs_err"])
+            if "TRACK" in label:
+                flags = torch.as_tensor(toas.get_pulse_numbers(), device=device)
+                check(torch.equal(res.pulse_numbers, flags),
+                      f"C11 {label}: the residuals' pulse numbers are the -pn flags")
+            if label == "TRACK -2":  # anchored at the TZR: the flags' pulses are the true ones
+                rp = res.phase_resids.cpu().numpy()
+                lag = rp[1000:1100] - np.median(rp[1100:])
+                check(bool(np.all(np.abs(lag + 1.0) < 0.01)),
+                      f"C11 {label}: a turn more on TOAs 1,000-1,099 is a turn less of residual")
+        out["errs"]["resid_tangent"] = max(errs)
+        path = Path(tmp) / "c11_fit.par"
+        path.write_text(SMOKE_PAR + "TRACK -2\n")
+        main_twin = []
+        for route in ("main", "twin"):
+            with (twins() if route == "twin" else contextlib.nullcontext()):
+                model, toas = get_model_and_toas(str(path), str(tims["fit"]), device=device)
+                free = tuple(model.free_params)
+                delta = torch.tensor([START_SHIFT.get(n, 0.0) for n in free],
+                                     dtype=torch.float64, device=device)
+                model.params = apply_delta(model.params, free, delta)
+                ftr = DownhillWLSFitter(toas, model)
+                check("track_pn" in ftr.tensor and "delta_pn" in ftr.tensor,
+                      f"C11 {route} fit: the fitter's tensor tracks the -pn pulse numbers")
+                main_twin.append(run_main_path(ftr, device, grid=False))
+        main, twin = main_twin
+        if device.type == "cuda":
+            check(main["fit_launches"]["resid_tangent"] > 0,
+                  f"C11 fit: K1 launched {main['fit_launches']['resid_tangent']} times")
+        check_fit(main, twin, "C11 TRACK -2 WLS")
+        out["windows"]["c11_fit"] = main["fit_launches"]
+        out["fit_s"] = main["fit_s"]
+        print(f"  C11 fit {main['fit_s'] * 1e3:.1f} ms, {main['fitter'].result.iterations} "
+              f"iterations, K1 launched {main['fit_launches']['resid_tangent']} times")
+    summary["c11"] = {"fit_s": out["fit_s"], "k1_max_abs_err_s": out["errs"]["resid_tangent"]}
+    return out
+
+
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-56 on `device_name`; returns the summary record."""
+    """Phases 2-57 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -3885,6 +4123,11 @@ def phases(device_name: str = "cuda") -> dict:
             print(f"  {name}: {summary['ptxas'][name]}")
         for fn, (regs, spill) in summary["ptxas_instances"]["resid_tangent"].items():
             print(f"    {fn}: {regs} registers, {spill} bytes of spill stores")
+        k3 = k3_build_info()
+        summary["k3_build"] = k3
+        print(f"  ecorr_normal_eq: {k3['sass_dmma']} DMMA instructions in its SASS; gram_pass "
+              f"ptxas {json.dumps(k3['gram_ptxas'])}")
+        check(bool(k3["sass_dmma"]), "K3's Gram runs on the float64 tensor cores (DMMA in SASS)")
     walls = summary.setdefault("group_s", {})
 
     def timed(name, fn, *args):
@@ -3904,13 +4147,14 @@ def phases(device_name: str = "cuda") -> dict:
     wb = timed("wideband", wideband_phases)
     noise = timed("noise", noise_phases, ng)
     pta = timed("pta", pta_phases, noise)
+    c11 = timed("pulse_numbers", pulse_number_phases)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
                **ephem["windows"], **dd["windows"], **ng["windows"], **bins["windows"],
-               **wb["windows"], **noise["windows"], **pta["windows"]}
+               **wb["windows"], **noise["windows"], **pta["windows"], **c11["windows"]}
     kernels = []
-    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb, noise, pta)
+    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb, noise, pta, c11)
     for name, src, replaces in KERNELS:
         rec = {k: v for r in parts for k, v in r["recs"].get(name, {}).items()}
         err = max(r["errs"].get(name, 0.0) for r in parts)

@@ -39,23 +39,33 @@
 //      over the rows in a fixed strided order and a fixed block reduction;
 //   2. norm_pass (p > 0): one block per (column, set), the same for the
 //      sums of w (M_j - m_j)^2 or (M_j - m_j)^2;
-//   3. epoch_pass (ke > 0): one thread per (epoch, value, set) adds its
-//      epoch's rows in CSR order (the order of the twin's seg_sum), each
-//      value centred and divided as it is read: y, s and, for set 0, B and
-//      De;
-//   4. gram_pass: one 16 x 16 block per tile of the upper triangle of S1,
-//      per set and per segment of the rows (or of the epochs, weights
-//      1/De): the block stages 64 rows of its two column slabs at a time in
-//      shared memory (centred and divided as they are staged), each thread
-//      sums its entry over the chunk in row order and adds the chunk's sum
-//      to its segment's partial; the set-independent Fd block only for set
-//      0. Segments are as long as it takes to give the card ~4 blocks per
-//      SM, so a narrow Gram (the flagship's p = 14) still fills it;
-//   5. s1_pass: one thread per entry and set folds the segments' partials
-//      in order, rows minus epochs, into S1 (symmetric);
+//   3. stage_pass: each (r, M) set's augmented rows X = [Mn, r, Fd] written
+//      once into scratch, each value centred and divided as the twin forms
+//      it, in column tiles of TW values (X[set][tile][row][TW], rows padded
+//      to whole chunks and columns to whole tiles with zeros), so that every
+//      later pass reads dense 16-byte rows and never divides again;
+//   4. epoch_pass (ke > 0): a block stages its epochs' rows of X in shared
+//      memory once, then one thread per (epoch, value) adds w X in CSR
+//      order (the order of the twin's seg_sum) for each of up to EP_SETS
+//      weight sets that share the (r, M) set: y, s and B, also staged in
+//      X's tile layout, and, for set 0 (every set with per-set weights), De
+//      and 1/De;
+//   5. gram_pass: S1's upper triangle of TW x TW tile pairs on the float64
+//      tensor cores (mma.sync .f64): one block per tile pair, group of
+//      weight sets and segment of the rows (or of the epochs, weights
+//      1/De); each warp owns a 32 x 32 register tile of one set, A = w X
+//      formed once per staged value, B = X (only the fragments that hold
+//      an entry of the upper triangle inside V), over chunks of CH rows that a
+//      ring of STAGES shared-memory buffers receives by cp.async while the
+//      previous chunk's products run; each segment's partial is written
+//      whole; the set-independent Fd block only for set 0. Segments are as
+//      long as it takes to give the card TARGET_WARPS warps;
+//   6. s1_pass: one thread (or, past S1_WARP_SEGS segments, one warp) per
+//      entry and set folds the segments' partials in a fixed order, rows
+//      minus epochs, into S1 (symmetric);
 //   (the host factors Rd and solves for Wz and ahat_d)
-//   6. fold_pass: one block per set writes G (symmetric), c and chi2;
-//   7. ahat_pass (ke > 0): one thread per (epoch, set).
+//   7. fold_pass: one block per set writes G (symmetric), c and chi2;
+//   8. ahat_pass (ke > 0): one thread per (epoch, set).
 //
 // The per-set-weight mode (ecorr_gram_sets, ecorr_fold_sets) turns the sets
 // around: ONE (r, M) and E sets of weights w (E, N) and prior variances
@@ -66,8 +76,9 @@
 // De, the epoch sums and the Fd blocks (which depend on w) are then per set.
 // No centring, unweighted norms (the noise design's Mnorm,
 // noise_like.py:685-687). One more pass, logw_pass, adds sum_i ln w_i per
-// set for the white term of ln|C|. Set 0's arithmetic in the shared-weight
-// mode is exactly what it was before the mode existed.
+// set for the white term of ln|C|. A set's arithmetic does not depend on
+// how many sets share its block, so the mode at E = 1 is bitwise the
+// shared-weight mode at B = 1.
 //
 // The stacked mode (ecorr_gram_stacked; its fold is ecorr_fold_sets) runs the per-set
 // passes over the E x N (point, pulsar) sets of pint_tpu's joint PTA
@@ -82,12 +93,24 @@
 // is -[b; u]. The bucket's pad rows carry w = 0: they add nothing to a sum,
 // and logw_pass skips them (pint_tpu's logdet_C(mask=)).
 //
-// Bound: float64 operations. The Gram is ~N (p + 1 + kd)^2 / 2 multiply-
-// adds per set (about 1e9 at the NANOGrav grid's B = 9, p = 80, kd = 60),
-// against N (p + 1) doubles read per set: far above the H100's float64
-// ridge at that width (the flagship's p = 14 is below it, bound by bytes).
-// The tiles keep each staged value in shared memory for 16 products, one
-// entry per thread; this simple design is right first, and fast later.
+// Bound, and what the design does about it. The Gram is ~(N + ke) V^2 / 2
+// multiply-adds per weight set (V = p + 1 + kd: 142 for the noise likelihood
+// and the wideband and NANOGrav fits, 29 for the PTA's pulsars, 15 for the
+// flagship), against N V doubles of X and N of w: with many sets (the noise
+// and PTA likelihoods at E >= 8, the grids) the float64 tensor cores' rate
+// bounds it; at one set and V ~ 15-30 the bytes, and there the passes'
+// launches and the fold dominate. So the Gram runs on the tensor cores
+// (mma.sync m16n8k8 .f64) and not on the vector pipe, computing only the fragments that hold an entry of
+// the upper triangle; X is staged once, not centred and divided again for
+// every tile that reads it; one block reads each chunk of X once for its
+// whole group of up to 8 weight sets (the per-set and stacked modes), and
+// the epoch pass reads each epoch's rows once for up to EP_SETS sets, so
+// X's bytes are paid once per group and not once per set; and a ring of
+// cp.async chunk loads overlaps the products. Tiles are 32 wide where V
+// fits one or the blocks group several sets (V = 142 pads to 160), else 64
+// (four warps share each staged chunk; V = 142 pads to 192).
+#include <algorithm>
+
 #include "block_sum.cuh"
 #include "dd.cuh"
 
@@ -98,10 +121,17 @@ namespace {
 using pint::block_sum;
 
 constexpr int THREADS = 256;
-constexpr int T = 16;    // gram_pass tile edge (T x T threads)
-constexpr int CH = 64;   // rows, or epochs, staged per gram_pass chunk
+constexpr int RED = 1024;   // threads of the row reductions (mean, norm, ln w)
+constexpr int CH = 32;      // rows (or epochs) per staged chunk
+constexpr int STAGES = 3;   // chunk buffers in the cp.async ring
+constexpr int PAD = 8;      // shared row stride TW + PAD: conflict-free fragment loads
+constexpr int GRAM_WARPS = 8;  // a gram block's warps when a group fills it
 constexpr int PMAX = 256, KDMAX = 512;
-constexpr int TARGET_BLOCKS = 528;  // gram_pass blocks to aim for: 4 per SM
+constexpr long TARGET_WARPS = 2112;  // gram_pass warps to aim for: 16 per SM
+constexpr int MIN_SEG = 4 * CH;      // the shortest segment
+constexpr int S1_WARP_SEGS = 32;     // s1_pass folds more segments a warp per entry
+constexpr int EP_SETS = 32;      // weight sets one epoch_pass block sums
+constexpr int EP_VALUES = 4096;  // X values (its epochs' rows x tile) an epoch_pass block stages
 
 struct Args {
   const double *r, *M, *w, *Fd;
@@ -117,154 +147,359 @@ struct Args {
   // CSR has ke + 1 offsets and nnz row ids
   const double *Gc;
   int pn, npsr, nnz;
+  // the staged values X (mb, nt, nP, tw) of the (r, M) sets and the epoch
+  // sums Es (B, nt, keP, tw), zero past n (ke) and V; 1/De (B, keP; set 0's
+  // alone where w is shared)
+  int tw, nt, nP, keP, mb;
+  double *X, *Es, *iDe;
 };
 
-// the (r, M) set that weight set b reads, and the offsets of set b's
-// weights and of its per-epoch values (De, phi_e)
-__device__ __forceinline__ int design_set(const Args &a, int b) {
-  return a.ws == 2 ? b % a.npsr : a.ws ? 0 : b;
-}
+// the offsets of set b's weights and of its per-epoch values (De, phi_e)
 __device__ __forceinline__ size_t w_off(const Args &a, int b) { return a.ws ? (size_t)b * a.n : 0; }
 __device__ __forceinline__ size_t e_off(const Args &a, int b) { return a.ws ? (size_t)b * a.ke : 0; }
 
-__host__ __device__ inline int tiles_of(int V) { return (V + T - 1) / T; }
+// the tile width: 32 where V fits one tile or where blocks group several
+// weight sets (more sets share a block's staged X, and a 142-wide Gram pads
+// to 160, not 192), else 64 (four warps share each staged chunk). `pts`:
+// the weight sets of each (r, M) set, so one set alone tiles alike in every
+// mode
+__host__ __device__ inline int tile_width(int V, int pts) {
+  return V <= 32 || pts > 1 ? 32 : 64;
+}
+__host__ __device__ inline int round_up(long x, int m) { return (int)((x + m - 1) / m * m); }
 
 // rows (and epochs) per gram_pass segment: whole chunks, enough segments
-// for TARGET_BLOCKS blocks
-inline int segment_length(int n, int ke, int V, int B) {
-  const long pairs = (long)tiles_of(V) * (tiles_of(V) + 1) / 2 * B;
-  const long want = (n + ke) * pairs / TARGET_BLOCKS + 1;
-  return (int)(((want + CH - 1) / CH) * CH);
+// for TARGET_WARPS warps over the B sets' tile pairs
+inline int segment_length(int n, int ke, int V, int B, int pts) {
+  const int tw = tile_width(V, pts), nt = (V + tw - 1) / tw, wps = (tw / 32) * (tw / 32);
+  const long warps = (long)nt * (nt + 1) / 2 * B * wps;
+  return round_up(std::max<long>((n + ke) * warps / TARGET_WARPS + 1, MIN_SEG), CH);
 }
 
-// value x of the augmented row vector [Mn_0 .. Mn_{p-1}, r, Fd_0 ..] of set
-// b at row i, centred and divided as the twin forms it
-__device__ __forceinline__ double row_value(const Args &a, int b, int x, int i) {
-  b = design_set(a, b);
+// value x of the augmented row vector [Mn_0 .. Mn_{p-1}, r, Fd_0 ..] of the
+// (r, M) set d at row i, centred and divided as the twin forms it
+__device__ __forceinline__ double row_value(const Args &a, int d, int x, int i) {
   if (x < a.pn)
-    return __ddiv_rn(__dsub_rn(a.M[((size_t)b * a.pn + x) * a.n + i], a.mean[(size_t)b * (a.p + 1) + 1 + x]),
-                     a.norm[(size_t)b * a.pn + x]);
-  if (x < a.p) return a.Gc[((size_t)b * (a.p - a.pn) + x - a.pn) * a.n + i];
-  if (x == a.p) return __dsub_rn(a.r[(size_t)b * a.n + i], a.mean[(size_t)b * (a.p + 1)]);
-  return a.Fd[(a.ws == 2 ? (size_t)b * a.kd * a.n : 0) + (size_t)(x - a.p - 1) * a.n + i];
+    return __ddiv_rn(__dsub_rn(a.M[((size_t)d * a.pn + x) * a.n + i], a.mean[(size_t)d * (a.p + 1) + 1 + x]),
+                     a.norm[(size_t)d * a.pn + x]);
+  if (x < a.p) return a.Gc[((size_t)d * (a.p - a.pn) + x - a.pn) * a.n + i];
+  if (x == a.p) return __dsub_rn(a.r[(size_t)d * a.n + i], a.mean[(size_t)d * (a.p + 1)]);
+  return a.Fd[(a.ws == 2 ? (size_t)d * a.kd * a.n : 0) + (size_t)(x - a.p - 1) * a.n + i];
 }
 
 // pass 1: set b's weighted mean of value x (0: r, 1 + j: M_j)
-__global__ void __launch_bounds__(THREADS) mean_pass(Args a) {
+__global__ void __launch_bounds__(RED) mean_pass(Args a) {
   const int x = blockIdx.x, b = blockIdx.y;
   const double *v = x == 0 ? a.r + (size_t)b * a.n : a.M + ((size_t)b * a.p + x - 1) * a.n;
   double acc[2] = {0.0, 0.0};
-  for (int i = threadIdx.x; i < a.n; i += THREADS) {
+  for (int i = threadIdx.x; i < a.n; i += RED) {
     acc[0] = __dadd_rn(acc[0], a.w[i]);
     acc[1] = __dadd_rn(acc[1], __dmul_rn(a.w[i], v[i]));
   }
   __shared__ double tot[2];
-  block_sum<THREADS, 2>(acc, tot);
+  block_sum<RED, 2>(acc, tot);
   if (threadIdx.x == 0) a.mean[(size_t)b * (a.p + 1) + x] = __ddiv_rn(tot[1], tot[0]);
 }
 
 // pass 2: set b's norm of column j
-__global__ void __launch_bounds__(THREADS) norm_pass(Args a) {
+__global__ void __launch_bounds__(RED) norm_pass(Args a) {
   const int j = blockIdx.x, b = blockIdx.y;
   const double *v = a.M + ((size_t)b * a.pn + j) * a.n;
   const double m = a.mean[(size_t)b * (a.p + 1) + 1 + j];
   double acc[1] = {0.0};
-  for (int i = threadIdx.x; i < a.n; i += THREADS) {
+  for (int i = threadIdx.x; i < a.n; i += RED) {
     const double x = __dsub_rn(v[i], m);
     acc[0] = __dadd_rn(acc[0], a.weighted ? __dmul_rn(__dmul_rn(a.w[i], x), x) : __dmul_rn(x, x));
   }
   __shared__ double tot[1];
-  block_sum<THREADS, 1>(acc, tot);
+  block_sum<RED, 1>(acc, tot);
   if (threadIdx.x == 0) a.norm[(size_t)b * a.pn + j] = tot[0] == 0.0 ? 1.0 : __dsqrt_rn(tot[0]);
 }
 
-// pass 3: epoch sums of w V (value x < V) and, for x == V, De (set 0)
-__global__ void __launch_bounds__(THREADS) epoch_pass(Args a) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x, x = blockIdx.y, b = blockIdx.z;
-  const int V = a.p + 1 + a.kd;
-  if (e >= a.ke || (!a.ws && b > 0 && x > a.p)) return;
-  const double *w = a.w + w_off(a, b);
-  const size_t psr = a.ws == 2 ? (size_t)design_set(a, b) : 0;  // the stacked mode's pulsar
-  const int *offsets = a.offsets + psr * (a.ke + 1), *rows = a.rows + psr * a.nnz;
-  double acc = 0.0;
-  for (int k = offsets[e]; k < offsets[e + 1]; ++k) {
-    const int i = rows[k];
-    acc = __dadd_rn(acc, x < V ? __dmul_rn(w[i], row_value(a, b, x, i)) : w[i]);
+constexpr int STAGE_ROWS = 32;  // stage_pass rows per block
+
+// pass 3: rows [i0, i0 + 32) of column tile `tile` of (r, M) set d, read
+// along the rows and written along the tile through shared memory
+__global__ void __launch_bounds__(THREADS) stage_pass(Args a) {
+  const int i0 = blockIdx.x * STAGE_ROWS, tile = blockIdx.y, d = blockIdx.z;
+  const int tw = a.tw, V = a.p + 1 + a.kd;
+  __shared__ double sm[STAGE_ROWS][64 + 1];
+  for (int q = threadIdx.x; q < tw * STAGE_ROWS; q += THREADS) {
+    const int c = q / STAGE_ROWS, k = q % STAGE_ROWS, x = tile * tw + c, i = i0 + k;
+    sm[k][c] = x < V && i < a.n ? row_value(a, d, x, i) : 0.0;
   }
-  if (x < V) a.esum[((size_t)b * a.ke + e) * V + x] = acc;
-  else a.De[e_off(a, b) + e] = __dadd_rn(__ddiv_rn(1.0, a.ephi[e_off(a, b) + e]), acc);
+  __syncthreads();
+  double *out = a.X + ((size_t)d * a.nt + tile) * a.nP * tw;
+  for (int q = threadIdx.x; q < tw * STAGE_ROWS; q += THREADS) {
+    const int k = q / tw, c = q % tw;
+    if (i0 + k < a.nP) out[(size_t)(i0 + k) * tw + c] = sm[k][c];
+  }
 }
 
-// pass 4: one T x T tile (ta <= tc) of set b's partial over one segment
-__global__ void __launch_bounds__(T * T) gram_pass(Args a) {
-  const int V = a.p + 1 + a.kd, nt = tiles_of(V);
-  int ta = 0, rest = blockIdx.x;  // the blockIdx.x-th tile of the upper triangle
+// pass 4: the epoch sums of w X over tile `tile` for a group of up to
+// EP_SETS weight sets of one (r, M) set q (blockIdx.z: q, sets e0 + g as in
+// gram_pass): where it sums several sets, the block stages its epochs' rows
+// of X and their row ids in shared memory once (if they fit in EP_VALUES);
+// then one thread per (epoch, value) adds w X over its epoch's rows in CSR
+// order (the order of the twin's seg_sum) for each set in turn: into esum
+// and, in X's tile layout, Es; the first value's thread also forms De and
+// 1/De (set 0 only where the weights are shared)
+__global__ void __launch_bounds__(THREADS) epoch_pass(Args a) {
+  const int tw = a.tw, c = threadIdx.x % tw, per = THREADS / tw, tile = blockIdx.y;
+  const int e = blockIdx.x * per + threadIdx.x / tw;
+  const int np = a.ws == 2 ? a.npsr : a.ws ? 1 : a.B, q = blockIdx.z % np;
+  const int e0 = blockIdx.z / np * EP_SETS, ng = min(EP_SETS, a.B / np - e0);
+  const int V = a.p + 1 + a.kd, x = tile * tw + c;
+  const size_t psr = a.ws == 2 ? (size_t)q : 0;  // the stacked mode's pulsar
+  const int *offsets = a.offsets + psr * (a.ke + 1), *rows = a.rows + psr * a.nnz;
+  const double *col = a.X + ((size_t)q * a.nt + tile) * a.nP * tw;
+  const int ea = min(blockIdx.x * per, a.ke), eb = min(ea + per, a.ke);
+  const int r0 = offsets[ea], nr = offsets[eb] - r0;
+  const bool staged = ng > 1 && nr * tw <= EP_VALUES;  // the same for the whole block
+  __shared__ double sx[EP_VALUES];
+  __shared__ int sr[EP_VALUES / 32];
+  if (staged) {
+    for (int k = threadIdx.x; k < nr; k += THREADS) sr[k] = rows[r0 + k];
+    __syncthreads();
+    for (int k = threadIdx.x; k < nr * tw; k += THREADS)
+      sx[k] = col[(size_t)sr[k / tw] * tw + k % tw];
+  }
+  __syncthreads();
+  if (e >= a.keP) return;
+  const bool pad = e >= a.ke;  // the pad epochs of the last chunk: zero sums, zero weight
+  const int k0 = pad ? 0 : offsets[e] - r0, k1 = pad ? 0 : offsets[e + 1] - r0;
+  for (int g = 0; g < ng; ++g) {
+    const int s = (e0 + g) * np + q;
+    const double *w = a.w + w_off(a, s);
+    double acc = 0.0, accw = 0.0;
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      const int i = staged ? sr[k] : rows[r0 + k];
+      const double xv = staged ? sx[k * tw + c] : col[(size_t)i * tw + c];
+      acc = __dadd_rn(acc, __dmul_rn(w[i], xv));
+      accw = __dadd_rn(accw, w[i]);
+    }
+    a.Es[(((size_t)s * a.nt + tile) * a.keP + e) * tw + c] = acc;
+    if (!pad && x < V) a.esum[((size_t)s * a.ke + e) * V + x] = acc;
+    if (x == 0 && (a.ws || s == 0)) {
+      double *ide = a.iDe + (a.ws ? (size_t)s * a.keP : 0) + e;
+      if (pad) {
+        *ide = 0.0;
+      } else {
+        const double D = __dadd_rn(__ddiv_rn(1.0, a.ephi[e_off(a, s) + e]), accw);
+        a.De[e_off(a, s) + e] = D;
+        *ide = __ddiv_rn(1.0, D);
+      }
+    }
+  }
+}
+
+// --- pass 5 on the tensor cores -------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(double *dst, const double *src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+// 8 bytes, or zeros where !valid (src must still be a valid address: the
+// copy reads nothing then)
+__device__ __forceinline__ void cp_async8(double *dst, const double *src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// a warp's 32 x 32 tile of one set as m16n8k8 fragments: MI blocks of MR
+// rows (the Gram's row index) by 4 blocks of 8 columns, KS products deep
+constexpr int MR = 16, KS = 8, NACC = 4;
+constexpr int MI = 32 / MR, NA = KS / 4 * (MR / 8), NB = KS / 4;
+
+// one product into acc: this lane's A (w X) values av, B (X) values bv
+__device__ __forceinline__ void mma(double (&acc)[NACC], const double (&av)[NA],
+                                    const double (&bv)[NB]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(acc[0]), "+d"(acc[1]), "+d"(acc[2]), "+d"(acc[3])
+      : "d"(av[0]), "d"(av[1]), "d"(av[2]), "d"(av[3]), "d"(bv[0]), "d"(bv[1]));
+}
+
+// the smem doubles of one ring stage: the two tiles' chunks, then gs
+// weight vectors
+template <int TW>
+__host__ __device__ constexpr int stage_doubles(int gs) {
+  return 2 * CH * (TW + PAD) + gs * CH;
+}
+
+// pass 5: tile pair blockIdx.x of the upper triangle, group blockIdx.y of
+// gs weight sets, segment seg0 + blockIdx.z. Group y's sets: s = (e0 + g)
+// np + q for g < gs with e0 + g < B / np, where q = y % np is the (r, M) set
+// (np: 1 per-set, npsr stacked, B shared-weight) and e0 = (y / np) gs. Warp
+// k works for set g = k / wps on quadrant k % wps of the tile pair. Rows
+// read the (r, M) set's staged X, with w; epochs (gs = 1) the set's staged
+// epoch sums, with 1/De; 16 bytes a copy.
+template <int TW>
+__global__ void __launch_bounds__(GRAM_WARPS * 32) gram_pass(Args a, int gs, int seg0) {
+  constexpr int WPS = (TW / 32) * (TW / 32), LD = TW + PAD;
+  const int V = a.p + 1 + a.kd, nt = a.nt, tid = threadIdx.x, warp = tid >> 5;
+  int ta = 0, rest = blockIdx.x;  // the blockIdx.x-th tile pair of the upper triangle
   while (rest >= nt - ta) {
     rest -= nt - ta;
     ++ta;
   }
-  const int tc = ta + rest, b = blockIdx.y, seg = blockIdx.z;
-  if (!a.ws && b > 0 && ta * T > a.p) return;  // the Fd block: set 0's, where w is shared
-  const int fb = a.ws ? b : 0;  // the set whose Fd block and epoch sums of Fd are read
-  const double *w = a.w + w_off(a, b), *De = a.De + e_off(a, b);
+  const int tc = ta + rest, seg = seg0 + blockIdx.z;
+  const int np = a.ws == 2 ? a.npsr : a.ws ? 1 : a.B, q = blockIdx.y % np;
+  const int e0 = blockIdx.y / np * gs, n_pts = a.B / np;
+  if (!a.ws && q > 0 && ta * TW > a.p) return;  // the Fd block: set 0's, where w is shared
   const bool epochs = seg >= a.row_segs;
   const int count = epochs ? a.ke : a.n;
   const int lo = (epochs ? seg - a.row_segs : seg) * a.seg_len;
   const int hi = min(count, lo + a.seg_len);
-  __shared__ double sa[CH][T + 1], sc[CH][T + 1], sw[CH];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * T + tx;
-  const int A = ta * T + ty, C = tc * T + tx;
-  double total = 0.0;
-  for (int first = lo; first < hi; first += CH) {
-    for (int q = tid; q < CH * T; q += T * T) {
-      const int k = q / T, col = q % T, i = first + k;
-      double va = 0.0, vc = 0.0;
-      if (i < hi) {
-        const int xa = ta * T + col, xc = tc * T + col;
-        if (!epochs) {
-          if (xa < V) va = row_value(a, b, xa, i);
-          if (xc < V) vc = row_value(a, b, xc, i);
-        } else {
-          if (xa < V) va = a.esum[((size_t)(xa > a.p ? fb : b) * a.ke + i) * V + xa];
-          if (xc < V) vc = a.esum[((size_t)(xc > a.p ? fb : b) * a.ke + i) * V + xc];
-        }
-      }
-      sa[k][col] = va;
-      sc[k][col] = vc;
+  // this block's source tiles: the (r, M) set's staged X for rows, the
+  // (only) set's staged epoch sums for epochs; slot 0 holds tile ta, slot 1
+  // tile tc where it differs
+  const int s0 = e0 * np + q;  // the group's first set
+  const double *src = epochs ? a.Es + (size_t)s0 * nt * a.keP * TW
+                             : a.X + (size_t)q * nt * a.nP * TW;
+  const size_t tile_len = (size_t)(epochs ? a.keP : a.nP) * TW;
+  const bool diag = ta == tc;
+  extern __shared__ __align__(16) double smem[];
+  const int stage = stage_doubles<TW>(gs);
+  const int nthr = blockDim.x;
+  auto load = [&](int first, int st) {
+    double *sA = smem + (size_t)st * stage, *sw = sA + 2 * CH * LD;
+    for (int k = tid; k < (diag ? 1 : 2) * CH * TW / 2; k += nthr) {
+      const int slot = k / (CH * TW / 2), r = k % (CH * TW / 2);
+      const int row = r / (TW / 2), col = (r % (TW / 2)) * 2;
+      cp_async16(sA + (slot * CH + row) * LD + col,
+                 src + (slot ? tc : ta) * tile_len + (size_t)(first + row) * TW + col);
     }
-    for (int k = tid; k < CH; k += T * T) {
-      const int i = first + k;
-      sw[k] = i >= hi ? 0.0 : !epochs ? w[i] : __ddiv_rn(1.0, De[i]);
+    for (int k = tid; k < gs * CH; k += nthr) {
+      const int g = k / CH, row = k % CH, i = first + row;
+      const bool valid = i < hi && e0 + g < n_pts;
+      const int ic = valid ? i : lo;  // a valid address where nothing is read
+      const int s = (e0 + (valid ? g : 0)) * np + q;
+      const double *src = (epochs ? a.iDe + (a.ws ? (size_t)s * a.keP : 0)
+                                  : a.w + (a.ws ? (size_t)s * a.n : 0)) + ic;
+      cp_async8(sw + k, src, valid);
     }
+  };
+  // this warp's set and quadrant; a diagonal pair's lower quadrant is not needed
+  const int lane = tid & 31, g = warp / WPS, quad = warp % WPS;
+  const int qm = quad / (TW / 32), qn = quad % (TW / 32);
+  const bool active = e0 + g < n_pts && !(diag && qm > qn);
+  const int gi = lane >> 2, ti = lane & 3;
+  const int am = qm * 32, cn = qn * 32;
+  // the fragments that hold an entry of S1's upper triangle: the others
+  // (below a diagonal tile's diagonal, or past V) are not computed
+  bool need[MI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int A0 = ta * TW + am + i * MR, C0 = tc * TW + cn + j * 8;
+      need[i][j] = A0 < V && C0 < V && A0 <= C0 + 7;
+    }
+  double acc[MI][4][NACC];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < NACC; ++h) acc[i][j][h] = 0.0;
+  const int n_chunks = hi > lo ? (hi - lo + CH - 1) / CH : 0;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_chunks) load(lo + st * CH, st);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int nxt = ch + STAGES - 1;
+    if (nxt < n_chunks) load(lo + nxt * CH, nxt % STAGES);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
     __syncthreads();
-    double acc = 0.0;
-    const int m = min(CH, hi - first);
-    for (int k = 0; k < m; ++k) acc = __dadd_rn(acc, __dmul_rn(__dmul_rn(sw[k], sa[k][ty]), sc[k][tx]));
-    total = __dadd_rn(total, acc);
+    if (active) {
+      const double *sA = smem + (size_t)(ch % STAGES) * stage;
+      const double *sC = diag ? sA : sA + CH * LD;
+      const double *sw = sA + 2 * CH * LD + g * CH;
+#pragma unroll
+      for (int k0 = 0; k0 < CH; k0 += KS) {
+        double av[MI][NA], bv[4][NB];
+#pragma unroll
+        for (int kh = 0; kh < KS / 4; ++kh) {  // the lane's rows k0 + ti (+ 4)
+          const int k = k0 + ti + 4 * kh;
+          const double wk = sw[k];
+          const double *ra = sA + k * LD + am + gi, *rc = sC + k * LD + cn + gi;
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int mh = 0; mh < MR / 8; ++mh)
+              av[i][kh * (MR / 8) + mh] = __dmul_rn(wk, ra[i * MR + 8 * mh]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bv[j][kh] = rc[j * 8];
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (need[i][j]) mma(acc[i][j], av[i], bv[j]);
+      }
+    }
     __syncthreads();
   }
-  if (A < V && C < V && A <= C) a.part[(((size_t)b * a.n_segs + seg) * V + A) * V + C] = total;
+  cp_async_wait<0>();
+  if (!active) return;
+  const int s = (e0 + g) * np + q;
+  double *out = a.part + ((size_t)s * a.n_segs + seg) * V * V;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < NACC; ++h) {
+        const int A = ta * TW + am + i * MR + gi + 8 * (h >> 1);
+        const int C = tc * TW + cn + j * 8 + 2 * ti + (h & 1);
+        if (A < V && C < V && A <= C) out[(size_t)A * V + C] = acc[i][j][h];
+      }
 }
 
-// pass 5: S1 = the rows' partials minus the epochs', in segment order
+// pass 6: S1 = the rows' partials minus the epochs', in segment order; with
+// many segments a warp per entry (LANES = 32): lane l adds segments l, l +
+// 32, ... in order, then the lanes' sums fold in a fixed tree
+template <int LANES>
 __global__ void __launch_bounds__(THREADS) s1_pass(Args a) {
-  const int V = a.p + 1 + a.kd, b = blockIdx.y;
-  const long q = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int V = a.p + 1 + a.kd, b = blockIdx.y, lane = threadIdx.x % LANES;
+  const long q = ((long)blockIdx.x * blockDim.x + threadIdx.x) / LANES;
   if (q >= (long)V * V) return;
   const int A = (int)(q / V), C = (int)(q % V);
   if (A > C || (!a.ws && b > 0 && A > a.p)) return;
+  const size_t VV = (size_t)V * V;
+  const double *part = a.part + (size_t)b * a.n_segs * VV + (size_t)A * V + C;
   double rows = 0.0, epochs = 0.0;
-  for (int s = 0; s < a.n_segs; ++s) {
-    const double v = a.part[(((size_t)b * a.n_segs + s) * V + A) * V + C];
-    if (s < a.row_segs) rows = __dadd_rn(rows, v);
-    else epochs = __dadd_rn(epochs, v);
+#pragma unroll 4
+  for (int s = lane; s < a.row_segs; s += LANES) rows = __dadd_rn(rows, part[s * VV]);
+#pragma unroll 4
+  for (int s = a.row_segs + lane; s < a.n_segs; s += LANES) epochs = __dadd_rn(epochs, part[s * VV]);
+  if (LANES > 1) {
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1) {
+      rows = __dadd_rn(rows, __shfl_down_sync(0xffffffffu, rows, off));
+      epochs = __dadd_rn(epochs, __shfl_down_sync(0xffffffffu, epochs, off));
+    }
   }
-  const double S = __dsub_rn(rows, epochs);
-  a.S1[((size_t)b * V + A) * V + C] = S;
-  a.S1[((size_t)b * V + C) * V + A] = S;
+  if (lane == 0) {
+    const double S = __dsub_rn(rows, epochs);
+    a.S1[((size_t)b * V + A) * V + C] = S;
+    a.S1[((size_t)b * V + C) * V + A] = S;
+  }
 }
 
-// pass 6: G, c, chi2 of set b from S1 and Wz (kd, p + 1)
+// pass 7: G, c, chi2 of set b from S1 and Wz (kd, p + 1)
 __global__ void __launch_bounds__(THREADS)
 fold_pass(const double *__restrict__ S1, const double *__restrict__ Wz, int p, int kd,
           double ridge, double *__restrict__ G, double *__restrict__ cvec,
@@ -295,7 +530,7 @@ fold_pass(const double *__restrict__ S1, const double *__restrict__ Wz, int p, i
   }
 }
 
-// pass 7: the epoch amplitudes (s_e - B_e ahat_d) / De_e (ws: B_e and De
+// pass 8: the epoch amplitudes (s_e - B_e ahat_d) / De_e (ws: B_e and De
 // of set b)
 __global__ void __launch_bounds__(THREADS)
 ahat_pass(const double *__restrict__ esum, const double *__restrict__ De,
@@ -311,76 +546,142 @@ ahat_pass(const double *__restrict__ esum, const double *__restrict__ De,
 }
 
 // ws: sum_i ln w_i of set b, in a fixed order
-__global__ void __launch_bounds__(THREADS) logw_pass(Args a) {
+__global__ void __launch_bounds__(RED) logw_pass(Args a) {
   const int b = blockIdx.x;
   const double *w = a.w + (size_t)b * a.n;
   double acc[1] = {0.0};
-  for (int i = threadIdx.x; i < a.n; i += THREADS)
+  for (int i = threadIdx.x; i < a.n; i += RED)
     if (a.ws != 2 || w[i] != 0.0) acc[0] = __dadd_rn(acc[0], log(w[i]));  // stacked: no pad rows
   __shared__ double tot[1];
-  block_sum<THREADS, 1>(acc, tot);
+  block_sum<RED, 1>(acc, tot);
   if (threadIdx.x == 0) a.logw[b] = tot[0];
+}
+
+// the scratch of one gram call, in doubles: the segments' partials, then
+// X, Es and 1/De (each a whole number of 16-byte units)
+struct Scratch {
+  long part, X, Es, iDe;
+};
+
+Scratch scratch_of(int B, int mb, int p, int n, int ke, int kd) {
+  const int V = p + 1 + kd, pts = B / mb, len = segment_length(n, ke, V, B, pts);
+  const int tw = tile_width(V, pts);
+  const int nt = (V + tw - 1) / tw;
+  const long segs = (n + len - 1) / len + (ke + len - 1) / len;
+  return Scratch{round_up((long)B * segs * V * V, 2), (long)mb * nt * round_up(n, CH) * tw,
+                 (long)B * nt * round_up(ke, CH) * tw, (long)B * round_up(ke, CH)};
 }
 
 }  // namespace
 
-// Passes 1-5. r (B, n), M (B, p, n), w (n,), Fd (kd, n), offsets (ke + 1,)
-// int32, rows (offsets[ke],) int32, ephi (ke,); centre, weighted: 0 or 1.
-// Outputs mean (B, p + 1) (r first), norm (B, p), esum (B, ke, V) and De
-// (ke,) (scratch for passes 6-7), S1 (B, V, V), V = p + 1 + kd (the Fd
-// block of sets b > 0 unwritten); part is scratch of
-// ecorr_gram_part_size(B, p, n, ke, kd) doubles.
-extern "C" long ecorr_gram_part_size(int B, int p, int n, int ke, int kd) {
-  const int V = p + 1 + kd, len = segment_length(n, ke, V, B);
-  const long segs = (n + len - 1) / len + (ke + len - 1) / len;
-  return (long)B * segs * V * V;
+// The scratch (doubles) of a gram call over B weight sets and mb (r, M)
+// sets (shared-weight mode: mb = B; per-set mode: 1; stacked: the pulsars,
+// p then counting the common block's columns too).
+extern "C" long ecorr_gram_scratch_size(int B, int mb, int p, int n, int ke, int kd) {
+  const Scratch s = scratch_of(B, mb, p, n, ke, kd);
+  return s.part + s.X + s.Es + s.iDe;
 }
 
 namespace {
 
+template <int TW>
+cudaError_t launch_gram_tiles(const Args &a, int gs, int groups, int seg0, int segs,
+                              cudaStream_t s) {
+  constexpr int wps = (TW / 32) * (TW / 32);
+  const int smem = STAGES * 8 * stage_doubles<TW>(GRAM_WARPS / wps);
+  static const cudaError_t configured =  // once: the ring exceeds 48 KB at TW = 64
+      cudaFuncSetAttribute(gram_pass<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (configured != cudaSuccess) return configured;
+  const int pairs = a.nt * (a.nt + 1) / 2;
+  gram_pass<TW><<<dim3(pairs, groups, segs), 32 * wps * gs, smem, s>>>(a, gs, seg0);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gram_pass(const Args &a, int gs, int groups, int seg0, int segs,
+                             cudaStream_t s) {
+  if (segs == 0) return cudaSuccess;
+  return a.tw == 32 ? launch_gram_tiles<32>(a, gs, groups, seg0, segs, s)
+                    : launch_gram_tiles<64>(a, gs, groups, seg0, segs, s);
+}
+
 int launch_gram(const Args &a, cudaStream_t s) {
-  const int B = a.B, p = a.p, V = p + 1 + a.kd, nt = tiles_of(V), ke = a.ke;
-  const int mb = a.ws == 2 ? a.npsr : a.ws ? 1 : B;  // the (r, M) sets
+  const int B = a.B, p = a.p, V = p + 1 + a.kd, ke = a.ke, tw = a.tw, nt = a.nt;
   cudaError_t e;
   if (a.centre) {
-    mean_pass<<<dim3(p + 1, mb), THREADS, 0, s>>>(a);
+    mean_pass<<<dim3(p + 1, a.mb), RED, 0, s>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   } else {
-    if ((e = cudaMemsetAsync(a.mean, 0, sizeof(double) * mb * (p + 1), s)) != cudaSuccess)
+    if ((e = cudaMemsetAsync(a.mean, 0, sizeof(double) * a.mb * (p + 1), s)) != cudaSuccess)
       return e;
   }
   if (a.pn > 0) {
-    norm_pass<<<dim3(a.pn, mb), THREADS, 0, s>>>(a);
+    norm_pass<<<dim3(a.pn, a.mb), RED, 0, s>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (a.ws) {
-    logw_pass<<<B, THREADS, 0, s>>>(a);
+    logw_pass<<<B, RED, 0, s>>>(a);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  if (ke > 0) {
-    epoch_pass<<<dim3((ke + THREADS - 1) / THREADS, V + 1, B), THREADS, 0, s>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  gram_pass<<<dim3(nt * (nt + 1) / 2, B, a.n_segs), dim3(T, T), 0, s>>>(a);
+  stage_pass<<<dim3((a.nP + STAGE_ROWS - 1) / STAGE_ROWS, nt, a.mb), THREADS, 0, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  s1_pass<<<dim3((V * V + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(a);
+  const int np = a.ws == 2 ? a.npsr : a.ws ? 1 : B, pts = B / np;
+  if (ke > 0) {
+    const int per = THREADS / tw, egroups = np * ((pts + EP_SETS - 1) / EP_SETS);
+    epoch_pass<<<dim3((a.keP + per - 1) / per, nt, egroups), THREADS, 0, s>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  // the rows in groups of up to GRAM_WARPS / wps weight sets that share an
+  // (r, M) set; the epochs (their sums are per set) one set a block; one
+  // launch for both where the groups are single sets
+  const int gs = std::min(pts, GRAM_WARPS / ((tw / 32) * (tw / 32)));
+  const int groups = np * ((pts + gs - 1) / gs);
+  if (gs == 1) {
+    e = launch_gram_pass(a, 1, B, 0, a.n_segs, s);
+  } else {
+    e = launch_gram_pass(a, gs, groups, 0, a.row_segs, s);
+    if (e == cudaSuccess) e = launch_gram_pass(a, 1, B, a.row_segs, a.n_segs - a.row_segs, s);
+  }
+  if (e != cudaSuccess) return e;
+  if (a.n_segs > S1_WARP_SEGS)
+    s1_pass<32><<<dim3((V * V * 32 + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(a);
+  else
+    s1_pass<1><<<dim3((V * V + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 Args make_args(const double *r, const double *M, const double *w, const double *Fd,
                const int *offsets, const int *rows, const double *ephi, int B, int p, int n,
                int ke, int kd, int centre, int weighted, double *mean, double *norm,
-               double *esum, double *De, double *part, double *S1, int ws, double *logw,
+               double *esum, double *De, double *scratch, double *S1, int ws, double *logw,
                const double *Gc = nullptr, int pn = -1, int npsr = 1, int nnz = 0) {
-  const int V = p + 1 + kd, len = segment_length(n, ke, V, B);
-  const int row_segs = (n + len - 1) / len, n_segs = row_segs + (ke + len - 1) / len;
-  return Args{r,        M,   w,        Fd,     offsets, rows, ephi, B,  p,    n,  ke, kd, centre,
-              weighted, len, row_segs, n_segs, mean,    norm, esum, De, part, S1, ws, logw,
-              Gc,       pn < 0 ? p : pn,       npsr,    nnz};
+  const int mb = ws == 2 ? npsr : ws ? 1 : B;
+  const int V = p + 1 + kd, len = segment_length(n, ke, V, B, B / mb);
+  const Scratch sc = scratch_of(B, mb, p, n, ke, kd);
+  Args a{};
+  a.r = r, a.M = M, a.w = w, a.Fd = Fd, a.offsets = offsets, a.rows = rows, a.ephi = ephi;
+  a.B = B, a.p = p, a.n = n, a.ke = ke, a.kd = kd, a.centre = centre, a.weighted = weighted;
+  a.seg_len = len;
+  a.row_segs = (n + len - 1) / len;
+  a.n_segs = a.row_segs + (ke + len - 1) / len;
+  a.mean = mean, a.norm = norm, a.esum = esum, a.De = De, a.S1 = S1, a.ws = ws, a.logw = logw;
+  a.Gc = Gc, a.pn = pn < 0 ? p : pn, a.npsr = npsr, a.nnz = nnz;
+  a.tw = tile_width(V, B / mb), a.nt = (V + a.tw - 1) / a.tw, a.nP = round_up(n, CH);
+  a.keP = round_up(ke, CH), a.mb = mb;
+  a.part = scratch;
+  a.X = scratch + sc.part;
+  a.Es = a.X + sc.X;
+  a.iDe = a.Es + sc.Es;
+  return a;
 }
 
 }  // namespace
 
+// Passes 1-6. r (B, n), M (B, p, n), w (n,), Fd (kd, n), offsets (ke + 1,)
+// int32, rows (offsets[ke],) int32, ephi (ke,); centre, weighted: 0 or 1.
+// Outputs mean (B, p + 1) (r first), norm (B, p), esum (B, ke, V) and De
+// (ke,) (scratch for passes 7-8), S1 (B, V, V), V = p + 1 + kd (the Fd
+// block of sets b > 0 unwritten); scratch of ecorr_gram_scratch_size(B, B,
+// p, n, ke, kd) doubles.
 extern "C" int ecorr_gram(const double *r, const double *M, const double *w, const double *Fd,
                           const int *offsets, const int *rows, const double *ephi, int B,
                           int p, int n, int ke, int kd, int centre, int weighted, double *mean,
@@ -393,11 +694,11 @@ extern "C" int ecorr_gram(const double *r, const double *M, const double *w, con
                      static_cast<cudaStream_t>(stream));
 }
 
-// Passes 2-5 of the per-set-weight mode, and logw_pass. r (n,), M (p, n), w
+// Passes 2-6 of the per-set-weight mode, and logw_pass. r (n,), M (p, n), w
 // (E, n), Fd (kd, n), the CSR as above, ephi (E, ke). Outputs mean (p + 1,)
 // zeros (no centring), norm (p,) unweighted, logw (E,) = sum_i ln w_i, esum
-// (E, ke, V) and De (E, ke), S1 (E, V, V) whole; part is scratch of
-// ecorr_gram_part_size(E, p, n, ke, kd) doubles.
+// (E, ke, V) and De (E, ke), S1 (E, V, V) whole; scratch of
+// ecorr_gram_scratch_size(E, 1, p, n, ke, kd) doubles.
 extern "C" int ecorr_gram_sets(const double *r, const double *M, const double *w,
                                const double *Fd, const int *offsets, const int *rows,
                                const double *ephi, int E, int p, int n, int ke, int kd,
@@ -410,13 +711,13 @@ extern "C" int ecorr_gram_sets(const double *r, const double *M, const double *w
                      static_cast<cudaStream_t>(stream));
 }
 
-// Passes 2-5 of the stacked mode, and logw_pass, over the E N sets s = e N +
+// Passes 2-6 of the stacked mode, and logw_pass, over the E N sets s = e N +
 // a. r (N, n), M (N, p, n), Gc (N, m, n), w (E, N, n), Fd (N, kd, n), offsets
 // (N, ke + 1) and rows (N, nnz) int32 (each pulsar's CSR), ephi (E, N, ke).
 // Outputs mean (N, p + m + 1) zeros, norm (N, p) unweighted, logw (E N,) =
 // the sum of ln w_i over the rows with w_i > 0, esum (E N, ke, V), De (E N,
-// ke), S1 (E N, V, V), V = p + m + 1 + kd; part is scratch of
-// ecorr_gram_part_size(E N, p + m, n, ke, kd) doubles.
+// ke), S1 (E N, V, V), V = p + m + 1 + kd; scratch of
+// ecorr_gram_scratch_size(E N, N, p + m, n, ke, kd) doubles.
 extern "C" int ecorr_gram_stacked(const double *r, const double *M, const double *Gc,
                                   const double *w, const double *Fd, const int *offsets,
                                   const int *rows, const double *ephi, int E, int N, int p, int m,
@@ -449,7 +750,7 @@ int launch_fold(const double *S1, const double *Wz, const double *esum, const do
 
 }  // namespace
 
-// Passes 6-7. Wz (B, kd, p + 1), ad (B, kd); outputs G (B, p, p), c (B, p),
+// Passes 7-8. Wz (B, kd, p + 1), ad (B, kd); outputs G (B, p, p), c (B, p),
 // chi2 (B,), and the epoch part of ahat (B, ke + kd).
 extern "C" int ecorr_fold(const double *S1, const double *Wz, const double *esum,
                           const double *De, const double *ad, int B, int p, int ke, int kd,
@@ -459,7 +760,7 @@ extern "C" int ecorr_fold(const double *S1, const double *Wz, const double *esum
                      static_cast<cudaStream_t>(stream));
 }
 
-// Passes 6-7 of the per-set-weight mode: the same outputs per weight set, B
+// Passes 7-8 of the per-set-weight mode: the same outputs per weight set, B
 // and De of set b (esum (E, ke, V), De (E, ke)).
 extern "C" int ecorr_fold_sets(const double *S1, const double *Wz, const double *esum,
                                const double *De, const double *ad, int E, int p, int ke, int kd,

@@ -41,7 +41,9 @@
 //   spindown phase: dd Horner of F_k over t - delay - PEPOCH (spindown.py)
 //   spin frequency f(t)                     (spindown.py)
 //   phase JUMPs F0 * sum(mask * JUMP)       (phase_misc.py PhaseJump)
-//   minus the TZR row's phase, then dd rint (timing_model.py, residuals.py)
+//   minus the TZR row's phase, plus the row's pulse offset (-padd, -phase
+//     flags), then dd rint, or under TRACK -2 minus the row's -pn pulse
+//     number (timing_model.py, residuals.py phase_residual_frac)
 // and writes the pulse number, the fractional phase (hi + lo), f, and the
 // barycentric frequency f_bary of every row, the TZR row included (kernel
 // K8 reads it).
@@ -147,6 +149,8 @@ struct Config {
   int n_dmx, n_fd, n_jump;  // DMX windows, FD terms, JUMPs (NG instances)
   int n_fb;       // FB terms (0: the PB form)
   int h_mode, nharms;  // ELL1H: H_* and the harmonics of its Shapiro series
+  int has_dpn;    // add the rows' pulse offsets (-padd, -phase) before the rint
+  int has_track;  // TRACK -2: subtract the rows' pulse numbers, no rint
   int lane[LMAX];
   double au_ls, dmconst, tsun, cos_obl, sin_obl;
 };
@@ -155,6 +159,7 @@ struct Config {
 struct Rows {
   const double *t_hi, *t_lo, *freq, *pos, *vel, *sun;
   const double *dmx, *jump, *onehot, *masks;
+  const double *dpn, *track;  // data rows' pulse offsets and tracked pulse numbers
 };
 
 template <int K>
@@ -1097,8 +1102,17 @@ resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
     for (int j = 0; j < K; ++j) ph.d[j] = ph.d[j] - tz_d[j];
   }
   if (blockIdx.z == 0) {
+    // pint_tpu's phase_residual_frac: the offsets added (xp.add_f), then
+    // the tracked pulse numbers subtracted, or the nearest pulse taken
+    const dd x = c.has_dpn ? dd_add_fp(ph.x, rows.dpn[i]) : ph.x;
     double k;
-    const dd rem = dd_rint(ph.x, k);
+    dd rem;
+    if (c.has_track) {
+      k = rows.track[i];
+      rem = dd_add_fp(x, -k);
+    } else {
+      rem = dd_rint(x, k);
+    }
     const size_t o = (size_t)b * c.n_out + i;
     pn[o] = k;
     frac[o] = dd_to_float(rem);
@@ -1146,19 +1160,23 @@ cudaError_t launch_kind(bool ng, int k, const Rows &rows, const double *params, 
 }  // namespace
 
 // ints: n_rows n_out has_tzr has_ast nd nf n_par k bin_kind bin_model ecliptic
-// n_dmx n_fd n_jump n_fb h_mode nharms lane[0..LMAX) (bin_kind: 0 none, 1
-// ELL1, 2 Kepler; bin_model: ELL1_* or KEPLER_*; n_fb: 0 for the PB form)
+// n_dmx n_fd n_jump n_fb h_mode nharms lane[0..LMAX) has_dpn has_track
+// (bin_kind: 0 none, 1 ELL1, 2 Kepler; bin_model: ELL1_* or KEPLER_*; n_fb: 0
+// for the PB form)
 // consts: au_ls dmconst tsun cos_obl sin_obl
 // dmx, jump (n_batch, n_rows): each set's DMX DM and jump seconds per row;
 // onehot (n_rows, n_dmx), masks (n_jump, n_rows): the DMX and JUMP lanes'
-// seeds (each a single zero when its term is absent)
+// seeds (each a single zero when its term is absent); dpn, track (n_out,):
+// the data rows' pulse offsets and TRACK -2 pulse numbers (read only when
+// has_dpn, has_track)
 // dfrac, df: (n_batch, slots, n_out) with slots = k rounded up to whole
 // chunks of the lane width (2 for k <= 2, 4 for k <= 4, else 8); fb (n_batch,
 // n_rows)
 extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const double *freq,
                              const double *pos, const double *vel, const double *sun,
                              const double *dmx, const double *jump, const double *onehot,
-                             const double *masks, const double *params, int n_batch,
+                             const double *masks, const double *dpn, const double *track,
+                             const double *params, int n_batch,
                              const int *ints, const double *consts, double *pn, double *frac,
                              double *f, double *dfrac, double *df, double *fb, void *stream) {
   Config c;
@@ -1190,6 +1208,8 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
       (c.bin_model == KEPLER_DDK && bin_kind == BIN_KEPLER && c.ecliptic))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[17 + j] : -1;
+  c.has_dpn = ints[17 + LMAX];
+  c.has_track = ints[18 + LMAX];
   for (int j = 0; j < k; ++j) {  // a DMX or JUMP lane names an existing column
     const int m = c.lane[j];
     if ((m >= L_DMX0 && m < L_FB0 && m - L_DMX0 >= c.n_dmx) ||
@@ -1202,7 +1222,7 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   c.cos_obl = consts[3];
   c.sin_obl = consts[4];
   if (c.n_out == 0) return 0;
-  const Rows rows{t_hi, t_lo, freq, pos, vel, sun, dmx, jump, onehot, masks};
+  const Rows rows{t_hi, t_lo, freq, pos, vel, sun, dmx, jump, onehot, masks, dpn, track};
   const Out o{pn, frac, f, dfrac, df, fb};
   const bool ng = c.ecliptic || c.n_dmx > 0 || c.n_fd > 0 || c.n_jump > 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

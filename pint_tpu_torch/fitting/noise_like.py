@@ -490,7 +490,7 @@ class NoiseLikelihood(MarginalizedPosterior):
     def __init__(self, toas, model, hyper: tuple[str, ...] | None = None,
                  priors: dict | None = None, marginalize_timing: bool = True,
                  mesh=None):
-        from pint_tpu_torch.residuals import tensor_of
+        from pint_tpu_torch.residuals import tracked_tensor
 
         if mesh is not None:
             raise NotImplementedError("NoiseLikelihood over a device mesh is not ported yet "
@@ -510,7 +510,7 @@ class NoiseLikelihood(MarginalizedPosterior):
         self.scales = np.array([_prior_scale(self.priors[n]) for n in self.hyper])
         self.x0 = np.array([float(leaf_to_f64(model.params[n])) for n in self.hyper])
         self.toas = toas
-        self.tensor = tensor_of(toas, model)
+        self.tensor = tracked_tensor(toas, model)[0]
         self.device = self.tensor["t_hi"].device
         self._build()
 

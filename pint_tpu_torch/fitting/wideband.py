@@ -42,7 +42,7 @@ from pint_tpu_torch.fitting.wls import (FitResult, WLSFitter, apply_delta, run_l
                                         time_resid_design)
 from pint_tpu_torch.fitting.woodbury import NoiseBasis, ecorr_normal_eq, epoch_index
 from pint_tpu_torch.models.timing_model import TimingModel
-from pint_tpu_torch.residuals import WidebandTOAResiduals, phase_residual_frac, tensor_of
+from pint_tpu_torch.residuals import WidebandTOAResiduals, phase_residual_frac
 
 
 def refuse_unported(mesh=None, fused=None) -> None:
@@ -123,9 +123,9 @@ class WidebandDownhillFitter(WLSFitter):
     def __init__(self, toas, model: TimingModel, residuals: WidebandTOAResiduals | None = None,
                  mesh=None, fused=None):
         refuse_unported(mesh, fused)
-        self.toas = tensor_of(toas, model)
+        self.toas = toas
         self.model = model
-        self.resids = residuals or WidebandTOAResiduals(self.toas, model)
+        self.resids = residuals or WidebandTOAResiduals(toas, model)
         self.tensor = self.resids.tensor
         self._free = tuple(model.free_params)
         self.result: FitResult | None = None
@@ -141,8 +141,9 @@ class WidebandDownhillFitter(WLSFitter):
         return float(wb_chi2(self.model, params, self.tensor, *self._inputs()))
 
     def _rebuild_resids(self) -> WidebandTOAResiduals:
-        return WidebandTOAResiduals(self.toas, self.model,
-                                    subtract_mean=self.resids.toa.subtract_mean)
+        return WidebandTOAResiduals(self.tensor, self.model,
+                                    subtract_mean=self.resids.toa.subtract_mean,
+                                    track_mode=self.resids.toa.track_mode)
 
     def fit_toas(self, maxiter: int = 30, required_chi2_decrease: float = 1e-2,
                  max_rejects: int = 16) -> FitResult:

@@ -32,7 +32,7 @@ from pint_tpu_torch.models.timing_model import TimingModel
 from pint_tpu_torch.ops.dd import DD, dd_elementwise
 from pint_tpu_torch.ops.xprec import params_to_dd
 from pint_tpu_torch.residuals import (Residuals, phase_resid_tangents, phase_residual_frac,
-                                      tensor_of, weighted_mean)
+                                      weighted_mean)
 
 log = logging.getLogger("pint_tpu_torch.fitting")
 
@@ -221,9 +221,9 @@ class WLSFitter:
     prepared TOA tensor dict (``prepared.load_prepared``)."""
 
     def __init__(self, toas, model: TimingModel, residuals: Residuals | None = None):
-        self.toas = tensor_of(toas, model)
+        self.toas = toas
         self.model = model
-        self.resids = residuals or Residuals(self.toas, model)
+        self.resids = residuals or Residuals(toas, model)
         self.tensor = self.resids.tensor
         self._free = tuple(model.free_params)
         self.result: FitResult | None = None
@@ -275,8 +275,9 @@ class WLSFitter:
 
     def _rebuild_resids(self):
         """Fresh residuals at the model's current parameters, with the
-        caller's choice of mean subtraction."""
-        return Residuals(self.toas, self.model, subtract_mean=self.resids.subtract_mean)
+        caller's tracking mode and choice of mean subtraction."""
+        return Residuals(self.tensor, self.model, subtract_mean=self.resids.subtract_mean,
+                         track_mode=self.resids.track_mode)
 
     def values(self) -> dict:
         """{free name: float64 value} of the model's current parameters."""

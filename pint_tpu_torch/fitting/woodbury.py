@@ -371,7 +371,7 @@ def ecorr_normal_eq(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
     launches the kernel (and raises if it cannot); a CPU tensor takes
     `ecorr_normal_eq_plain`. Shapes and options as in the twin; ahat is
     (B, ke + kd), epoch amplitudes first. `ecorr_normal_eq.launches` counts
-    calls, each of which runs 3 to 7 kernel passes."""
+    calls, each of which runs 4 to 8 kernel passes."""
     if r.device.type == "cpu":
         return ecorr_normal_eq_plain(r, M, w, basis, ridge, centre, weighted_norm)
     out = _launch_k3(r, M, w, basis, ridge, centre, weighted_norm)
@@ -421,11 +421,11 @@ def _launch_k3(r, M, w, basis, ridge, centre, weighted_norm):
 
     mean, norm, esum, De, S1 = (empty(B, p + 1), empty(B, max(p, 1)), empty(B, max(ke, 1), V),
                                 empty(max(ke, 1)), empty(B, V, V))
-    part = empty(lib.ecorr_gram_part_size(B, p, n, ke, kd))
+    scratch = empty(lib.ecorr_gram_scratch_size(B, B, p, n, ke, kd))
     build.check(lib, lib.ecorr_gram(
         r.data_ptr(), M.data_ptr(), w.data_ptr(), Fd.data_ptr(), offsets.data_ptr(),
         rows.data_ptr(), ephi.data_ptr(), B, p, n, ke, kd, int(centre), int(weighted_norm),
-        mean.data_ptr(), norm.data_ptr(), esum.data_ptr(), De.data_ptr(), part.data_ptr(),
+        mean.data_ptr(), norm.data_ptr(), esum.data_ptr(), De.data_ptr(), scratch.data_ptr(),
         S1.data_ptr(), build.stream_of(r)))
     Wz = ad = one
     if kd:
@@ -451,8 +451,8 @@ def _declare_k3(lib) -> None:
     i = ctypes.c_int
     lib.ecorr_gram.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.ecorr_gram.restype = ctypes.c_int
-    lib.ecorr_gram_part_size.argtypes = [i, i, i, i, i]
-    lib.ecorr_gram_part_size.restype = ctypes.c_long
+    lib.ecorr_gram_scratch_size.argtypes = [i, i, i, i, i, i]
+    lib.ecorr_gram_scratch_size.restype = ctypes.c_long
     lib.ecorr_fold.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_double, p, p, p, p, p]
     lib.ecorr_fold.restype = ctypes.c_int
     lib.ecorr_gram_sets.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p]
@@ -581,7 +581,7 @@ def ecorr_normal_eq_sets(r: torch.Tensor, M: torch.Tensor, w: torch.Tensor,
     phi_e (E, ke), phi_d (E, kd) (Fd (kd, N): the dense basis, columns
     before rows). A CUDA tensor launches the kernel (and raises if it
     cannot); a CPU tensor takes `ecorr_normal_eq_sets_plain`.
-    `ecorr_normal_eq_sets.launches` counts calls (5 to 8 kernel passes
+    `ecorr_normal_eq_sets.launches` counts calls (5 to 9 kernel passes
     each)."""
     if r.device.type == "cpu":
         return ecorr_normal_eq_sets_plain(r, M, w, Fd, epochs, phi_e, phi_d, ridge)
@@ -618,11 +618,11 @@ def _launch_k3_sets(r, M, w, Fd, epochs, phi_e, phi_d, ridge) -> SetsNormalEq:
 
     mean, norm, logw = empty(p + 1), empty(max(p, 1)), empty(E)
     esum, De, S1 = empty(E, max(ke, 1), V), empty(E, max(ke, 1)), empty(E, V, V)
-    part = empty(lib.ecorr_gram_part_size(E, p, n, ke, kd))
+    scratch = empty(lib.ecorr_gram_scratch_size(E, 1, p, n, ke, kd))
     build.check(lib, lib.ecorr_gram_sets(
         r.data_ptr(), M.data_ptr(), w.data_ptr(), Fdc.data_ptr(), offsets.data_ptr(),
         rows.data_ptr(), ephi.data_ptr(), E, p, n, ke, kd, mean.data_ptr(), norm.data_ptr(),
-        logw.data_ptr(), esum.data_ptr(), De.data_ptr(), part.data_ptr(), S1.data_ptr(),
+        logw.data_ptr(), esum.data_ptr(), De.data_ptr(), scratch.data_ptr(), S1.data_ptr(),
         build.stream_of(r)))
     return _fold_sets(lib, S1, esum, De, logw, phi_e, phi_d, p, ke, kd, ridge)._replace(
         norm=norm[:p])
@@ -773,7 +773,7 @@ def ecorr_normal_eq_stacked(r: torch.Tensor, M: torch.Tensor, Gc: torch.Tensor,
     ke), phi_d (E, N, kd): E x N sets, set (e, a) reading pulsar a's rows by
     stride. A CUDA tensor launches the kernel (and raises if it cannot); a
     CPU tensor takes `ecorr_normal_eq_stacked_plain`.
-    `ecorr_normal_eq_stacked.launches` counts calls (5 to 8 kernel passes
+    `ecorr_normal_eq_stacked.launches` counts calls (5 to 9 kernel passes
     each)."""
     if r.device.type == "cpu":
         return ecorr_normal_eq_stacked_plain(r, M, Gc, w, Fd, epochs, phi_e, phi_d)
@@ -820,12 +820,12 @@ def _launch_k3_stacked(r, M, Gc, w, Fd, epochs, phi_e, phi_d) -> SetsNormalEq:
 
     mean, norm, logw = empty(N, P + 1), empty(N, max(p, 1)), empty(S)
     esum, De, S1 = empty(S, max(ke, 1), V), empty(S, max(ke, 1)), empty(S, V, V)
-    part = empty(lib.ecorr_gram_part_size(S, P, n, ke, kd))
+    scratch = empty(lib.ecorr_gram_scratch_size(S, N, P, n, ke, kd))
     build.check(lib, lib.ecorr_gram_stacked(
         r.data_ptr(), M.data_ptr(), Gc.data_ptr(), w.data_ptr(), Fdc.data_ptr(),
         offsets.data_ptr(), rows.data_ptr(), ephi.data_ptr(), E, N, p, m, n, ke, kd, nnz,
         mean.data_ptr(), norm.data_ptr(), logw.data_ptr(), esum.data_ptr(), De.data_ptr(),
-        part.data_ptr(), S1.data_ptr(), build.stream_of(r)))
+        scratch.data_ptr(), S1.data_ptr(), build.stream_of(r)))
     out = _fold_sets(lib, S1, esum, De, logw, phi_e.reshape(S, ke) if ke else None,
                      phi_d.reshape(S, kd) if kd else None, P, ke, kd, 0.0)
 

@@ -29,7 +29,10 @@ interleaved sin and cos columns at f_k = k / T over the global span T of
 the real TOAs (``noise_tspan``, a (1, 1) host column), DM noise's scaled by
 (1400 MHz / f)^2, with the power-law prior variance of each column. Kernel
 K8 writes the columns on the card (``fitting/design.fourier_basis``). The
-common GWB process (PLGWBNoise) is not ported yet (ROADMAP A12).
+common GWB process (PLGWBNoise) is the same power law on a pulsar's own span
+when it stands alone, and on an array's span, coupled across the pulsars by
+the Hellings-Downs ORF (``hd_orf``, ``orf_matrix``), in the joint PTA
+likelihood (``fitting/pta_like.py``).
 """
 
 from __future__ import annotations

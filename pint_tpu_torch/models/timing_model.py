@@ -118,9 +118,11 @@ class TimingModel:
         TDB as double-double seconds (``device_split``); every component's
         host columns; with -pp_dm flags the wideband DM measurements
         (``wb_dm``, ``wb_dme``: rows without one, the TZR row included, get
-        an infinite error, zero weight in the DM block). The TZR row belongs
-        to no mask. Columns the port does not read yet (planet positions)
-        raise."""
+        an infinite error, zero weight in the DM block); the pulse-number
+        offsets ``delta_pn`` of -padd and -phase flags (absent when all
+        zero). The tracked pulse numbers ``track_pn`` are not built here:
+        ``residuals.tracked_tensor`` adds them. The TZR row belongs to no mask. Columns the port does not read yet
+        (planet positions) raise."""
         from pint_tpu_torch.prepared import tensor_from_numpy
         from pint_tpu_torch.toas import make_tzr_toa, merge_TOAs
 
@@ -142,6 +144,11 @@ class TimingModel:
         if wb_dm is not None:
             out["wb_dm"], out["wb_dme"] = wb_dm, wb_dme
         n_rows = t_hi.shape[0]
+        # pulse-number offsets (-padd, -phase): data rows, added after the
+        # TZR row's phase is taken off, as pint_tpu's Residuals adds them
+        # (the TZR row's entry is 0 and never read)
+        if tens.delta_pulse_number is not None:
+            out["delta_pn"] = tens.delta_pulse_number
         for c in self.components:
             for k, col in c.host_columns(full, self.params).items():
                 col = np.array(col, np.float64)

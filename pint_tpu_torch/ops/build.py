@@ -116,12 +116,13 @@ def _kernel_name(mangled: str) -> str:
     return f"{name}<{','.join(args)}>" if args else name
 
 
-def ptxas_report(name: str) -> dict:
+def ptxas_report(name: str, log: Path | None = None) -> dict:
     """{function: (registers, spill store bytes)} from the ptxas report in
-    the build log of library `name`: every kernel instance, and every device
-    function ptxas kept as a call with a stack frame of its own (its
-    registers count toward its caller's, so they read 0 here)."""
-    p = build_dir() / f"{name}.log"
+    the build log of library `name` (or the nvcc log at `log`): every kernel
+    instance, and every device function ptxas kept as a call with a stack
+    frame of its own (its registers count toward its caller's, so they read
+    0 here)."""
+    p = log or build_dir() / f"{name}.log"
     out, entry, props = {}, None, None
     for line in (p.read_text() if p.exists() else "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)

@@ -25,7 +25,14 @@ Besides the fixed `COLUMNS`, a model with noise components reads
   noise bases' fundamental period;
 - ``wb_dm``, ``wb_dme`` (N+1,): wideband TOAs' DM measurements and their
   errors (pc cm^-3; an infinite error, zero weight, on rows without one,
-  the TZR row always).
+  the TZR row always);
+- ``delta_pn`` (N+1,): each row's -padd plus -phase pulse offset in turns
+  (absent when all are zero; the TZR row 0), added to the phase before
+  the nearest pulse is taken;
+- ``track_pn`` (N+1,): when residuals track pulse numbers (``TRACK -2``
+  or ``track_mode="use_pulse_numbers"``; ``residuals.tracked_tensor``
+  adds it), the -pn pulse numbers (NaN where a row has none; the TZR row
+  0), subtracted from the phase in place of the nearest pulse.
 
 `tensor_from_numpy` and `params_from_numpy` are the bridge from values
 computed by pint_tpu (as numpy; dd leaves as (hi, lo) pairs) to the port.
@@ -51,6 +58,7 @@ _DROPPED = ("t_q0", "t_q1", "t_q2", "t_q3")
 ECORR_COLUMNS = ("ecorr_eidx", "ecorr_widx")
 MODEL_COLUMNS = ("dmx_onehot", "noise_tspan")
 WIDEBAND_COLUMNS = ("wb_dm", "wb_dme")
+PULSE_COLUMNS = ("delta_pn", "track_pn")
 
 SMOKE_ARCHIVE = Path(__file__).resolve().parent / "data" / "smoke_n16384.npz"
 #: profiles.FLAGSHIP_SMOKE_PAR over 16,384 sub-band TOAs in 2,048 epochs
@@ -82,10 +90,11 @@ WIDEBAND_TIM = Path(__file__).resolve().parent / "data" / "wideband_n16384.tim"
 
 def carried(names) -> list[str]:
     """The columns of `names` the port carries, in a fixed order: COLUMNS,
-    then the mask columns sorted, then the ECORR, DMX, noise-span and
-    wideband columns. Any other column raises, rather than being dropped silently."""
+    then the mask columns sorted, then the ECORR, DMX, noise-span,
+    wideband and pulse-number columns. Any other column raises, rather than
+    being dropped silently."""
     names = set(names)
-    tail = ECORR_COLUMNS + MODEL_COLUMNS + WIDEBAND_COLUMNS
+    tail = ECORR_COLUMNS + MODEL_COLUMNS + WIDEBAND_COLUMNS + PULSE_COLUMNS
     unknown = names - set(COLUMNS) - set(_DROPPED) - set(tail)
     unknown = {k for k in unknown if not k.startswith("mask_")}
     if unknown:

@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from pint_tpu_torch import AU_LS, DMCONST, TSUN_S
@@ -137,17 +138,32 @@ def barycentric_freq(model: TimingModel, params: dict, tensor: dict) -> torch.Te
     return barycentric_radio_freq(model._with_context(params, tensor))
 
 
+def pulse_columns(model: TimingModel, tensor: dict):
+    """(delta_pn, track_pn) over the data rows, each None where the tensor
+    lacks its column (``TimingModel.build_tensor``)."""
+    n_out = tensor["t_hi"].shape[0] - int(model.has_abs_phase)
+    return tuple(tensor[k][:n_out] if k in tensor else None for k in ("delta_pn", "track_pn"))
+
+
 def resid_tangent_plain(model: TimingModel, params: dict, tensor: dict,
                         lanes: tuple = ()) -> ResidTangent:
     """Twin of K1: the model's forward chain in plain torch, tangents by
-    torch.func.jvp over the lane parameters (one jvp per lane, vmapped)."""
+    torch.func.jvp over the lane parameters (one jvp per lane, vmapped).
+    The pulse offsets ``delta_pn`` are added to the phase before the
+    nearest pulse is taken; with ``track_pn`` the residual is the phase
+    minus those pulse numbers (pint_tpu's ``phase_residual_frac``)."""
     k = len(lanes)
+    dpn, track = pulse_columns(model, tensor)
     outs = []
     for b in range(batch_size(params)):
         pb = take(params, b)
 
         def fwd(delta):
             ph, f = model.phase_and_freq(_apply_lanes(pb, lanes, delta), tensor)
+            if dpn is not None:
+                ph = dd_add_fp(ph, dpn)
+            if track is not None:
+                return dd_to_float(dd_add_fp(ph, -track)), f, track
             pn, rem = dd_rint(ph)
             return dd_to_float(rem), f, pn
 
@@ -410,20 +426,28 @@ def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> 
     for t in ng:
         if t.dtype != torch.float64 or t.device != dev:
             raise ValueError(f"kernel K1's DMX and JUMP columns must be float64 on {dev}")
+    dpn, track = pulse_columns(model, tensor)
+    none = torch.zeros(1, dtype=torch.float64, device=dev)
+    pulse = [none if t is None else t.contiguous() for t in (dpn, track)]
+    for t in pulse:
+        if t.dtype != torch.float64 or t.device != dev:
+            raise ValueError(f"the pulse-number columns must be float64 on {dev}")
     slots = _lane_slots(k)
     out = [torch.empty((B, n_out), dtype=torch.float64, device=dev) for _ in range(3)]
     tan = [torch.empty((B, slots, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
     fb = torch.empty((B, n_rows), dtype=torch.float64, device=dev)
-    ints = (ctypes.c_int * (17 + MAX_LANES))(
+    ints = (ctypes.c_int * (19 + MAX_LANES))(
         n_rows, n_out, int(has_tzr), int(st.has_ast), st.nd, st.nf, P.shape[1], k,
         st.bin_kind, st.bin_model, int(st.ecliptic), st.n_dmx, st.n_fd, st.n_jump,
-        st.n_fb, st.h_mode, st.nharms, *(codes + [-1] * (MAX_LANES - k)))
+        st.n_fb, st.h_mode, st.nharms, *(codes + [-1] * (MAX_LANES - k)),
+        int(dpn is not None), int(track is not None))
     consts = (ctypes.c_double * 5)(AU_LS, DMCONST, TSUN_S, COS_OBL, SIN_OBL)
     from pint_tpu_torch.ops import build
 
     lib = build.library("resid_tangent", _declare_k1)
     build.check(lib, lib.resid_tangent(
-        *[t.data_ptr() for t in rows], *[t.data_ptr() for t in ng], P.data_ptr(), B, ints,
+        *[t.data_ptr() for t in rows], *[t.data_ptr() for t in ng],
+        *[t.data_ptr() for t in pulse], P.data_ptr(), B, ints,
         consts, *[o.data_ptr() for o in out], *[t.data_ptr() for t in tan], fb.data_ptr(),
         build.stream_of(P)))
     return ResidTangent(*out, tan[0][:, :k], tan[1][:, :k], fb)
@@ -434,7 +458,7 @@ resid_tangent.launches = 0
 
 def _declare_k1(lib) -> None:
     p = ctypes.c_void_p
-    lib.resid_tangent.argtypes = [p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
+    lib.resid_tangent.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
                                   ctypes.POINTER(ctypes.c_int),
                                   ctypes.POINTER(ctypes.c_double), p, p, p, p, p, p, p]
     lib.resid_tangent.restype = ctypes.c_int
@@ -485,12 +509,41 @@ def tensor_of(toas, model: TimingModel) -> dict:
     return toas if isinstance(toas, dict) else model.build_tensor(toas)
 
 
+def tracked_tensor(toas, model: TimingModel, track_mode: str | None = None):
+    """(tensor, track_mode): the tensor of `toas` as residuals of `model` in
+    `track_mode` read it, and the one place that decides the mode. The
+    default is pint_tpu's: "use_pulse_numbers" under the model's
+    ``TRACK -2``, else "nearest". "nearest" drops a tensor's ``track_pn``;
+    "use_pulse_numbers" keeps a tensor dict's ``track_pn`` or adds the
+    TOAs' -pn pulse numbers (the TZR row 0), and raises as pint_tpu raises
+    when there are none."""
+    if track_mode is None:
+        track_mode = "use_pulse_numbers" if model.meta.get("TRACK") == "-2" else "nearest"
+    if track_mode not in ("nearest", "use_pulse_numbers"):
+        raise ValueError(f"unknown track_mode {track_mode!r}")
+    tensor = tensor_of(toas, model)
+    if track_mode == "nearest":
+        return {k: v for k, v in tensor.items() if k != "track_pn"}, track_mode
+    if "track_pn" not in tensor:
+        pn = None if isinstance(toas, dict) else toas.get_pulse_numbers()
+        if pn is None:
+            raise ValueError("track_mode=use_pulse_numbers but TOAs have no pulse numbers")
+        if model.has_abs_phase:
+            pn = np.append(pn, 0.0)
+        tensor = {**tensor, "track_pn": torch.as_tensor(pn, dtype=torch.float64,
+                                                        device=tensor["t_hi"].device)}
+    return tensor, track_mode
+
+
 class Residuals:
     """Residuals of a model against TOAs: a tensor dict, or prepared TOAs
-    (``toas.get_TOAs``), whose tensor is built once here."""
+    (``toas.get_TOAs``), whose tensor is built once here. `track_mode` as
+    `tracked_tensor`: the tensor the residuals read (``self.tensor``, which
+    the fitters and grids take) holds ``track_pn`` only when tracking."""
 
-    def __init__(self, toas, model: TimingModel, subtract_mean: bool = True):
-        toas = tensor_of(toas, model)
+    def __init__(self, toas, model: TimingModel, subtract_mean: bool = True,
+                 track_mode: str | None = None):
+        toas, self.track_mode = tracked_tensor(toas, model, track_mode)
         dev = toas["t_hi"].device
         if model.device is not None and torch.device(model.device) != dev:
             raise ValueError(f"model on {model.device} but TOAs on {dev}")
@@ -561,8 +614,9 @@ class WidebandTOAResiduals:
     is dm_data - total_dm (the model DM from kernel K8's DM-row pass) with
     the DMEFAC/DMEQUAD-scaled uncertainties; chi^2 adds the two blocks."""
 
-    def __init__(self, toas, model: TimingModel, subtract_mean: bool = True):
-        self.toa = Residuals(toas, model, subtract_mean)
+    def __init__(self, toas, model: TimingModel, subtract_mean: bool = True,
+                 track_mode: str | None = None):
+        self.toa = Residuals(toas, model, subtract_mean, track_mode)
         self.toas = self.toa.toas
         self.tensor = self.toa.tensor
         self.model = model

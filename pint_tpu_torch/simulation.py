@@ -35,7 +35,8 @@ def zero_residuals(toas: TOAs, model, maxiter: int = 10, tolerance_s: float = 1e
     cur = toas
     best, best_worst = toas, np.inf
     for i in range(maxiter):
-        r = Residuals(cur, model, subtract_mean=False).time_resids.cpu().numpy()
+        r = Residuals(cur, model, subtract_mean=False,
+                      track_mode="nearest").time_resids.cpu().numpy()
         worst = float(np.max(np.abs(r)))
         if worst < tolerance_s:
             log.info(f"zero_residuals converged after {i} passes (worst {worst:.2e} s)")

@@ -76,6 +76,9 @@ class TOATensor:
     ssb_obs_vel_ls: np.ndarray
     obs_sun_pos_ls: np.ndarray
     planet_pos_ls: dict[str, np.ndarray] = field(default_factory=dict)
+    #: the -padd (the .tim PHASE command) plus -phase flags, turns; None
+    #: when every row's sum is zero
+    delta_pulse_number: np.ndarray | None = None
 
 
 @dataclass
@@ -143,8 +146,27 @@ class TOAs:
                     f"{int(np.flatnonzero(bad)[0])}); wideband DM measurements need both")
         return dm, dme
 
+    def get_pulse_numbers(self) -> np.ndarray | None:
+        """The -pn flag of every row as float64 (NaN where a row has none);
+        None when no row has one."""
+        out = np.full(len(self.flags), np.nan)
+        any_pn = False
+        for i, f in enumerate(self.flags):
+            p = f.get("pn")
+            if p is not None:
+                out[i] = float(p)
+                any_pn = True
+        return out if any_pn else None
+
     def tensor(self) -> TOATensor:
         t_hi, t_lo = self.tdb.seconds_since(TENSOR_EPOCH_MJD)
+        # the pulse offsets: -padd (the PHASE command) plus -phase, per row
+        dpn = np.zeros(len(self.flags))
+        any_dpn = False
+        for i, f in enumerate(self.flags):
+            if "padd" in f or "phase" in f:
+                dpn[i] = float(f.get("padd", 0.0)) + float(f.get("phase", 0.0))
+                any_dpn = True
         return TOATensor(
             t_hi=t_hi,
             t_lo=t_lo,
@@ -154,6 +176,7 @@ class TOAs:
             ssb_obs_vel_ls=self.ssb_obs_vel_m_s / C_M_PER_S,
             obs_sun_pos_ls=self.obs_sun_pos_m / C_M_PER_S,
             planet_pos_ls={k: v / C_M_PER_S for k, v in self.planet_pos_m.items()},
+            delta_pulse_number=dpn if any_dpn and np.any(dpn) else None,
         )
 
 
