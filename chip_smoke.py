@@ -297,10 +297,22 @@ Last, the .tim pulse-number offsets and TRACK -2 (ROADMAP C11,
    downhill WLS fit under TRACK -2 from phase 6's moved start, gated as phase
    6 against the twin path.
 
+Last, the backward kernels on random inputs:
+
+58. K9 and K10 against their twins on inputs drawn from a seed
+   (`K9_SWEEP`, `K10_SWEEP`: E = 3, p = 0, kd = 0, ke = 0, rows that are not a
+   multiple of a tile, pad rows, kd = 120, and widths that run each of the
+   kernels' 3-, 6- and 12-tile instances) under phase 46's and 52's gates,
+   bitwise across two calls.
+
 Phase 2 also prints K3's Gram as built: the DMMA (float64 tensor-core)
 instructions in its library's SASS (``cuobjdump -sass``; none fails the run)
 and each gram_pass instance's registers and spills, which every K3 record
-repeats.
+repeats; and the same of K9's and K10's libraries (their three passes'
+registers and spills; no DMMA fails the run). Their records carry each
+pass's device ms (each call profiled alone), the call by CUDA events behind
+a busy queue, the factor pass's share, the twin's torch.linalg factors by
+CUDA events, and the rows pass's ms at E = 8 over 8 times its ms at E = 1.
 
 The launch counters are zeroed just before each ``fit_toas`` and read just
 after it, then zeroed and read again around each ``grid_chisq`` (the
@@ -324,7 +336,7 @@ simulation K1, K4, K5 and K8's Fourier pass, each PTA likelihood's loglike and
 loglike_many K3's stacked mode, its grad and optimize K3's stacked mode and
 K10.
 K2's and K3's counts are of calls; K2 runs 2 or 3 kernel passes (counted apart), K3 4 to 8
-(its per-set and stacked modes 5 to 9), K9 and K10 2. At the
+(its per-set and stacked modes 5 to 9), K9 and K10 3. At the
 shapes of the main path, ``ms`` is a kernel's
 device time per call from torch.profiler (``plain_ms``, ``library_ms``: all
 the kernels the twin or the library call runs; where the profiler reads no
@@ -472,6 +484,35 @@ def queued_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def by_kernel(call, reps: int, pattern) -> list:
+    """[(pass, device ms)] of one call's kernels whose names hold `pattern`
+    (one string or a tuple of them), in launch order: the median over `reps`
+    calls, each profiled alone (a profile that saw no pass, or another
+    number of passes than the first, is left out)."""
+    import re
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and named(e.name, pattern)), key=lambda e: e.time_range.start)
+        run = [(re.search(r"\w+(<[\d, ]+>)?(?=\()", e.name).group(0),
+                e.time_range.elapsed_us() / 1e3) for e in events]
+        if run and (not runs or len(run) == len(runs[0])):
+            runs.append(run)
+    if not runs:
+        raise SmokeFailure(f"the profiler saw no kernel {pattern} in {reps} calls")
+    return [(runs[0][k][0], statistics.median(r[k][1] for r in runs))
+            for k in range(len(runs[0]))]
 
 
 def named(name: str, pats) -> bool:
@@ -1035,28 +1076,45 @@ P_ROW_LEN = 84
 _K3_BUILD: dict = {}
 
 
-def k3_build_info() -> dict:
-    """K3's Gram as built: each gram_pass instance's registers and spill
-    store bytes (ptxas) and the DMMA (float64 tensor-core) instructions in
-    its library's SASS (``cuobjdump -sass``; None where there is no
-    library, as on the CPU). Read once a run."""
+def sass_dmma(name: str):
+    """The DMMA (float64 tensor-core) instructions in library `name`'s SASS
+    (``cuobjdump -sass``); None where there is no library, as on the CPU."""
     import shutil
 
+    from pint_tpu_torch.ops import build
+
+    lib = build.build_dir() / f"lib{name}.so"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not (lib.exists() and os.path.exists(tool)):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    return sum(1 for ln in sass.splitlines() if " DMMA" in ln)
+
+
+def k3_build_info() -> dict:
+    """K3's Gram as built: each gram_pass instance's registers and spill
+    store bytes (ptxas) and the DMMA instructions in its library's SASS.
+    Read once a run."""
     from pint_tpu_torch.ops import build
 
     if not _K3_BUILD:
         rep = build.ptxas_report("ecorr_normal_eq")
         _K3_BUILD["gram_ptxas"] = {k: {"registers": r, "spill_store_bytes": sp}
                                    for k, (r, sp) in rep.items() if "gram_pass" in k}
-        lib = build.build_dir() / "libecorr_normal_eq.so"
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        dmma = None
-        if lib.exists() and os.path.exists(tool):
-            sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                                  timeout=300).stdout
-            dmma = sum(1 for ln in sass.splitlines() if " DMMA" in ln)
-        _K3_BUILD["sass_dmma"] = dmma
+        _K3_BUILD["sass_dmma"] = sass_dmma("ecorr_normal_eq")
     return dict(_K3_BUILD)
+
+
+def grad_build_info(name: str) -> dict:
+    """K9's or K10's library as built (`name`: noise_grad, pta_grad): each
+    pass instance's registers and spill store bytes (ptxas) and the DMMA
+    instructions in its SASS."""
+    from pint_tpu_torch.ops import build
+
+    return {"ptxas": {k: {"registers": r, "spill_store_bytes": sp}
+                      for k, (r, sp) in build.ptxas_report(name).items()},
+            "sass_dmma": sass_dmma(name)}
 
 
 def k3_with_build(rec: dict) -> dict:
@@ -2904,7 +2962,7 @@ NOISE_START = {"EFAC1": 1.3, "EFAC2": 0.8, "EQUAD1": 1.23e-6, "EQUAD2": 0.87e-6,
 #: K3's per-set-weight mode is checked and timed at these numbers of weight
 #: sets (grad, optimize's 8 restarts, loglike_many's bucket), K9 at the first two
 NOISE_SETS = (1, 8, 256)
-K9_KERNELS = ("phi_pass", "row_pass")
+K9_KERNELS = ("noise_grad_factors", "noise_grad_basis", "noise_grad_rows")
 
 
 def noise_points(nl, E: int, seed: int):
@@ -2972,14 +3030,31 @@ def phase_k3_sets(nl, device, k3_old) -> dict:
     return out
 
 
-def phase_k9(nl, device) -> float:
-    """Phase 46: K9 against its twin on the kernel forward's state, both
-    modes, at E = 1 and 8: d lnL / d w and d lnL / d phi within 1e-12 of
-    each set's largest entry, bitwise repeatable. Returns the largest
-    absolute error of d lnL / d w."""
+def check_k9(core, st, device, tag: str) -> float:
+    """K9 against its twin on one state: d lnL / d w and d lnL / d phi
+    within 1e-12 of each set's largest entry, bitwise equal across two
+    calls. Returns the largest absolute error of d lnL / d w."""
     import torch
 
-    from pint_tpu_torch.fitting.noise_like import noise_forward, noise_grad, noise_grad_plain
+    from pint_tpu_torch.fitting.noise_like import noise_grad, noise_grad_plain
+
+    got, again = noise_grad(core, st), noise_grad(core, st)
+    want = noise_grad_plain(core, st)
+    sync(device)
+    E = st.w.shape[0]
+    for name, g, wv in zip(("dlnL/dw", "dlnL/dphi"), got, want):
+        err = max(rel_err(g[e], wv[e]) for e in range(E))
+        check(err <= 1e-12, f"{tag}: {name} within 1e-12 of the largest entry ({err:.3g})")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{tag}: bitwise equal across two runs")
+    return float(torch.max(torch.abs(got[0] - want[0])))
+
+
+def phase_k9(nl, device) -> float:
+    """Phase 46: K9 against its twin on the kernel forward's state, both
+    modes, at E = 1 and 8 (`check_k9`). Returns the largest absolute error
+    of d lnL / d w."""
+    from pint_tpu_torch.fitting.noise_like import noise_forward
 
     worst = 0.0
     for E in NOISE_SETS[:2]:
@@ -2987,16 +3062,8 @@ def phase_k9(nl, device) -> float:
         for marg in (True, False):
             core = nl._core._replace(marginalize=marg)
             _, st = noise_forward(core, w, pe, pd)
-            got, again = noise_grad(core, st), noise_grad(core, st)
-            want = noise_grad_plain(core, st)
-            sync(device)
-            tag = f"K9 (E={E}, {'marginalized' if marg else 'profiled'})"
-            for name, g, wv in zip(("dlnL/dw", "dlnL/dphi"), got, want):
-                err = max(rel_err(g[e], wv[e]) for e in range(E))
-                check(err <= 1e-12, f"{tag}: {name} within 1e-12 of the largest entry ({err:.3g})")
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"{tag}: bitwise equal across two runs")
-            worst = max(worst, float(torch.max(torch.abs(got[0] - want[0]))))
+            worst = max(worst, check_k9(core, st, device,
+                                        f"K9 (E={E}, {'marginalized' if marg else 'profiled'})"))
     return worst
 
 
@@ -3138,14 +3205,44 @@ def k3_sets_record(core, w, pe, pd, device) -> dict:
                           "shape": f"E={E} N={n} p={p} ke={ke} kd={kd}"})
 
 
+def grad_record(call, prep, device, names) -> dict:
+    """K9's or K10's call: the device ms of each of its passes (`by_kernel`,
+    each call profiled alone, the median) and their sum (`ms`), the whole
+    call by CUDA events behind a busy queue (`queued_ms`), the factor pass's
+    share of the three, and the twin's small-factor prep (`_grad_prep`,
+    which pass 1 replaces) by CUDA events."""
+    out = {"ms": None, "passes_ms": None, "queued_ms": None, "twin_prep_ms": None,
+           "factor_share": None}
+    if device.type != "cuda":
+        return out
+    passes = by_kernel(call, 20, names)
+    total = sum(ms for _, ms in passes)
+    out.update(ms=total, passes_ms=dict(passes), queued_ms=queued_ms(call, 20),
+               twin_prep_ms=queued_ms(prep, 20), factor_share=passes[0][1] / total)
+    return out
+
+
+def rows_share(rec: dict) -> None:
+    """Adds to a K9 or K10 record (E = 1, and E = 8 under "e8_") the rows
+    pass's device ms at E = 8 over 8 times its ms at E = 1 (1 where a set
+    costs at E = 8 what it costs alone). The bytes the pass reads are not
+    measured: no DRAM counter is read."""
+    def rows(passes):
+        return sum(ms for k, ms in passes.items() if "_rows" in k) if passes else None
+
+    one, eight = rows(rec.get("passes_ms")), rows(rec.get("e8_passes_ms"))
+    rec["e8_rows_over_8x_e1"] = eight / (8 * one) if one and eight else None
+
+
 def k9_record(core, w, pe, pd, device) -> dict:
     """K9 at E = w.shape[0] weight sets on the kernel forward's state."""
-    from pint_tpu_torch.fitting.noise_like import noise_forward, noise_grad, noise_grad_plain
+    from pint_tpu_torch.fitting.noise_like import (_grad_prep, noise_forward, noise_grad,
+                                                   noise_grad_plain)
 
     _, st = noise_forward(core, w, pe, pd)
     E, n = w.shape
     p, ke, kd = core.M.shape[0], pe.shape[1], pd.shape[1]
-    ms, call = measure(lambda: noise_grad(core, st), device, 20, K9_KERNELS)
+    call = timed_ms(lambda: noise_grad(core, st), device, 20)
     whole, _ = measure(lambda: noise_grad(core, st), device, 20)
     plain, plain_call = measure(lambda: noise_grad_plain(core, st), device, 3)
     V = p + 1 + kd
@@ -3162,7 +3259,11 @@ def k9_record(core, w, pe, pd, device) -> dict:
     n_mma = E * 2 * ((n + ke) * rows + kd * p * (p + 1) // 2)
     n_ops = E * 4 * (n + ke) * (p + kd)
     b, how = bound_ms(n_bytes, n_ops, n_mma)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+    rec = grad_record(lambda: noise_grad(core, st), lambda: _grad_prep(st, p), device,
+                      K9_KERNELS)
+    print(f"  K9 E={E}: {rec['ms']} ms, passes {rec['passes_ms']}, queued {rec['queued_ms']}, "
+          f"twin prep {rec['twin_prep_ms']}")
+    return {**rec, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
             "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
             "shape": f"E={E} N={n} p={p} ke={ke} kd={kd}"}
 
@@ -3195,7 +3296,7 @@ def noise_walls(nl, device) -> dict:
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy = sum(us for _, us in kern) / 1e6
         k9 = sum(us for k, us in kern if any(p in k for p in K9_KERNELS)) / 1e6
-        k3 = sum(us for k, us in kern if named(k, K3_KERNEL)) / 1e6 - k9
+        k3 = sum(us for k, us in kern if named(k, K3_KERNEL)) / 1e6
         out[f"{name}_profile"] = {
             "device_busy_s": busy, "busy_share": busy / out[f"{name}_s"], "k3_s": k3, "k9_s": k9,
             "top": [[k[:70], us / 1e6] for k, us in sorted(kern, key=lambda r: -r[1])[:6]]}
@@ -3260,6 +3361,7 @@ def noise_phases(device, summary: dict, ng: dict) -> dict:
         if E <= 8:
             rec = k9_record(core, w, pe, pd, device)
             recs["noise_grad"].update(rec if E == 1 else {f"e{E}_{k}": v for k, v in rec.items()})
+    rows_share(recs["noise_grad"])
     walls = noise_walls(nl, device)
     print("  walls (s): " + json.dumps({k: v for k, v in walls.items() if k.endswith("_s")}))
     summary["noise"] = {"shape": dict(zip(("N", "p_lin", "ke", "kd", "h"), shape)),
@@ -3278,7 +3380,7 @@ PTA_SHAPE = (64, 8192, 29)
 #: K3's stacked mode is checked and timed at these numbers of points (grad,
 #: optimize's 8 restarts, loglike_many's bucket), K10 at the first two
 PTA_SETS = (1, 8, 256)
-K10_KERNELS = ("pta_phi_pass", "pta_row_pass")
+K10_KERNELS = ("pta_grad_factors", "pta_grad_basis", "pta_grad_rows")
 #: optimize's start (phase 53): the pulsars' and the background's noise off the
 #: simulation's truth, so that Adam's first steps raise the ln posterior
 PTA_START = {"EFAC1": 1.25, "EQUAD1": 0.45e-6, "ECORR1": 0.65e-6, "TNREDAMP": -13.3,
@@ -3540,35 +3642,42 @@ def k10_rounding_bound(core, st, gbar, ldbar):
     return bw.reshape(E, N, n), bphi.reshape(E, N, ke + kd), q + kd + 8
 
 
-def phase_k10(pta, device, label: str) -> float:
-    """K10 against its twin on the kernel forward's state under the coupling's
-    cotangent, at E = 1 and 8: d/dw and d/dphi within 1e-12 of each set's
-    largest entry or, entry by entry, within twice the rounding bound of a sum
-    of its terms (`k10_rounding_bound`: 2 n u sum |terms|, u = 2^-53), and
-    bitwise repeatable. Returns the largest absolute error of d/dw."""
+def check_k10(core, st, gbar, ldbar, device, tag: str) -> float:
+    """K10 against its twin on one state: d/dw and d/dphi within 1e-12 of
+    each set's largest entry or, entry by entry, within twice the rounding
+    bound of a sum of its terms (`k10_rounding_bound`: 2 n u sum |terms|, u
+    = 2^-53), and bitwise equal across two calls. Returns the largest
+    absolute error of d/dw."""
     import torch
 
     from pint_tpu_torch.fitting.pta_like import pta_grad, pta_grad_plain
 
+    got, again = pta_grad(core, st, gbar, ldbar), pta_grad(core, st, gbar, ldbar)
+    want = pta_grad_plain(core, st, gbar, ldbar)
+    bounds = k10_rounding_bound(core, st, gbar, ldbar)
+    sync(device)
+    u = 2.0**-53
+    for name, g, wv, b in zip(("d/dw", "d/dphi"), got, want, bounds[:2]):
+        err = per_set_err(g, wv)
+        ratio = float(torch.max(torch.abs(g - wv) / (2 * bounds[2] * u * b))) \
+            if b.numel() else 0.0
+        check(err <= 1e-12 or ratio <= 1.0,
+              f"{tag}: {name} within 1e-12 of each set's largest entry ({err:.3g}), or "
+              f"every entry within twice its sum's rounding bound ({ratio:.3g} of it)")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{tag}: bitwise equal across two runs")
+    return float(torch.max(torch.abs(got[0] - want[0])))
+
+
+def phase_k10(pta, device, label: str) -> float:
+    """K10 against its twin on the kernel forward's state under the coupling's
+    cotangent, at E = 1 and 8 (`check_k10`). Returns the largest absolute
+    error of d/dw."""
     worst = 0.0
     for E in PTA_SETS[:2]:
         core, st, gbar, ldbar = pta_cotangents(pta, E, 52)
-        got, again = pta_grad(core, st, gbar, ldbar), pta_grad(core, st, gbar, ldbar)
-        want = pta_grad_plain(core, st, gbar, ldbar)
-        bounds = k10_rounding_bound(core, st, gbar, ldbar)
-        sync(device)
-        tag = f"{label}: K10 (E={E} x N={st.w.shape[1]})"
-        u = 2.0**-53
-        for name, g, wv, b in zip(("d/dw", "d/dphi"), got, want, bounds[:2]):
-            err = per_set_err(g, wv)
-            ratio = float(torch.max(torch.abs(g - wv) / (2 * bounds[2] * u * b))) \
-                if b.numel() else 0.0
-            check(err <= 1e-12 or ratio <= 1.0,
-                  f"{tag}: {name} within 1e-12 of each set's largest entry ({err:.3g}), or "
-                  f"every entry within twice its sum's rounding bound ({ratio:.3g} of it)")
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"{tag}: bitwise equal across two runs")
-        worst = max(worst, float(torch.max(torch.abs(got[0] - want[0]))))
+        worst = max(worst, check_k10(core, st, gbar, ldbar, device,
+                                     f"{label}: K10 (E={E} x N={st.w.shape[1]})"))
     return worst
 
 
@@ -3731,10 +3840,10 @@ def k3_stacked_record(pta, E: int, device) -> dict:
 
 def k10_record(pta, E: int, device) -> dict:
     """K10 at E points of array A on the kernel forward's state."""
-    from pint_tpu_torch.fitting.pta_like import pta_grad, pta_grad_plain
+    from pint_tpu_torch.fitting.pta_like import _grad_prep, pta_grad, pta_grad_plain
 
     core, st, gbar, ldbar = pta_cotangents(pta, E, 56)
-    ms, call = measure(lambda: pta_grad(core, st, gbar, ldbar), device, 20, K10_KERNELS)
+    call = timed_ms(lambda: pta_grad(core, st, gbar, ldbar), device, 20)
     whole, _ = measure(lambda: pta_grad(core, st, gbar, ldbar), device, 20)
     plain, plain_call = measure(lambda: pta_grad_plain(core, st, gbar, ldbar), device, 3)
     _, N, n = st.w.shape
@@ -3755,7 +3864,11 @@ def k10_record(pta, E: int, device) -> dict:
     n_mma = S * 2 * ((n + ke) * rows + kd * q * (q + 1) // 2)
     n_ops = S * (4 * (n + ke) * (q + kd) + q * q)
     b, how = bound_ms(n_bytes, n_ops, n_mma)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+    rec = grad_record(lambda: pta_grad(core, st, gbar, ldbar), lambda: _grad_prep(st), device,
+                      K10_KERNELS)
+    print(f"  K10 E={E}: {rec['ms']} ms, passes {rec['passes_ms']}, queued {rec['queued_ms']}, "
+          f"twin prep {rec['twin_prep_ms']}")
+    return {**rec, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
             "call_ms": call, "call_device_ms": whole, "plain_call_ms": plain_call,
             "shape": f"E={E} N={N} rows={n} p={p} m={m} ke={ke} kd={kd}"}
 
@@ -3796,7 +3909,7 @@ def pta_walls(pta, device, optimize_s: float) -> dict:
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         busy = sum(us for _, us in kern) / 1e6
         k10 = sum(us for k, us in kern if any(p in k for p in K10_KERNELS)) / 1e6
-        k3 = sum(us for k, us in kern if named(k, K3_KERNEL)) / 1e6 - k10
+        k3 = sum(us for k, us in kern if named(k, K3_KERNEL)) / 1e6
         out[f"{name}_profile"] = {
             "device_busy_s": busy, "busy_share": busy / out[f"{name}_s"], "k3_s": k3,
             "k10_s": k10, "top": [[k[:70], us / 1e6]
@@ -3950,6 +4063,7 @@ def pta_phases(device, summary: dict, noise: dict, shape=PTA_SHAPE, small: int =
             if E <= 8:
                 r = k10_record(pta, E, device)
                 recs["pta_grad"].update(r if E == 1 else {f"e{E}_{k}": v for k, v in r.items()})
+        rows_share(recs["pta_grad"])
         walls = pta_walls(pta, device, main["walls"]["optimize_s"])
         print("  walls (s): " + json.dumps({k: v for k, v in walls.items() if k.endswith("_s")}))
         lap(56)
@@ -3963,6 +4077,120 @@ def pta_phases(device, summary: dict, noise: dict, shape=PTA_SHAPE, small: int =
     errs = {"ecorr_normal_eq_stacked": max(v["chi2_abs_err"] for v in k3.values()),
             "pta_grad": k10_err}
     return {"recs": recs, "errs": errs, "windows": windows}
+
+
+# --- phase 58: K9 and K10 on random inputs --------------------------------------------
+
+
+def k9_random(n: int, p: int, ke: int, kd: int, E: int, marg: bool, seed: int, device,
+              width: int = 8):
+    """(core, state) of K9 on random inputs drawn from `seed` (numpy): n rows
+    in a random order, the first ke x width of them in ke epochs of `width`
+    rows (the rest in none), p timing and kd dense columns, E weight sets;
+    the state from the likelihood's forward (K3's per-set mode on a card)."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.fitting.noise_like import NoiseCore, noise_forward
+    from pint_tpu_torch.fitting.woodbury import epoch_index
+
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float64, device=device)
+
+    eidx = np.full(n, -1)
+    k = min(n, ke * width)
+    eidx[:k] = np.repeat(np.arange(ke), width)[:k]
+    eidx = eidx[rng.permutation(n)]
+    M = t(rng.standard_normal((p, n)))
+    core = NoiseCore(r0=t(rng.standard_normal(n)), M=M, mnorm=torch.sqrt(torch.sum(M * M, dim=1)),
+                     Fd=t(rng.standard_normal((kd, n))) if kd else None,
+                     epochs=epoch_index(torch.tensor(eidx, device=device), ke) if ke else None,
+                     eidx=torch.tensor(eidx, dtype=torch.int32, device=device), marginalize=marg)
+    w, pe, pd = (t(rng.uniform(0.5, 2.0, shape)) for shape in ((E, n), (E, ke), (E, kd)))
+    _, st = noise_forward(core, w, pe, pd)
+    return core, st
+
+
+def k10_random(n: int, N: int, p: int, m: int, ke: int, kd: int, E: int, seed: int, device,
+               width: int = 2, pad: int = 0):
+    """(core, state, gbar, ldbar) of K10 on random inputs drawn from `seed`
+    (numpy): N pulsars of n bucket rows, up to
+    `pad` rows at the end (pulsar a: a pad / (N - 1) of them) pad rows
+    (zero data, w = 0), the first ke x width data rows in
+    ke epochs of `width` rows; p timing, m common and kd dense columns, E
+    points; the state from the blocks' forward (K3's stacked mode on a
+    card), gbar and ldbar standard normal (gbar indefinite, as the
+    coupling's)."""
+    import numpy as np
+    import torch
+
+    from pint_tpu_torch.fitting.pta_like import PTACore, pta_blocks
+    from pint_tpu_torch.fitting.woodbury import stacked_epochs
+
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float64, device=device)
+
+    data = n - (np.arange(N) * pad) // max(N - 1, 1)  # pulsar a's data rows
+    live = np.arange(n)[None, :] < data[:, None]
+    eidx = np.full((N, n), -1)
+    for a in range(N):
+        k = min(int(data[a]), ke * width)
+        eidx[a, :k] = np.repeat(np.arange(ke), width)[:k]
+    r = rng.standard_normal((N, n)) * live
+    M = rng.standard_normal((N, p, n)) * live[:, None]
+    G = rng.standard_normal((N, m, n)) * live[:, None]
+    Fd = rng.standard_normal((N, kd, n)) * live[:, None]
+    core = PTACore(r=t(r), M=t(M), G=t(G), Fd=t(Fd) if kd else None,
+                   epochs=stacked_epochs(torch.tensor(eidx, device=device), ke) if ke else None,
+                   eidx=torch.tensor(eidx, dtype=torch.int32, device=device))
+    w = t(rng.uniform(0.5, 2.0, (E, N, n)) * live[None])
+    pe, pd = t(rng.uniform(0.5, 2.0, (E, N, ke))), t(rng.uniform(0.5, 2.0, (E, N, kd)))
+    _, _, st = pta_blocks(core, w, pe, pd)
+    q = p + m + 1
+    return core, st, t(rng.standard_normal((E, N, q, q))), t(rng.standard_normal((E, N)))
+
+
+#: phase 58's K9 shapes (n, p, ke, kd, E, marginalized): odd widths, rows not a
+#: multiple of a tile, p 0, kd 0, ke 0, the DM-noise variant's kd 120, and a
+#: width for each of the kernel's instances (value columns p + 1 up to 24, 48
+#: and 96: 3, 6 and 12 n tiles)
+K9_SWEEP = ((3001, 7, 40, 3, 3, True), (3001, 7, 40, 3, 3, False), (2000, 0, 50, 0, 3, True),
+            (2000, 12, 0, 20, 3, True), (2048, 30, 64, 10, 3, True),
+            (2048, 30, 64, 10, 3, False), (16384, 81, 2048, 120, 3, True),
+            (16384, 81, 2048, 60, 3, False))
+#: phase 58's K10 shapes (n, N, p, m, ke, kd, E, pad rows): pad rows, odd
+#: widths, ke 0 and kd 0, array B's epochs, and q = p + m + 1 of 40 and 90
+#: (the kernel's 6- and 12-tile instances; the others run q up to 24)
+K10_SWEEP = ((1000, 3, 5, 4, 40, 3, 3, 137), (8192, 8, 6, 12, 0, 10, 3, 1000),
+             (2048, 4, 3, 2, 0, 0, 3, 0), (4096, 8, 5, 6, 2048, 0, 2, 100),
+             (2048, 4, 30, 9, 64, 10, 3, 100), (2048, 4, 70, 19, 64, 10, 3, 100))
+
+
+def grad_sweep_phases(device, summary: dict) -> dict:
+    """Phase 58: K9 and K10 against their twins on random inputs drawn from
+    a seed (`k9_random`, `k10_random`) at K9_SWEEP's and K10_SWEEP's shapes,
+    under phase 46's and phase 52's gates (`check_k9`, `check_k10`),
+    bitwise across two calls."""
+    print("phase 58: K9 and K10 on random inputs against their twins")
+    errs = {"noise_grad": 0.0, "pta_grad": 0.0}
+    for k, (n, p, ke, kd, E, marg) in enumerate(K9_SWEEP):
+        core, st = k9_random(n, p, ke, kd, E, marg, 58 + k, device)
+        errs["noise_grad"] = max(errs["noise_grad"], check_k9(
+            core, st, device, f"K9 random (n={n}, p={p}, ke={ke}, kd={kd}, E={E}, "
+                              f"{'marginalized' if marg else 'profiled'})"))
+        del core, st
+    for k, (n, N, p, m, ke, kd, E, pad) in enumerate(K10_SWEEP):
+        core, st, gbar, ldbar = k10_random(n, N, p, m, ke, kd, E, 68 + k, device, pad=pad)
+        errs["pta_grad"] = max(errs["pta_grad"], check_k10(
+            core, st, gbar, ldbar, device, f"K10 random (n={n}, N={N}, p={p}, m={m}, ke={ke}, "
+                                           f"kd={kd}, E={E}, pad rows {pad})"))
+        del core, st, gbar, ldbar
+    summary["grad_sweep_errs"] = errs
+    return {"recs": {}, "errs": errs, "windows": {}}
 
 
 # --- phase 57: pulse-number offsets and TRACK -2 (ROADMAP C11) ---------------------
@@ -4106,7 +4334,7 @@ def pulse_number_phases(device, summary: dict) -> dict:
 
 
 def phases(device_name: str = "cuda") -> dict:
-    """Phases 2-57 on `device_name`; returns the summary record."""
+    """Phases 2-58 on `device_name`; returns the summary record."""
     from pint_tpu_torch.device import resolve_device
     from pint_tpu_torch.ops import build
 
@@ -4128,6 +4356,12 @@ def phases(device_name: str = "cuda") -> dict:
         print(f"  ecorr_normal_eq: {k3['sass_dmma']} DMMA instructions in its SASS; gram_pass "
               f"ptxas {json.dumps(k3['gram_ptxas'])}")
         check(bool(k3["sass_dmma"]), "K3's Gram runs on the float64 tensor cores (DMMA in SASS)")
+        for name, tag in (("noise_grad", "K9"), ("pta_grad", "K10")):
+            info = summary[f"{name}_build"] = grad_build_info(name)
+            print(f"  {name}: {info['sass_dmma']} DMMA instructions in its SASS; ptxas "
+                  f"{json.dumps(info['ptxas'])}")
+            check(bool(info["sass_dmma"]),
+                  f"{tag}'s products run on the float64 tensor cores (DMMA in SASS)")
     walls = summary.setdefault("group_s", {})
 
     def timed(name, fn, *args):
@@ -4148,13 +4382,14 @@ def phases(device_name: str = "cuda") -> dict:
     noise = timed("noise", noise_phases, ng)
     pta = timed("pta", pta_phases, noise)
     c11 = timed("pulse_numbers", pulse_number_phases)
+    sweep = timed("grad_sweep", grad_sweep_phases)
     windows = {"smoke_fit": smoke["fit"], "smoke_grid": smoke["grid"],
                "flagship_fit": flag["fit"], "flagship_grid": flag["grid"],
                "tim_prepare": prep["prepare"], "tim_fit": prep["fit"], "tim_grid": prep["grid"],
                **ephem["windows"], **dd["windows"], **ng["windows"], **bins["windows"],
                **wb["windows"], **noise["windows"], **pta["windows"], **c11["windows"]}
     kernels = []
-    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb, noise, pta, c11)
+    parts = (smoke, flag, prep, ephem, dd, ng, bins, wb, noise, pta, c11, sweep)
     for name, src, replaces in KERNELS:
         rec = {k: v for r in parts for k, v in r["recs"].get(name, {}).items()}
         err = max(r["errs"].get(name, 0.0) for r in parts)

@@ -13,7 +13,8 @@ K3 shapes with random inputs drawn from a seed (the flagship's and
 NANOGrav's fits and grids, the wideband fit, the per-set mode at E = 1, 8,
 256 and the stacked mode at E = 1, 8, 256 over 64 pulsars), holds every
 library's outputs against the twins (the largest error relative to each
-output's largest value) and against a second call of itself (bitwise), and
+output's largest value), against a second call of itself (bitwise) and,
+with ``--old``, the port's against the other library's (bitwise), and
 times the device time of a call (torch.profiler, as ``chip_smoke.measure``;
 the libraries in turn and then in reverse order) and of each of its passes.
 One JSON line per shape. With ``--alternate ROUNDS`` it instead times the
@@ -37,44 +38,69 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 
+def start_build(src, stem: str):
+    """Start nvcc on `src` with the port's flags into
+    build/k3_passes/<key>/lib<stem>.so; returns (process, library, log)."""
+    from pint_tpu_torch.ops import build
+
+    out = REPO / "build" / "k3_passes" / build.build_key()
+    out.mkdir(parents=True, exist_ok=True)
+    lib, log = out / f"lib{stem}.so", out / f"{stem}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                                 "-o", str(lib), str(src)], stdout=f, stderr=subprocess.STDOUT)
+    return proc, lib, log
+
+
+def finish_build(proc, src, log) -> None:
+    """Wait for `start_build`'s nvcc; raise with its log if it failed."""
+    if proc.wait() != 0:
+        raise SystemExit(f"nvcc failed for {src}:\n{Path(log).read_text()[-4000:]}")
+
+
+def build_report(name: str, path, log=None) -> dict:
+    """The ptxas registers and spills of library `path` (the report of the
+    port's library `name`, or of the nvcc log `log`) and the count of DMMA
+    instructions in its SASS."""
+    from pint_tpu_torch.ops import build
+
+    sass = subprocess.run([str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True).stdout
+    return {"ptxas": build.ptxas_report(name, log), "dmma": len(re.findall(r"\bDMMA\b", sass))}
+
+
 def build_all(old: str | None) -> dict:
     """{tag: library}: "new", the port's K3 from ``ops.build``, and "old",
     `old` built with the port's nvcc flags (the two builds in parallel)."""
     from pint_tpu_torch.fitting import woodbury as wb
     from pint_tpu_torch.ops import build
 
-    proc = None
-    if old:
-        out = REPO / "build" / "k3_passes" / build.build_key()
-        out.mkdir(parents=True, exist_ok=True)
-        lib, log = out / "libk3_old.so", open(out / "k3_old.log", "w")
-        proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-                                 "-o", str(lib), str(old)], stdout=log, stderr=subprocess.STDOUT)
+    job = start_build(old, "k3_old") if old else None
     paths = {"new": (build.library("ecorr_normal_eq", wb._declare_k3),
                      build.build_dir() / "libecorr_normal_eq.so", None)}
-    if proc is not None:
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            raise SystemExit(f"nvcc failed for {old}:\n{Path(log.name).read_text()[-4000:]}")
-        paths["old"] = (load_old(lib), lib, Path(log.name))
+    if job is not None:
+        proc, lib, log = job
+        finish_build(proc, old, log)
+        paths["old"] = (load_old(lib), lib, log)
     libs = {}
     for tag, (handle, path, log) in paths.items():
-        sass = subprocess.run([str(Path(build._nvcc()).parent / "cuobjdump"), "-sass", str(path)],
-                              capture_output=True, text=True).stdout
-        info = {"ptxas": build.ptxas_report("ecorr_normal_eq", log),
-                "dmma": len(re.findall(r"\bDMMA\b", sass))}
+        info = build_report("ecorr_normal_eq", path, log)
         print(f"{tag}: " + json.dumps(info))
         libs[tag] = handle
     return libs
 
 
 def load_old(path: Path):
-    """An earlier K3 source's library: its scratch is the segments'
-    partials alone."""
+    """An earlier K3 source's library: one with the port's C interface as
+    it is, or an older one whose scratch is the segments' partials alone."""
+    from pint_tpu_torch.fitting import woodbury as wb
+
     lib = ctypes.CDLL(str(path))
     lib.pint_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pint_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "ecorr_gram_scratch_size"):
+        wb._declare_k3(lib)
+        return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ecorr_gram.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.ecorr_gram_part_size.argtypes = [i, i, i, i, i]
@@ -170,33 +196,6 @@ def shapes(device, names):
             yield label, make()
 
 
-def by_kernel(call, reps: int) -> list:
-    """[(pass, device ms)] of one call of K3, its passes in launch order:
-    the median over `reps` calls, each profiled alone (a profile that saw
-    another number of passes than the first is left out)."""
-    import statistics
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    import chip_smoke as cs
-
-    runs = []
-    for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                         and cs.named(e.name, cs.K3_KERNEL)), key=lambda e: e.time_range.start)
-        run = [(re.search(r"\w+_pass(<\d+>)?", e.name).group(0),
-                e.time_range.elapsed_us() / 1e3) for e in events]
-        if not runs or len(run) == len(runs[0]):
-            runs.append(run)
-    return [(runs[0][k][0], statistics.median(r[k][1] for r in runs))
-            for k in range(len(runs[0]))]
-
-
 def card_state() -> dict:
     """The card's SM clock (MHz), power draw (W), temperature (C) and
     active clock-event reasons (a bit mask), from nvidia-smi."""
@@ -261,21 +260,26 @@ def main() -> int:
             continue
         want = outputs(twin())
         rec = {"shape": label}
+        first = {}
         for tag in order + order[::-1]:
             build.library = lambda name, declare, lib=libs[tag]: lib
             got, again = outputs(call()), outputs(call())
             torch.cuda.synchronize()
+            first.setdefault(tag, got)
             err = max((cs.rel_err(g, w) for g, w in zip(got, want)
                        if w is not None and w.numel()), default=0.0)
             same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
             reps = max(2, opt.reps // (20 if "256" in label else 1))
             ms, _ = cs.measure(call, device, reps, cs.K3_KERNEL)
             if tag not in rec:
-                rec.setdefault("by_kernel", {})[tag] = by_kernel(call, reps)
+                rec.setdefault("by_kernel", {})[tag] = cs.by_kernel(call, reps, cs.K3_KERNEL)
             r = rec.setdefault(tag, {"err": err, "repeat_bitwise": same, "ms": []})
             r["ms"].append(ms)
             r["err"] = max(r["err"], err)
             r["repeat_bitwise"] = r["repeat_bitwise"] and same
+        if "old" in first:
+            rec["new_bitwise_old"] = all(torch.equal(a, b) for a, b in zip(first["new"], first["old"])
+                                         if a is not None)
         print(json.dumps(rec), flush=True)
     return 0
 

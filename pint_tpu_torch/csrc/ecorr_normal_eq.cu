@@ -113,6 +113,7 @@
 
 #include "block_sum.cuh"
 #include "dd.cuh"
+#include "mma_f64.cuh"
 
 PINT_EXPORT_ERROR_STRING
 
@@ -296,37 +297,20 @@ __global__ void __launch_bounds__(THREADS) epoch_pass(Args a) {
 
 // --- pass 5 on the tensor cores -------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(double *dst, const double *src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-// 8 bytes, or zeros where !valid (src must still be a valid address: the
-// copy reads nothing then)
-__device__ __forceinline__ void cp_async8(double *dst, const double *src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 8 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// a warp's 32 x 32 tile of one set as m16n8k8 fragments: MI blocks of MR
-// rows (the Gram's row index) by 4 blocks of 8 columns, KS products deep
-constexpr int MR = 16, KS = 8, NACC = 4;
-constexpr int MI = 32 / MR, NA = KS / 4 * (MR / 8), NB = KS / 4;
-
-// one product into acc: this lane's A (w X) values av, B (X) values bv
-__device__ __forceinline__ void mma(double (&acc)[NACC], const double (&av)[NA],
-                                    const double (&bv)[NB]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+d"(acc[0]), "+d"(acc[1]), "+d"(acc[2]), "+d"(acc[3])
-      : "d"(av[0]), "d"(av[1]), "d"(av[2]), "d"(av[3]), "d"(bv[0]), "d"(bv[1]));
-}
+// the cp.async and mma.sync helpers (mma_f64.cuh); a warp's 32 x 32 tile of
+// one set as m16n8k8 fragments: MI blocks of MR rows (the Gram's row index)
+// by 4 blocks of 8 columns, KS products deep
+using pint::cp_async16;
+using pint::cp_async8;
+using pint::cp_async_commit;
+using pint::cp_async_wait;
+using pint::KS;
+using pint::mma;
+using pint::MR;
+using pint::NA;
+using pint::NACC;
+using pint::NB;
+constexpr int MI = 32 / MR;
 
 // the smem doubles of one ring stage: the two tiles' chunks, then gs
 // weight vectors

@@ -24,217 +24,324 @@
 // + |L^-1 B_k/De_k|^2 for an epoch and |L^-1 e_k|^2 for a dense column; L is the
 // Cholesky factor of the Schur complement Rd - B^T De^-1 B that K3 forms, De_e
 // and the epoch sums v_e = sum_{i in e} w_i [X_i, f_i] = [y_e, B_e] are K3's.
-// The wrapper forms L^-T and Ahat_d = L^-T Wz (torch.linalg.solve_triangular);
-// the epochs' Ahat_e = (y_e - B_e Ahat_d) / De_e are formed here. A pad row
-// (w = 0) gets 0. Gbar is indefinite, so t^T Gbar t is a plain sum of
-// products, not a sum of squares as in K9.
+// Gbar is indefinite, so t^T Gbar t is a plain sum of products, not a sum of
+// squares as in K9. A pad row (w = 0) gets 0.
 //
-// Two passes on one stream, the E N sets on blockIdx.y, 16 warps a block:
-//   1. pta_phi_pass: one warp per basis column k (epochs first, then the dense
-//      columns): an epoch's Ahat_e (kept for pass 2), then its phi term;
-//   2. pta_row_pass: one warp per row, its w term.
-// Each block holds its set's Gbar, L^-T and Ahat_d in dynamic shared memory,
-// and one q + kd buffer per warp; every sum runs in a fixed order, lanes
-// strided, then a shuffle tree (no atomics: run after run bitwise the same).
+// In the terms of grad_tiles.cuh: N1 = q value columns X, F1 = Ahat_d = L^-T
+// Wz (kd x q), F2 = Gbar folded onto its upper triangle (Gs_kj = Gbar_kj +
+// Gbar_jk above the diagonal, Gbar_jj on it), F3 = L^-T. A data row's values
+// are U = (X_i - Ahat_e) - F_i Ahat_d = t_i, then t_i^T Gbar t_i = sum_j (U
+// Gs)_j U_j;
+// an epoch's are Ahat_e = (y_e - B_e Ahat_d) / De_e, a dense column's
+// Ahat_d's row. Passes:
+//   1. pta_grad_factors: blockIdx.x 0 writes Gbar's fragments and zeroes
+//      the sets' "no epoch" rows, 1 inverts L and forms Ahat_d and the F1
+//      and F3 fragments, one block per set and each;
+//   2. pta_grad_basis (ke + kd > 0): the epochs and dense columns, d/dphi,
+//      and each epoch's Ahat_e, B_e/De_e and 1/De_e;
+//   3. pta_grad_rows: R rows of pulsar blockIdx.y's [Mn | G | r | Fd] staged
+//      once, its E sets (s = e N + a) in turn, d/dw.
 //
-// Bound: float64 operations. Per row ~q kd (t) + q^2 (t^T Gbar t) + kd^2 / 2
-// multiply-adds, ~1.3e7 per set at the PTA array's width (rows 8,192, q 19,
-// kd 10), against ~1.9 MB read (M, G, Fd, w, r). This simple design is right
-// first, and fast later. Built with --fmad=false: every product and sum rounds
-// on its own.
+// Bound. Per row and set the three products are q kd + q^2 / 2 + kd^2 / 2
+// multiply-adds (~420 at the PTA array's width, q 19, kd 10: a panel of 15
+// B fragments, q padded to 24 and kd to 16, issued as 23 m16n8k8 products a
+// 16-row tile with the zero tiles a step carries), ~3.4e6 a set,
+// against the design's ~1.9 MB a pulsar: at E = 1 the bytes bound it, at
+// E = 8 the tensor cores. So a block stages its pulsar's rows once and runs
+// all E sets on them: the design (122 MB for 64 pulsars, more than the
+// 50 MB L2) is read once a call, not once a point. Products run as mma.sync
+// .f64 (DMMA); the rest is built with --fmad=false: every product and sum
+// outside the tensor cores rounds on its own.
 #include <cuda_runtime.h>
 
 #include "dd.cuh"
+#include "grad_tiles.cuh"
 
 PINT_EXPORT_ERROR_STRING
+PINT_EXPORT_GRAD_PLANS
 
 namespace {
 
-constexpr int THREADS = 512, WARPS = THREADS / 32;
-constexpr int ACC = 4;              // independent partial sums per inner product
-constexpr int SMEM_MAX = 232448;    // bytes of shared memory a block may use (H100)
-constexpr int TARGET_BLOCKS = 1056; // blocks to aim for over all sets: 8 per SM
+using namespace pint::grad;
+using pint::cp_async_wait;
+using pint::NA;
+using pint::NACC;
 
 struct Args {
   const double *M, *norm, *Gc, *r, *Fd, *w;  // (N, p, n), (N, p), (N, m, n), (N, n), (N, kd, n), (S, n)
   const int *eidx;                            // (N, n) epoch of each row, -1 for none
-  const double *De, *esum, *phi_e, *phi_d;    // (S, ke), (S, ke, V), (S, ke), (S, kd)
+  const double *De, *esum, *phi_e, *phi_d;    // (S, ke), (S, ke, q + kd), (S, ke), (S, kd)
   const double *Gbar, *ldbar;                 // (S, q, q), (S,)
-  const double *Lt, *Ad;                      // L^-T (S, kd, kd), Ahat_d (S, kd, q)
+  const double *L, *Wz;                       // (S, kd, kd) lower, (S, kd, q)
   int S, npsr, p, m, n, ke, kd;
-  double *Ae;         // scratch: (S, ke, q)
+  Scratch x;
   double *dw, *dphi;  // (S, n), (S, ke + kd)
 };
 
-// the warp's sum, lane 0's shuffle-tree order, broadcast to every lane
-__device__ __forceinline__ double warp_sum(double x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-  return __shfl_sync(0xffffffffu, x, 0);
-}
-
-// sum_{l < len} a[l * stride] b[l] in ACC interleaved partial sums, added in
-// a fixed order at the end
-__device__ __forceinline__ double dot(const double *a, int stride, const double *b, int len) {
-  double s[ACC] = {};
-  int l = 0;
-  for (; l + ACC <= len; l += ACC)
-#pragma unroll
-    for (int q = 0; q < ACC; ++q) s[q] += a[(l + q) * stride] * b[l + q];
-  for (; l < len; ++l) s[0] += a[l * stride] * b[l];
-  double t = s[0];
-#pragma unroll
-  for (int q = 1; q < ACC; ++q) t += s[q];
-  return t;
-}
-
-// |U^T x|^2 over the warp: U = L^-T (m x m, upper) in shared memory, so that
-// (U^T x)_j = sum_{l <= j} L^-1_jl x_l; x in a warp buffer
-__device__ __forceinline__ double norm2(const double *U, const double *x, int m, int lane) {
-  double acc = 0.0;
-  for (int j = lane; j < m; j += 32) {
-    const double z = dot(U + j, m, x, j + 1);
-    acc += z * z;
+// pass 1: blockIdx.x 0: F2 = Gbar folded; 1: L^-1 -> F3 = L^-T, Ahat_d -> F1
+// (fragments and plain rows). Shared (`factor_smem`): L then F (kd x n1p),
+// L^-1 and 1/L_ii.
+__global__ void __launch_bounds__(FACTOR_THREADS) pta_grad_factors(Args a) {
+  extern __shared__ __align__(16) double sm[];
+  const int s = blockIdx.y, q = a.p + a.m + 1, kd = a.kd;
+  const Dims d = pta_dims(q, kd);
+  if (blockIdx.x == 0) {
+    zero_epoch_row(a.x, d, s, a.ke);
+    // F2: Gbar's form folded onto its upper triangle, G_kj + G_jk above the
+    // diagonal (t^T Gbar t takes only Gbar's symmetric part)
+    const double *G = a.Gbar + (size_t)s * q * q;
+    write_frags(a.x.panels + (size_t)s * d.panel() * FRAG, d.f1(), d.n1t(), d.n1t(), true,
+                [&](int rr, int c) {
+                  return rr >= q || c >= q || rr > c ? 0.0
+                         : rr == c ? G[(size_t)rr * q + c]
+                                   : G[(size_t)rr * q + c] + G[(size_t)c * q + rr];
+                });
+    return;
   }
-  return warp_sum(acc);
-}
-
-// x^T G x over the warp: G (q x q) in shared memory, x in a warp buffer
-__device__ __forceinline__ double quad(const double *G, const double *x, int q, int lane) {
-  double acc = 0.0;
-  for (int j = lane; j < q; j += 32) acc += x[j] * dot(G + (size_t)j * q, 1, x, q);
-  return warp_sum(acc);
-}
-
-// stage set s's Gbar, L^-T and Ahat_d into shared memory
-__device__ __forceinline__ void stage(const Args &a, int s, int q, double *G, double *Lt,
-                                      double *Ad) {
-  const size_t qq = (size_t)q * q, kk = (size_t)a.kd * a.kd, kq = (size_t)a.kd * q;
-  for (size_t i = threadIdx.x; i < qq; i += THREADS) G[i] = a.Gbar[s * qq + i];
-  for (size_t i = threadIdx.x; i < kk; i += THREADS) Lt[i] = a.Lt[s * kk + i];
-  for (size_t i = threadIdx.x; i < kq; i += THREADS) Ad[i] = a.Ad[s * kq + i];
+  if (!kd) return;
+  const int n1p = d.n1p();
+  double *F = sm, *X = sm + (size_t)kd * (kd > n1p ? kd : n1p), *rinv = X + (size_t)kd * kd;
+  stage_factor(F, X, rinv, a.L + (size_t)s * kd * kd, kd);
+  invert_lower(F, X, rinv, kd);
+  // F (L's place): Wz (zero past q), then Ahat_d = L^-T Wz in place
+  const double *Wz = a.Wz + (size_t)s * kd * q;
+  for (int t = threadIdx.x; t < kd * n1p; t += blockDim.x) {
+    const int i = t / n1p, c = t % n1p;
+    F[t] = c < q ? Wz[(size_t)i * q + c] : 0.0;
+  }
   __syncthreads();
+  lt_times(F, X, kd, n1p, q);
+  write_f1_f3(a.x, d, s, F, X);
 }
 
-__global__ void __launch_bounds__(THREADS) pta_phi_pass(Args a) {
-  extern __shared__ double sm[];
-  const int s = blockIdx.y, kd = a.kd, ke = a.ke, q = a.p + a.m + 1, V = q + kd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  double *G = sm, *Lt = G + (size_t)q * q, *Ad = Lt + (size_t)kd * kd;
-  double *abuf = Ad + (size_t)kd * q + (size_t)warp * (q + kd), *bbuf = abuf + q;
-  stage(a, s, q, G, Lt, Ad);
-  const double ld = a.ldbar[s];
-  for (int k = blockIdx.x * WARPS + warp; k < ke + kd; k += gridDim.x * WARPS) {
-    double sinv, phi;
+// pass 2: basis rows [blockIdx.x R, + R) of set blockIdx.y: epochs k < ke,
+// then the dense columns
+template <int NT>
+__global__ void __launch_bounds__(256, NT <= 3 ? 2 : 1) pta_grad_basis(Args a) {
+  extern __shared__ __align__(16) double sm[];
+  const int s = blockIdx.y, q = a.p + a.m + 1, kd = a.kd, ke = a.ke, nb = ke + kd;
+  const Dims d = pta_dims(q, kd);
+  const int n1p = d.n1p(), kdp = d.kdp(), V = q + kd;
+  const int R = blockDim.x / 2, ldr = R + 2, k0 = blockIdx.x * R;
+  Ring rg{sm, a.x.panels, d.panel(), s, 1, d.panel(), -1, 0};
+  double *tile = sm + (size_t)STAGES * SLOT * FRAG, *scale = tile + (size_t)(n1p + kdp) * ldr;
+  // an epoch's [y_e | B_e], a dense column's F1 row | 0
+  stage_tile(tile, ldr, R, n1p + kdp, a.w, [&](int c, int r) -> const double * {
+    const int k = k0 + r;
     if (k < ke) {
       const double *es = a.esum + ((size_t)s * ke + k) * V;
-      const double inv = 1.0 / a.De[(size_t)s * ke + k];
-      for (int l = lane; l < kd; l += 32) bbuf[l] = es[q + l] * inv;
-      for (int j = lane; j < q; j += 32) {
-        const double ae = (es[j] - dot(Ad + j, q, es + q, kd)) * inv;
-        abuf[j] = ae;
-        a.Ae[((size_t)s * ke + k) * q + j] = ae;
+      return c < q ? es + c : c >= n1p && c - n1p < kd ? es + q + c - n1p : nullptr;
+    }
+    return k < nb && c < n1p ? a.x.f1p + ((size_t)s * kd + k - ke) * n1p + c : nullptr;
+  });
+  ring_start(rg);
+  for (int k = threadIdx.x; k < R; k += blockDim.x)
+    scale[k] = k0 + k < ke ? 1.0 / a.De[(size_t)s * ke + k0 + k] : k0 + k < nb ? 1.0 : 0.0;
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  const Lane L = lane_of();
+  const int k_0 = k0 + L.r0, k_1 = k0 + L.r1;
+  const double sc0 = scale[L.r0], sc1 = scale[L.r1];
+  double U[NT][NACC];
+  product1<NT>(rg, tile, ldr, d, L, U);
+  // Ahat_e = (y_e - B_e Ahat_d) / De_e; a dense column's Ahat_d row
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+    if (jn < d.n1t()) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * jn + 2 * L.ti + h;
+        U[jn][h] = (tile[(size_t)c * ldr + L.r0] - U[jn][h]) * sc0;
+        U[jn][2 + h] = (tile[(size_t)c * ldr + L.r1] - U[jn][2 + h]) * sc1;
       }
-      __syncwarp();
-      sinv = inv + norm2(Lt, bbuf, kd, lane);
-      phi = a.phi_e[(size_t)s * ke + k];
-    } else {
-      const int d = k - ke;
-      for (int j = lane; j < q; j += 32) abuf[j] = Ad[(size_t)d * q + j];
-      __syncwarp();
-      double col = 0.0;  // (Sigma^-1)_dd = sum_l (L^-1)_ld^2
-      for (int l = d + lane; l < kd; l += 32) col += Lt[(size_t)d * kd + l] * Lt[(size_t)d * kd + l];
-      sinv = warp_sum(col);
-      phi = a.phi_d[(size_t)s * kd + d];
+      const int c = 8 * jn + 2 * L.ti;
+      if (k_0 < ke)
+        *reinterpret_cast<double2 *>(a.x.eacc + ((size_t)s * (ke + 1) + k_0) * n1p + c) =
+            make_double2(U[jn][0], U[jn][1]);
+      if (k_1 < ke)
+        *reinterpret_cast<double2 *>(a.x.eacc + ((size_t)s * (ke + 1) + k_1) * n1p + c) =
+            make_double2(U[jn][2], U[jn][3]);
     }
-    const double g = quad(G, abuf, q, lane);
-    if (lane == 0) {
-      const double iphi = 1.0 / phi, iphi2 = iphi * iphi;
-      a.dphi[(size_t)s * (ke + kd) + k] = -iphi2 * g + ld * (iphi - iphi2 * sinv);
-    }
-    __syncwarp();  // the buffers are rewritten by the next column
+  double g0 = 0.0, g1 = 0.0, s0 = 0.0, s1 = 0.0;
+  product2<NT, true>(rg, d, L, U, g0, g1);
+  if (kd) {
+    const double *A = tile + (size_t)n1p * ldr;
+    product3(rg, d, L, [&](int kk, double (&av)[NA], bool last) {
+      const int c = 8 * kk + 2 * L.ti;
+      const double *a0 = A + (size_t)c * ldr;
+      // H: B_e / De_e for an epoch, the unit vector for a dense column
+      av[0] = k_0 < ke ? a0[L.r0] * sc0 : c == k_0 - ke ? 1.0 : 0.0;
+      av[1] = k_1 < ke ? a0[L.r1] * sc1 : c == k_1 - ke ? 1.0 : 0.0;
+      av[2] = k_0 < ke ? a0[ldr + L.r0] * sc0 : c + 1 == k_0 - ke ? 1.0 : 0.0;
+      av[3] = k_1 < ke ? a0[ldr + L.r1] * sc1 : c + 1 == k_1 - ke ? 1.0 : 0.0;
+      if (last) {
+        if (k_0 < ke)
+          *reinterpret_cast<double2 *>(a.x.bn + ((size_t)s * (ke + 1) + k_0) * kdp + c) =
+              make_double2(av[0], av[2]);
+        if (k_1 < ke)
+          *reinterpret_cast<double2 *>(a.x.bn + ((size_t)s * (ke + 1) + k_1) * kdp + c) =
+              make_double2(av[1], av[3]);
+      }
+    }, s0, s1);
+  }
+  g0 = quad_sum(g0);
+  g1 = quad_sum(g1);
+  s0 = quad_sum(s0);
+  s1 = quad_sum(s1);
+  if (L.ti) return;
+  const double ld = a.ldbar[s];
+  const int rows[2] = {k_0, k_1};
+  const double gs[2] = {g0, g1}, ss[2] = {s0, s1}, scs[2] = {sc0, sc1};
+  for (int h = 0; h < 2; ++h) {
+    const int k = rows[h];
+    if (k >= nb) continue;
+    const double phi = k < ke ? a.phi_e[(size_t)s * ke + k] : a.phi_d[(size_t)s * kd + k - ke];
+    const double sinv = k < ke ? scs[h] + ss[h] : ss[h];
+    const double iphi = 1.0 / phi;
+    a.dphi[(size_t)s * nb + k] = -iphi * iphi * gs[h] + ld * (iphi - iphi * iphi * sinv);
+    if (k < ke) a.x.inv[(size_t)s * (ke + 1) + k] = scs[h];
   }
 }
 
-__global__ void __launch_bounds__(THREADS) pta_row_pass(Args a) {
-  extern __shared__ double sm[];
-  const int s = blockIdx.y, psr = s % a.npsr, p = a.p, m = a.m, kd = a.kd, ke = a.ke, n = a.n;
-  const int q = p + m + 1, V = q + kd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  double *G = sm, *Lt = G + (size_t)q * q, *Ad = Lt + (size_t)kd * kd;
-  double *tbuf = Ad + (size_t)kd * q + (size_t)warp * (q + kd), *hbuf = tbuf + q;
-  stage(a, s, q, G, Lt, Ad);
-  const double ld = a.ldbar[s];
+// pass 3: rows [blockIdx.x R, + R) of pulsar blockIdx.y for each of its sets
+template <int NT>
+__global__ void __launch_bounds__(256, NT <= 3 ? 2 : 1) pta_grad_rows(Args a) {
+  extern __shared__ __align__(16) double sm[];
+  const int psr = blockIdx.y, N = a.npsr, p = a.p, m = a.m, kd = a.kd, ke = a.ke, n = a.n;
+  const int q = p + m + 1, E = a.S / N;
+  const Dims d = pta_dims(q, kd);
+  const int n1p = d.n1p(), kdp = d.kdp();
+  const int R = blockDim.x / 2, ldr = R + 2, i0 = blockIdx.x * R;
+  Ring rg{sm, a.x.panels, d.panel(), psr, N, E * d.panel(), -1, 0};
+  double *tile = sm + (size_t)STAGES * SLOT * FRAG;
+  // [M | G | r] then Fd, column-major; then M's columns divided by their norms
   const double *M = a.M + (size_t)psr * p * n, *nrm = a.norm + (size_t)psr * p;
   const double *Gc = a.Gc + (size_t)psr * m * n, *Fd = a.Fd + (size_t)psr * kd * n;
-  const double *r = a.r + (size_t)psr * n, *w = a.w + (size_t)s * n;
-  for (int i = blockIdx.x * WARPS + warp; i < n; i += gridDim.x * WARPS) {
-    const double wi = w[i];
-    if (wi == 0.0) {  // a pad row of the bucket
-      if (lane == 0) a.dw[(size_t)s * n + i] = 0.0;
-      continue;
-    }
-    const int ep = ke > 0 ? a.eidx[(size_t)psr * n + i] : -1;
-    const double *es = ep >= 0 ? a.esum + ((size_t)s * ke + ep) * V : nullptr;
-    const double inv = ep >= 0 ? 1.0 / a.De[(size_t)s * ke + ep] : 0.0;
-    const double *ae = ep >= 0 ? a.Ae + ((size_t)s * ke + ep) * q : nullptr;
-    for (int l = lane; l < kd; l += 32) hbuf[l] = Fd[(size_t)l * n + i];
-    __syncwarp();
-    for (int j = lane; j < q; j += 32) {
-      const double x = j < p ? M[(size_t)j * n + i] / nrm[j]
-                             : j < p + m ? Gc[(size_t)(j - p) * n + i] : r[i];
-      tbuf[j] = (ep >= 0 ? x - ae[j] : x) - dot(Ad + j, q, hbuf, kd);
-    }
-    __syncwarp();
-    if (ep >= 0)
-      for (int l = lane; l < kd; l += 32) hbuf[l] -= es[q + l] * inv;
-    __syncwarp();
-    const double fsf = inv + norm2(Lt, hbuf, kd, lane);
-    const double g = quad(G, tbuf, q, lane);
-    if (lane == 0) a.dw[(size_t)s * n + i] = g - ld * (1.0 / wi - fsf);
-    __syncwarp();
+  stage_tile(tile, ldr, R, n1p + kdp, a.w, [&](int c, int k) -> const double * {
+    const int i = i0 + k;
+    if (i >= n) return nullptr;
+    return c < p ? M + (size_t)c * n + i : c < p + m ? Gc + (size_t)(c - p) * n + i
+           : c == p + m ? a.r + (size_t)psr * n + i
+           : c >= n1p && c - n1p < kd ? Fd + (size_t)(c - n1p) * n + i : nullptr;
+  });
+  ring_start(rg);
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  for (int t = threadIdx.x; t < p * R; t += blockDim.x)
+    tile[(size_t)(t / R) * ldr + t % R] /= nrm[t / R];
+  __syncthreads();
+  const Lane L = lane_of();
+  const int i_0 = i0 + L.r0, i_1 = i0 + L.r1;
+  const int *eidx = a.eidx + (size_t)psr * n;
+  const int ep0 = ke && i_0 < n && eidx[i_0] >= 0 ? eidx[i_0] : ke;
+  const int ep1 = ke && i_1 < n && eidx[i_1] >= 0 ? eidx[i_1] : ke;
+  const double *A = tile + (size_t)n1p * ldr;
+  // a set's row weights, 1/De_e and ldbar, loaded a set ahead of their use
+  auto scalars = [&](int e, double (&v)[5]) {
+    const int s = e * N + psr;
+    v[0] = i_0 < n ? a.w[(size_t)s * n + i_0] : 1.0;
+    v[1] = i_1 < n ? a.w[(size_t)s * n + i_1] : 1.0;
+    v[2] = ke ? a.x.inv[(size_t)s * (ke + 1) + ep0] : 0.0;
+    v[3] = ke ? a.x.inv[(size_t)s * (ke + 1) + ep1] : 0.0;
+    v[4] = a.ldbar[s];
+  };
+  double next[5];
+  scalars(0, next);
+  for (int e = 0; e < E; ++e) {
+    const int s = e * N + psr;
+    const size_t e0 = (size_t)s * (ke + 1) + ep0, e1 = (size_t)s * (ke + 1) + ep1;
+    const double w0 = next[0], w1 = next[1], inv0 = next[2], inv1 = next[3], ld = next[4];
+    if (e + 1 < E) scalars(e + 1, next);
+    double U[NT][NACC];
+    product1<NT>(rg, tile, ldr, d, L, U);
+    // t_i = (X_i - Ahat_e) - F_i Ahat_d
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+      if (jn < d.n1t())
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = 8 * jn + 2 * L.ti + h;
+          const double g0 = ke ? a.x.eacc[e0 * n1p + c] : 0.0;
+          const double g1 = ke ? a.x.eacc[e1 * n1p + c] : 0.0;
+          U[jn][h] = (tile[(size_t)c * ldr + L.r0] - g0) - U[jn][h];
+          U[jn][2 + h] = (tile[(size_t)c * ldr + L.r1] - g1) - U[jn][2 + h];
+        }
+    double g0 = 0.0, g1 = 0.0, s0 = 0.0, s1 = 0.0;
+    product2<NT, true>(rg, d, L, U, g0, g1);
+    if (kd)
+      product3(rg, d, L, [&](int kk, double (&av)[NA], bool) {
+        // h_i = f_i - B_e / De_e (zero past kd and for rows without an epoch)
+        const int c = 8 * kk + 2 * L.ti;
+        const double *a0 = A + (size_t)c * ldr;
+        const double b00 = ke ? a.x.bn[e0 * kdp + c] : 0.0, b01 = ke ? a.x.bn[e0 * kdp + c + 1] : 0.0;
+        const double b10 = ke ? a.x.bn[e1 * kdp + c] : 0.0, b11 = ke ? a.x.bn[e1 * kdp + c + 1] : 0.0;
+        av[0] = a0[L.r0] - b00;
+        av[1] = a0[L.r1] - b10;
+        av[2] = a0[ldr + L.r0] - b01;
+        av[3] = a0[ldr + L.r1] - b11;
+      }, s0, s1);
+    g0 = quad_sum(g0);
+    g1 = quad_sum(g1);
+    s0 = quad_sum(s0);
+    s1 = quad_sum(s1);
+    if (L.ti == 0 && i_0 < n)
+      a.dw[(size_t)s * n + i_0] = w0 == 0.0 ? 0.0 : g0 - ld * (1.0 / w0 - (inv0 + s0));
+    if (L.ti == 0 && i_1 < n)
+      a.dw[(size_t)s * n + i_1] = w1 == 0.0 ? 0.0 : g1 - ld * (1.0 / w1 - (inv1 + s1));
   }
 }
 
-// blocks per set: enough warps for the items, about TARGET_BLOCKS in all
-inline int blocks_for(int items, int sets) {
-  const int want = (TARGET_BLOCKS + sets - 1) / sets, most = (items + WARPS - 1) / WARPS;
-  return want < most ? want : most;
+template <int NT>
+cudaError_t launch_tiles(const Args &a, const Plan &pl, cudaStream_t st) {
+  const long bsm = pl.smem_basis, rsm = pl.smem_rows;
+  const int bw = pl.basis_warps, rw = pl.row_warps;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(pta_grad_basis<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bsm)) != cudaSuccess)
+    return e;
+  if ((e = cudaFuncSetAttribute(pta_grad_rows<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)rsm)) != cudaSuccess)
+    return e;
+  const int nb = a.ke + a.kd;
+  if (nb) {
+    pta_grad_basis<NT><<<dim3((nb + 16 * bw - 1) / (16 * bw), a.S), 32 * bw, bsm, st>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  pta_grad_rows<NT><<<dim3((a.n + 16 * rw - 1) / (16 * rw), a.npsr), 32 * rw, rsm, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block needs at (q, kd).
-extern "C" long pta_grad_smem(int q, int kd) {
-  return 8L * ((long)q * q + (long)kd * kd + (long)kd * q + (long)WARPS * (q + kd));
-}
-
-// Both passes. Shapes as in Args, S = E N sets, set s = e N + a; eidx may be
-// a dummy when ke == 0, Fd, Lt and Ad when kd == 0. Outputs dw (S, n) and
-// dphi (S, ke + kd) (epochs first); Ae (S, ke, q) is scratch.
+// The three passes at the plan of grad_plan.h (pta_plan). Shapes as in Args,
+// S = E N sets, set s = e N + a; eidx may be a dummy when ke == 0, Fd, L
+// and Wz when kd == 0; scratch of the plan's size. Outputs dw (S, n) and
+// dphi (S, ke + kd) (epochs first).
 extern "C" int pta_grad(const double *M, const double *norm, const double *Gc, const double *r,
                         const double *Fd, const double *w, const int *eidx, const double *De,
                         const double *esum, const double *phi_e, const double *phi_d,
-                        const double *Gbar, const double *ldbar, const double *Lt,
-                        const double *Ad, int S, int npsr, int p, int m, int n, int ke, int kd,
-                        double *Ae, double *dw, double *dphi, void *stream) {
-  const long smem = pta_grad_smem(p + m + 1, kd);
-  if (S < 1 || S > 65535 || npsr < 1 || S % npsr || p < 0 || m < 0 || n < 1 || ke < 0 ||
-      kd < 0 || smem > SMEM_MAX)
+                        const double *Gbar, const double *ldbar, const double *L,
+                        const double *Wz, int S, int npsr, int p, int m, int n, int ke, int kd,
+                        double *scratch, double *dw, double *dphi, void *stream) {
+  Plan pl;
+  long long why[2];
+  if (npsr < 1 || S % npsr || p < 0 || m < 0 ||
+      pta_plan(n, npsr, p + m + 1, ke, kd, S / npsr, pl, why) != TAKEN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{M,  norm, Gc,   r, Fd, w, eidx, De, esum, phi_e, phi_d, Gbar, ldbar,
-               Lt, Ad,   S,    npsr, p,  m, n,    ke, kd,   Ae,    dw,    dphi};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dims d = pta_dims(p + m + 1, kd);
+  const long fsm = pl.smem_factors;
+  Args a{M,    norm,  Gc, r, Fd, w, eidx, De, esum, phi_e, phi_d, Gbar, ldbar,
+         L,    Wz,    S,  npsr, p, m, n, ke, kd, scratch_of(scratch, d, S, ke), dw, dphi};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(pta_phi_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)) != cudaSuccess)
+  if ((e = cudaFuncSetAttribute(pta_grad_factors, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)fsm)) != cudaSuccess)
     return static_cast<int>(e);
-  if ((e = cudaFuncSetAttribute(pta_row_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)) != cudaSuccess)
-    return static_cast<int>(e);
-  if (ke + kd > 0) {
-    pta_phi_pass<<<dim3(blocks_for(ke + kd, S), S), THREADS, smem, s>>>(a);
-    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  }
-  pta_row_pass<<<dim3(blocks_for(n, S), S), THREADS, smem, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  pta_grad_factors<<<dim3(2, S), FACTOR_THREADS, fsm, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const int nt = d.n1t();
+  e = nt <= 3   ? launch_tiles<3>(a, pl, st)
+      : nt <= 6 ? launch_tiles<6>(a, pl, st)
+                : launch_tiles<12>(a, pl, st);
+  return static_cast<int>(e);
 }

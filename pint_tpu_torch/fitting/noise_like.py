@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pint_tpu_torch.fitting import grad_plan
 from pint_tpu_torch.fitting.wls import time_resid_design
 from pint_tpu_torch.fitting.woodbury import EpochIndex, ecorr_normal_eq_sets
 from pint_tpu_torch.models.base import leaf_to_f64
@@ -248,7 +249,7 @@ def noise_grad_plain(core: NoiseCore, st: NoiseState):
 def noise_grad(core: NoiseCore, st: NoiseState):
     """K9: d lnL / d w and d lnL / d phi of E points. A CUDA tensor launches
     the kernel (and raises if it cannot); a CPU tensor takes
-    `noise_grad_plain`. `noise_grad.launches` counts calls (2 passes each)."""
+    `noise_grad_plain`. `noise_grad.launches` counts calls (3 passes each)."""
     if st.w.device.type == "cpu":
         return noise_grad_plain(core, st)
     out = _launch_k9(core, st)
@@ -258,53 +259,49 @@ def noise_grad(core: NoiseCore, st: NoiseState):
 
 noise_grad.launches = 0
 
-#: the shared memory a block of K9 may use (H100: 227 KB)
-K9_SMEM_MAX = 232448
-
 
 def _launch_k9(core: NoiseCore, st: NoiseState):
+    """K9's three passes (``csrc/noise_grad.cu``) at the plan its library
+    gives (`grad_plan.noise_grad_plan`), which raises, naming the limit, on a
+    shape the kernel does not take. The
+    kernel forms K^-T, L^-T, g_d and ahat_d itself from K, L, Wz, ad and
+    dhat (the twin's `_grad_prep`)."""
+    from pint_tpu_torch.device import require_f64
+    from pint_tpu_torch.ops import build
+
     E, n = st.w.shape
     p = core.M.shape[0]
     ke, kd = st.phi_e.shape[1], st.phi_d.shape[1]
+    ins = {"M": core.M, "norm": st.norm, "r0": core.r0, "w": st.w, "De": st.De,
+           "esum": st.esum, "phi_e": st.phi_e, "phi_d": st.phi_d, "K": st.K, "L": st.L,
+           "Wz": st.Wz, "ad": st.ad, "delta": st.delta, **({"Fd": core.Fd} if kd else {})}
+    require_f64("noise_grad", tensor=ins)
     dev = st.w.device
-    from pint_tpu_torch.ops import build
-
+    if any(t.device != dev for t in ins.values()) or core.eidx.device != dev:
+        raise ValueError("noise_grad needs its tensors on one device")
     lib = build.library("noise_grad", _declare_k9)
-    smem = lib.noise_grad_smem(p, kd)
-    if smem > K9_SMEM_MAX:
-        raise ValueError(f"kernel K9 keeps K^-T and L^-T in shared memory: p = {p}, "
-                         f"kd = {kd} need {smem} bytes, more than {K9_SMEM_MAX}")
-    Kt, Lt, gd, ahd = _grad_prep(st, p)
-    one = torch.ones(1, dtype=torch.float64, device=dev)
-
-    def arg(t, keep=True):
-        return t.contiguous() if keep and t.numel() else one
-
-    ins = [arg(core.M), arg(st.norm), arg(core.r0), arg(core.Fd if kd else one), arg(st.w)]
-    for t in ins:
-        if t.device != dev or t.dtype != torch.float64:
-            raise ValueError("noise_grad needs float64 tensors on one device")
-    eidx = core.eidx.contiguous() if ke else torch.zeros(1, dtype=torch.int32, device=dev)
-    tabs = [arg(st.De), arg(st.esum), arg(st.phi_e), arg(st.phi_d), arg(Kt), arg(Lt),
-            arg(gd), arg(ahd), arg(st.delta)]
-    ge = torch.empty((E, max(ke, 1), max(p, 1)), dtype=torch.float64, device=dev)
-    ae = torch.empty((E, max(ke, 1)), dtype=torch.float64, device=dev)
+    plan = grad_plan.noise_grad_plan(lib, n, p, ke, kd, E, core.marginalize)
+    ins = {k: v.contiguous() for k, v in ins.items()}
+    ptr = {k: v.data_ptr() for k, v in ins.items()}
+    eidx = core.eidx.contiguous()
+    scratch = torch.empty(plan["scratch"], dtype=torch.float64, device=dev)
     dw = torch.empty((E, n), dtype=torch.float64, device=dev)
     dphi = torch.empty((E, ke + kd), dtype=torch.float64, device=dev)
     build.check(lib, lib.noise_grad(
-        *(t.data_ptr() for t in ins), eidx.data_ptr(), *(t.data_ptr() for t in tabs), E, p, n,
-        ke, kd, int(core.marginalize), ge.data_ptr(), ae.data_ptr(), dw.data_ptr(),
-        dphi.data_ptr() if ke + kd else one.data_ptr(), build.stream_of(st.w)))
+        ptr["M"], ptr["norm"], ptr["r0"], ptr.get("Fd", ptr["w"]), ptr["w"],
+        eidx.data_ptr(), ptr["De"], ptr["esum"], ptr["phi_e"], ptr["phi_d"],
+        ptr["K"], ptr["L"], ptr["Wz"], ptr["ad"], ptr["delta"], E, p, n, ke, kd,
+        int(core.marginalize), scratch.data_ptr(), dw.data_ptr(), dphi.data_ptr(),
+        build.stream_of(st.w)))
     return dw, dphi
 
 
 def _declare_k9(lib) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.noise_grad_smem.argtypes = [i, i]
-    lib.noise_grad_smem.restype = ctypes.c_long
-    lib.noise_grad.argtypes = [p] * 15 + [i] * 6 + [p] * 5
+    lib.noise_grad.argtypes = [p] * 15 + [i] * 6 + [p] * 4
     lib.noise_grad.restype = ctypes.c_int
+    grad_plan.declare(lib)
 
 
 class _NoiseLogLike(torch.autograd.Function):

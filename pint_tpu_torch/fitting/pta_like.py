@@ -52,6 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pint_tpu_torch.fitting import grad_plan
 from pint_tpu_torch.fitting.batch import bucket_rows, stack_trees
 from pint_tpu_torch.fitting.noise_like import (_LN2PI, RIDGE, MarginalizedPosterior, _inverse_t,
                                                _prior_scale, default_noise_priors)
@@ -193,7 +194,7 @@ def pta_grad(core: PTACore, st: PTAState, gbar: torch.Tensor, ldbar: torch.Tenso
     """K10: d/dw and d/dphi of the E x N sets under the cotangents gbar (E, N,
     q, q) of the Grams and ldbar (E, N) of ln|C_a|. A CUDA tensor launches the
     kernel (and raises if it cannot); a CPU tensor takes `pta_grad_plain`.
-    `pta_grad.launches` counts calls (2 passes each)."""
+    `pta_grad.launches` counts calls (3 passes each)."""
     if st.w.device.type == "cpu":
         return pta_grad_plain(core, st, gbar, ldbar)
     out = _launch_k10(core, st, gbar, ldbar)
@@ -203,11 +204,12 @@ def pta_grad(core: PTACore, st: PTAState, gbar: torch.Tensor, ldbar: torch.Tenso
 
 pta_grad.launches = 0
 
-#: the shared memory a block of K10 may use (H100: 227 KB)
-K10_SMEM_MAX = 232448
-
-
 def _launch_k10(core: PTACore, st: PTAState, gbar, ldbar):
+    """K10's three passes (``csrc/pta_grad.cu``) at the plan its library
+    gives (`grad_plan.pta_grad_plan`), which raises, naming the limit, on a
+    shape the kernel does not take. The
+    kernel forms L^-T and Ahat_d itself from L and Wz (the twin's
+    `_grad_prep`)."""
     from pint_tpu_torch.device import require_f64
     from pint_tpu_torch.ops import build
 
@@ -219,44 +221,35 @@ def _launch_k10(core: PTACore, st: PTAState, gbar, ldbar):
     if gbar.shape != (E, N, q, q) or ldbar.shape != (E, N):
         raise ValueError(f"pta_grad needs gbar (E, N, q, q) = {(E, N, q, q)} and ldbar (E, N); "
                          f"got {tuple(gbar.shape)}, {tuple(ldbar.shape)}")
-    require_f64("pta_grad", tensor={"w": st.w, "gbar": gbar, "ldbar": ldbar, "M": core.M,
-                                    "G": core.G, "r": core.r})
+    ins = {"M": core.M, "norm": st.norm, "G": core.G, "r": core.r, "w": st.w, "De": st.De,
+           "esum": st.esum, "phi_e": st.phi_e, "phi_d": st.phi_d, "gbar": gbar,
+           "ldbar": ldbar, "L": st.L, "Wz": st.Wz, **({"Fd": core.Fd} if kd else {})}
+    require_f64("pta_grad", tensor=ins)
     dev = st.w.device
+    if any(t.device != dev for t in ins.values()) or core.eidx.device != dev:
+        raise ValueError("pta_grad needs its tensors on one device")
     lib = build.library("pta_grad", _declare_k10)
-    smem = lib.pta_grad_smem(q, kd)
-    if smem > K10_SMEM_MAX:
-        raise ValueError(f"kernel K10 keeps Gbar, L^-T and Ahat_d in shared memory: q = {q}, "
-                         f"kd = {kd} need {smem} bytes, more than {K10_SMEM_MAX}")
-    Lt, Ad = _grad_prep(st)
-    one = torch.ones(1, dtype=torch.float64, device=dev)
-
-    def arg(t):
-        t = t.contiguous() if t.numel() else one
-        if t.device != dev:
-            raise ValueError("pta_grad needs its tensors on one device")
-        return t
-
-    eidx = core.eidx.contiguous() if ke else torch.zeros(1, dtype=torch.int32, device=dev)
-    ins = [arg(core.M), arg(st.norm), arg(core.G), arg(core.r),
-           arg(core.Fd if kd else one), arg(st.w)]
-    tabs = [arg(st.De), arg(st.esum), arg(st.phi_e), arg(st.phi_d), arg(gbar), arg(ldbar),
-            arg(Lt), arg(Ad)]
-    Ae = torch.empty((S, max(ke, 1), q), dtype=torch.float64, device=dev)
-    dw = torch.empty((S, n), dtype=torch.float64, device=dev)
-    dphi = torch.empty((S, max(ke + kd, 1)), dtype=torch.float64, device=dev)
+    plan = grad_plan.pta_grad_plan(lib, n, N, q, ke, kd, E)
+    ins = {k: v.contiguous() for k, v in ins.items()}
+    ptr = {k: v.data_ptr() for k, v in ins.items()}
+    eidx = core.eidx.contiguous()
+    scratch = torch.empty(plan["scratch"], dtype=torch.float64, device=dev)
+    dw = torch.empty((E, N, n), dtype=torch.float64, device=dev)
+    dphi = torch.empty((E, N, ke + kd), dtype=torch.float64, device=dev)
     build.check(lib, lib.pta_grad(
-        *(t.data_ptr() for t in ins), eidx.data_ptr(), *(t.data_ptr() for t in tabs), S, N, p, m,
-        n, ke, kd, Ae.data_ptr(), dw.data_ptr(), dphi.data_ptr(), build.stream_of(st.w)))
-    return dw.reshape(E, N, n), dphi[:, :ke + kd].reshape(E, N, ke + kd)
+        ptr["M"], ptr["norm"], ptr["G"], ptr["r"], ptr.get("Fd", ptr["w"]), ptr["w"],
+        eidx.data_ptr(), ptr["De"], ptr["esum"], ptr["phi_e"], ptr["phi_d"], ptr["gbar"],
+        ptr["ldbar"], ptr["L"], ptr["Wz"], S, N, p, m, n, ke, kd, scratch.data_ptr(),
+        dw.data_ptr(), dphi.data_ptr(), build.stream_of(st.w)))
+    return dw, dphi
 
 
 def _declare_k10(lib) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.pta_grad_smem.argtypes = [i, i]
-    lib.pta_grad_smem.restype = ctypes.c_long
     lib.pta_grad.argtypes = [p] * 15 + [i] * 7 + [p] * 4
     lib.pta_grad.restype = ctypes.c_int
+    grad_plan.declare(lib)
 
 
 class _PTABlocks(torch.autograd.Function):

@@ -5,8 +5,8 @@ a plain C interface, loaded with ctypes: no PyTorch headers, so a build
 takes seconds. The libraries go under ``build/pint_tpu_torch/<key>/`` beside
 the package, where ``<key>`` hashes the sources, the headers and the flags:
 an edited source builds anew, an unchanged one is reused. All sources build
-in parallel, one nvcc process each, at the first use of any kernel
-(``build_all`` does it up front and reports the seconds).
+in parallel, one nvcc process each (``build_all`` does it up front and
+reports the seconds); a library missing at its first use is built alone.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that no multiply and add are
 contracted into an FMA behind the double-double library's back (the header
@@ -51,7 +51,7 @@ def _nvcc() -> str:
 
 def build_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted([*CSRC.glob("*.cu*"), *CSRC.glob("*.h")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -65,13 +65,14 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}.so"
 
 
-def build_all() -> float:
-    """Compile every missing library in parallel; returns wall seconds.
-    Raises with nvcc's output if any build fails."""
+def build_all(names=SOURCES) -> float:
+    """Compile every missing library of `names` (all by default) in
+    parallel; returns wall seconds. Raises with nvcc's output if any build
+    fails."""
     t0 = time.perf_counter()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return time.perf_counter() - t0
     nvcc = _nvcc()
@@ -160,7 +161,7 @@ def library(name: str, declare) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         if not _lib_path(name).exists():
-            build_all()
+            build_all((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
         lib.pint_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pint_cuda_error_string.restype = ctypes.c_char_p
