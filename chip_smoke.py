@@ -487,12 +487,15 @@ def queued_ms(fn, reps: int) -> float:
 
 
 def by_kernel(call, reps: int, pattern) -> list:
-    """[(pass, device ms)] of one call's kernels whose names hold `pattern`
-    (one string or a tuple of them), in launch order: the median over `reps`
-    calls, each profiled alone (a profile that saw no pass, or another
-    number of passes than the first, is left out)."""
+    """[(pass, device ms, profiles)] of one call's kernels whose names hold
+    `pattern` (one string or a tuple of them), in launch order (the order
+    of the profile that saw the most of them): `reps` calls, each profiled
+    alone, and for each pass the median over the profiles that saw it and
+    their number (a profile may miss a kernel). A kernel launched twice in
+    a call is two passes."""
     import re
     import statistics
+    from collections import Counter
 
     import torch
     from torch.autograd import DeviceType
@@ -505,14 +508,19 @@ def by_kernel(call, reps: int, pattern) -> list:
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                          and named(e.name, pattern)), key=lambda e: e.time_range.start)
-        run = [(re.search(r"\w+(<[\d, ]+>)?(?=\()", e.name).group(0),
+        run = [(re.search(r"\w+(<[\w, ]+>)?(?=\()", e.name).group(0),
                 e.time_range.elapsed_us() / 1e3) for e in events]
-        if run and (not runs or len(run) == len(runs[0])):
+        if run:
             runs.append(run)
     if not runs:
         raise SmokeFailure(f"the profiler saw no kernel {pattern} in {reps} calls")
-    return [(runs[0][k][0], statistics.median(r[k][1] for r in runs))
-            for k in range(len(runs[0]))]
+    seen: dict = {}
+    for run in sorted(runs, key=len, reverse=True):
+        nth = Counter()
+        for name, ms in run:
+            seen.setdefault((name, nth[name]), []).append(ms)
+            nth[name] += 1
+    return [(name, statistics.median(v), len(v)) for (name, _), v in seen.items()]
 
 
 def named(name: str, pats) -> bool:
@@ -930,8 +938,10 @@ def profile_main_path(tensor, device, which: str = "smoke", par: str | None = No
 
 # substrings of the kernels' names in a profile (K2 and K3 are several passes;
 # K3's Gram is a template, gram_pass<32> or gram_pass<64>)
-K0_KERNEL, K1_KERNEL, K2_KERNEL, K3_KERNEL = ("dd_elementwise_kernel", "resid_tangent_kernel",
-                                              "pass_", ("_pass(", "_pass<"))
+K0_KERNEL, K2_KERNEL, K3_KERNEL = "dd_elementwise_kernel", "pass_", ("_pass(", "_pass<")
+# K1's passes: the primal chain, the TZR row's lanes, the lanes (or, without
+# a kernel lane, the pulse numbers and phases alone)
+K1_KERNEL = ("resid_primal", "resid_tzr", "resid_lanes", "resid_finalize")
 K4_KERNEL, K5_KERNELS = "site_geometry_kernel", ("analytic_ephemeris_kernel",
                                                  "central_difference_kernel")
 K6_KERNEL, K7_KERNEL = "nbody_serve_kernel", "chebyshev_eval_kernel"
@@ -1008,26 +1018,46 @@ K1_DDK_OPS_PER_LANE = 60
 K1_DDGR_OPS_PER_LANE = 6
 
 
+#: what the phases keep of a K1 record at each shape for the kernels line:
+#: the measured times and the bound (its plan and op count go to the
+#: summary's "k1_plan", `k1_kept`)
+K1_RECORD_KEYS = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bound_counts", "shape",
+                  "by_kernel")
+# the DMX and JUMP columns K1 writes from its one DMX lane and in closed form:
+# per row and column a compare, a select and the TZR row's subtraction
+K1_CLASS_COLUMN_OPS = 3
+
+
 def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
-    from pint_tpu_torch.residuals import (BIN_ELL1, BIN_KEPLER, BIN_NONE, _structure,
+    """K1's device and call ms at one shape, the twin's, and its bound. The
+    bound's operations count the DMX lanes as one lane and the JUMP lanes as
+    one, plus `K1_CLASS_COLUMN_OPS` per row for each of their columns; its
+    bytes are each row input, parameter row, one-hot and mask entry read
+    once and each output written once. Under "plan": the bound's operations
+    and, on the card, the plan's kernel lanes, lane width, tape slots and
+    scratch bytes."""
+    from pint_tpu_torch.residuals import (BIN_ELL1, BIN_KEPLER, BIN_NONE, L_DMX0, L_FB0,
+                                          L_JUMP0, P_ROW_LEN, _k1_setup, batch_size,
                                           resid_tangent, resid_tangent_plain)
 
-    B = params["F0"].hi.shape[0] if params["F0"].hi.dim() else 1
+    B = batch_size(params)
     rows = tensor["t_hi"].shape[0]
-    n = rows - 1
-    ms, call = measure(lambda: resid_tangent(model, params, tensor, lanes), device, reps,
-                       K1_KERNEL)
+    n = rows - int(model.has_abs_phase)
+    call = lambda: resid_tangent(model, params, tensor, lanes)  # noqa: E731
+    ms, call_ms = measure(call, device, reps, K1_KERNEL)
     plain, plain_call = measure(lambda: resid_tangent_plain(model, params, tensor, lanes),
                                 device, max(1, reps // 20))
     k = len(lanes)
-    st = _structure(model)
+    setup = _k1_setup(model, tuple(lanes))
+    st = setup.st
+    n_dmx = sum(L_DMX0 <= c < L_FB0 for c in setup.codes)
+    n_jump = sum(L_JUMP0 <= c < L_DMX0 for c in setup.codes)
+    class_lanes = k - n_dmx - n_jump + (n_dmx > 0) + (n_jump > 0)
     kind = st.bin_kind
     ng = st.ecliptic or st.n_dmx or st.n_fd or st.n_jump
     n_bytes = rows * 12 * 8 + B * (P_ROW_LEN + 2 * model["Spindown"].num_terms) * 8 \
-        + B * n * (3 + 2 * k) * 8
-    # the N TOA rows and the TZR row once per parameter set (the kernel's
-    # per-block recompute of the TZR row and each lane chunk's recompute of
-    # the primal are its own cost, not needed work)
+        + B * n * (3 + 2 * k) * 8 + B * rows * 8 + rows * (st.n_dmx + st.n_jump) * 8
+    # the N TOA rows and the TZR row once per parameter set
     bin_row, bin_lane = {BIN_NONE: (0, 0), BIN_ELL1: (K1_BIN_OPS_PER_ROW, K1_BIN_OPS_PER_LANE),
                          BIN_KEPLER: (K1_KEPLER_OPS_PER_ROW, K1_KEPLER_OPS_PER_LANE)}[kind]
     per_row = K1_OPS_PER_ROW + bin_row + (K1_NG_OPS_PER_ROW if ng else 0)
@@ -1043,11 +1073,34 @@ def k1_record(model, tensor, params, lanes, device, reps: int) -> dict:
         per_row, per_lane = per_row + K1_DDK_OPS_PER_ROW, per_lane + K1_DDK_OPS_PER_LANE
     elif kind == BIN_KEPLER and st.bin_model == 2:
         per_lane += K1_DDGR_OPS_PER_LANE
-    n_ops = B * rows * (per_row + per_lane * k)
+    n_ops = B * rows * (per_row + per_lane * class_lanes) \
+        + B * n * K1_CLASS_COLUMN_OPS * (n_dmx + n_jump)
     b, how = bound_ms(n_bytes, n_ops)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
-            "call_ms": call, "plain_call_ms": plain_call,
-            "shape": f"B={B} N={n} lanes={len(lanes)}"}
+    rec = {"ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": how, "library_ms": None,
+           "call_ms": call_ms, "plain_call_ms": plain_call, "plan": {"bound_ops": n_ops},
+           "bound_counts": "the DMX lanes as one lane, the JUMP lanes as one, plus "
+                           f"{K1_CLASS_COLUMN_OPS} operations a row for each of their columns",
+           "shape": f"B={B} N={n} lanes={len(lanes)} (DMX {n_dmx}, JUMP {n_jump})"}
+    if device.type == "cuda":
+        from pint_tpu_torch.ops import build
+        from pint_tpu_torch.residuals import _declare_k1
+
+        _, plan = setup.call(build.library("resid_tangent", _declare_k1), rows, n,
+                             model.has_abs_phase, "delta_pn" in tensor, "track_pn" in tensor, B)
+        rec["by_kernel"] = by_kernel(call, 5, K1_KERNEL)
+        rec["plan"].update(kernel_lanes=plan.n_klane, lane_width=plan.width,
+                           tape_slots=plan.n_slots, scratch_bytes=plan.scratch * 8)
+    return rec
+
+
+def k1_kept(summary: dict, label: str, rec: dict, prefix: str = "",
+            keys=K1_RECORD_KEYS) -> dict:
+    """A K1 record's part for the kernels line (`keys`, or all but the plan
+    for None; each key after `prefix`); its "plan" goes to
+    summary["k1_plan"][label]."""
+    summary.setdefault("k1_plan", {})[label] = rec["plan"]
+    return {f"{prefix}{k}": v for k, v in rec.items()
+            if k != "plan" and (keys is None or k in keys)}
 
 
 def k2_record(r, M, w, device) -> dict:
@@ -1069,8 +1122,6 @@ def k2_record(r, M, w, device) -> dict:
             "shape": f"B={B} N={n} p={p}"}
 
 
-# parameter row of K1 before the DM and F terms (resid_tangent.cu P_DM0)
-P_ROW_LEN = 84
 
 
 _K3_BUILD: dict = {}
@@ -1356,12 +1407,14 @@ def smoke_phases(device, summary: dict) -> dict:
     print("timing kernels against their twins")
     recs = {
         "dd_elementwise": k0_record(model, device),
-        "resid_tangent": k1_record(model, tensor, params_b, grid_lanes, device, 50),
+        "resid_tangent": k1_kept(summary, "smoke grid",
+                                 k1_record(model, tensor, params_b, grid_lanes, device, 50),
+                                 keys=None),
         "normal_eq": k2_record(r, M, w, device),
     }
-    fit_shape = k1_record(model, tensor, model.params, fit_lanes, device, 50)
-    recs["resid_tangent"].update({f"fit_{k}": v for k, v in fit_shape.items()
-                                  if k in ("ms", "call_ms", "plain_ms", "bound_ms", "shape")})
+    recs["resid_tangent"].update(k1_kept(
+        summary, "smoke fit", k1_record(model, tensor, model.params, fit_lanes, device, 50),
+        "fit_"))
     recs["normal_eq"].update(kernel_passes_fit=fit_l["normal_eq_passes"],
                              kernel_passes_grid=grid_l["normal_eq_passes"])
     if device.type == "cuda":
@@ -1416,11 +1469,11 @@ def flagship_phases(device, summary: dict) -> dict:
     print("phase 13: flagship kernel times, warm wall and busy share")
     recs = {
         "resid_tangent": {
-            f"flagship_{shape}_{k}": v
-            for shape, params, lanes in (("fit", model.params, free),
-                                         ("grid", params_b, grid_lanes))
-            for k, v in k1_record(model, tensor, params, lanes, device, 20).items()
-            if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            k: v for shape, params, lanes in (("fit", model.params, free),
+                                              ("grid", params_b, grid_lanes))
+            for k, v in k1_kept(summary, f"flagship {shape}",
+                                k1_record(model, tensor, params, lanes, device, 20),
+                                f"flagship_{shape}_").items()},
         "ecorr_normal_eq": k3_record(*k3["grid"]["args"], device),
     }
     fit3 = k3_record(*k3["fit"]["args"], device)
@@ -2242,11 +2295,11 @@ def dd_phases(device, summary: dict) -> dict:
 
         print("phase 26: K1's Kepler instance times, DD warm wall and busy share")
         recs = {"resid_tangent": {
-            f"kepler_{shape}_{k}": v
-            for shape, params, lanes in (("fit", model.params, fit_lanes),
-                                         ("grid", params_b, grid_lanes))
-            for k, v in k1_record(model, tensor, params, lanes, device, 20).items()
-            if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            k: v for shape, params, lanes in (("fit", model.params, fit_lanes),
+                                              ("grid", params_b, grid_lanes))
+            for k, v in k1_kept(summary, f"dd {shape}",
+                                k1_record(model, tensor, params, lanes, device, 20),
+                                f"kepler_{shape}_").items()},
             "normal_eq": {f"dd_{k}": v for k, v in k2_record(r, M, w, device).items()}}
         if device.type == "cuda":
             summary["dd_profile"] = profile_main_path(tensor, device, "dd")
@@ -2538,11 +2591,11 @@ def nanograv_phases(device, summary: dict, n_dmx: int = 64, nf: int = 30, tim=No
         print("phase 33: NANOGrav kernel times, warm wall and busy share")
         recs = {
             "resid_tangent": {
-                f"nanograv_{shape}_{k}": v
-                for shape, params, lanes in (("fit", model.params, free),
-                                             ("grid", params_b, grid_lanes))
-                for k, v in k1_record(model, tensor, params, lanes, device, 10).items()
-                if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+                k: v for shape, params, lanes in (("fit", model.params, free),
+                                                  ("grid", params_b, grid_lanes))
+                for k, v in k1_kept(summary, f"nanograv {shape}",
+                                    k1_record(model, tensor, params, lanes, device, 10),
+                                    f"nanograv_{shape}_").items()},
             "ecorr_normal_eq": {f"dense_{k}": v
                                 for k, v in k3_record(*k3["grid"]["args"], device).items()},
             "linear_columns": k8_record(model, params_b, tensor, device, 50),
@@ -2734,10 +2787,9 @@ def wideband_phases(device, summary: dict, tim=None, par: str | None = None) -> 
         recs = {
             "dm_rows": dm_rows_record(model, model.params, tensor, res.dm_data, res.dm_errors,
                                       free, device, 50),
-            "resid_tangent": {
-                f"wideband_fit_{k}": v
-                for k, v in k1_record(model, tensor, model.params, lanes, device, 10).items()
-                if k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+            "resid_tangent": k1_kept(
+                summary, "wideband fit", k1_record(model, tensor, model.params, lanes, device, 10),
+                "wideband_fit_"),
             "ecorr_normal_eq": {f"wideband_{k}": v
                                 for k, v in k3_record(*k3_inputs["step"], device).items()},
         }
@@ -2942,9 +2994,8 @@ def binary_phases(device, summary: dict) -> dict:
             grid_lanes = linear_split(model, tuple(n for n in free if n not in names))[0]
             for shape, params, lanes in (("fit", model.params, linear_split(model, free)[0]),
                                          ("grid", params_b, grid_lanes)):
-                rec = k1_record(model, tensor, params, lanes, device, 20)
-                rows[f"{form} {shape}"] = {k: rec[k] for k in ("ms", "call_ms", "plain_ms",
-                                                               "bound_ms", "bound_by", "shape")}
+                rows[f"{form} {shape}"] = k1_kept(
+                    summary, f"{form} {shape}", k1_record(model, tensor, params, lanes, device, 20))
         recs["resid_tangent"] = {"binaries": rows}
     summary["binaries"] = {**out, "k1_stats": stats}
     errs = {"resid_tangent": max(v["max_abs_err"] for v in stats.values())}
@@ -3207,17 +3258,20 @@ def k3_sets_record(core, w, pe, pd, device) -> dict:
 
 def grad_record(call, prep, device, names) -> dict:
     """K9's or K10's call: the device ms of each of its passes (`by_kernel`,
-    each call profiled alone, the median) and their sum (`ms`), the whole
+    each call profiled alone, the median over the profiles that saw the
+    pass; `passes_profiles`, their number) and their sum (`ms`), the whole
     call by CUDA events behind a busy queue (`queued_ms`), the factor pass's
     share of the three, and the twin's small-factor prep (`_grad_prep`,
     which pass 1 replaces) by CUDA events."""
-    out = {"ms": None, "passes_ms": None, "queued_ms": None, "twin_prep_ms": None,
-           "factor_share": None}
+    out = {"ms": None, "passes_ms": None, "passes_profiles": None, "queued_ms": None,
+           "twin_prep_ms": None, "factor_share": None}
     if device.type != "cuda":
         return out
     passes = by_kernel(call, 20, names)
-    total = sum(ms for _, ms in passes)
-    out.update(ms=total, passes_ms=dict(passes), queued_ms=queued_ms(call, 20),
+    total = sum(ms for _, ms, _ in passes)
+    out.update(ms=total, passes_ms={name: ms for name, ms, _ in passes},
+               passes_profiles={name: seen for name, _, seen in passes},
+               queued_ms=queued_ms(call, 20),
                twin_prep_ms=queued_ms(prep, 20), factor_share=passes[0][1] / total)
     return out
 
@@ -4343,7 +4397,9 @@ def phases(device_name: str = "cuda") -> dict:
     if device.type == "cuda":
         print("phase 2: build kernels")
         summary["build_s"] = build.build_all()
-        print(f"  built in {summary['build_s']:.2f} s into {build.build_dir()}")
+        summary["nvcc_s"] = dict(build.NVCC_SECONDS)
+        print(f"  built in {summary['build_s']:.2f} s into {build.build_dir()}; nvcc seconds "
+              f"by source {json.dumps(summary['nvcc_s'])}")
         summary["ptxas"], summary["ptxas_instances"] = {}, {}
         for name in build.SOURCES:
             summary["ptxas"][name] = build.ptxas_summary(name)

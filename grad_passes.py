@@ -201,7 +201,7 @@ def main() -> int:
                 torch.equal(a, b) for a, b in zip(got, again))
             passes = cs.by_kernel(call, opt.reps, PATTERNS[tag][kernel])
             r["passes_ms"].append(passes)
-            r["kernel_ms"].append(sum(ms for _, ms in passes))
+            r["kernel_ms"].append(sum(ms for _, ms, _ in passes))
             r["queued_ms"].append(cs.queued_ms(call, opt.reps))
         if "old" in outs:
             rec["err_new_vs_old"] = max(set_err(g, w) for g, w in zip(outs["new"], outs["old"])

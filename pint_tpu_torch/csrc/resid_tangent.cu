@@ -5,8 +5,8 @@
 // of the nonlinear parameters that pint_tpu forms with jax.linearize + vmap
 // (fitting/wls.py get_step_fn.design, gridutils.py _point_kernel.gn_step).
 //
-// One thread per TOA row and parameter set (grid: rows x batch). Per row, in
-// the order of the Python twin (models/*.py, a term at a time):
+// The chain, per row, in the order of the Python twin (models/*.py, a term
+// at a time):
 //   pulsar direction n with proper motion  (astrometry.py; an ecliptic
 //     direction is rotated to ICRS by the obliquity)
 //   Roemer -r.n and parallax                (astrometry.py)
@@ -44,55 +44,81 @@
 //   minus the TZR row's phase, plus the row's pulse offset (-padd, -phase
 //     flags), then dd rint, or under TRACK -2 minus the row's -pn pulse
 //     number (timing_model.py, residuals.py phase_residual_frac)
-// and writes the pulse number, the fractional phase (hi + lo), f, and the
+// It writes the pulse number, the fractional phase (hi + lo), f, and the
 // barycentric frequency f_bary of every row, the TZR row included (kernel
-// K8 reads it).
+// K8 reads it), and d(frac)/dp and d(f)/dp per lane; the caller forms
+// d(r/f) (fitting/wls.py, gls.py, gridutils.py).
 //
 // The ecliptic frame, DMX, FD and the phase JUMPs are NANOGrav's terms: a
-// template flag (NG) compiles them only into the instances that need them,
-// so the other instances keep their registers. The DMX DM of each row and
-// its jump seconds arrive as per-set row columns (the one-hot product and
-// the mask sums, formed by the wrapper as the twin forms them); a DMX lane
-// is seeded with the row's one-hot entry, a JUMP lane with its mask.
+// template flag (NG) compiles them only into the instances that need them.
+// The DMX DM of each row and its jump seconds arrive as per-set row columns
+// (the one-hot product and the mask sums, formed by the wrapper as the twin
+// forms them). The binary kind is a template parameter (BIN: 0 none, 1
+// ELL1, 2 Kepler); the models of a kind are a run-time switch
+// (Config::bin_model: ELL1, ELL1H, ELL1K; BT, DD and DDS, DDGR, DDK), as are
+// ELL1H's mode and harmonics and the FB form.
 //
-// Tangents: beside every value the thread carries K dual lanes, one per
-// free parameter (lane codes: the L_* enum below, the table LANE_CODES of
+// Tangents: beside every value a thread carries K dual lanes, one per free
+// parameter (lane codes: the L_* enum below, the table LANE_CODES of
 // residuals.py: 0-4 astrometry, 5-9 PB A1 TASC EPS1 EPS2, 16 + k for F_k,
 // 32 + k for DM_k, 48-62 the Kepler-orbit and shared binary lanes, 64 + k
 // for FD_k, 80 + m for the m-th JUMP, 128 + j for the DMX of window j,
-// 256 + k for FB_k, 264-272 H3 H4 STIGMA LNEDOT KIN KOM MTOT XOMDOT XPBDOT). A double-double
-// value carries one float64 tangent: the derivative needs float64 precision
-// only, as jax's tangents through the float64 carriers do. Outputs d(frac)/dp
-// and d(f)/dp per lane; the caller forms d(r/f) (fitting/wls.py, gls.py,
-// gridutils.py). A block carries at most KCHUNK = 8 lanes (registers: every
-// dual value holds K + 1 doubles); more lanes are more blocks of the same
-// launch (blockIdx.z picks the chunk), each recomputing the primal, and
-// chunk 0 alone writes the primal outputs. The binary kind is a template
-// parameter (BIN: 0 none, 1 ELL1, 2 Kepler): a model runs an instance that
-// carries only its own binary's code and registers. The models of a kind
-// are a run-time switch (Config::bin_model: ELL1, ELL1H, ELL1K; BT, DD and
-// DDS, DDGR, DDK), as are ELL1H's mode and harmonics and the FB form, so
-// the 24 instances stay 24.
+// 256 + k for FB_k, 264-272 H3 H4 STIGMA LNEDOT KIN KOM MTOT XOMDOT XPBDOT). A
+// double-double value carries one float64 tangent: the derivative needs
+// float64 precision only, as jax's tangents through the float64 carriers do.
 //
-// TZR row: every block's thread 0 evaluates the fiducial row (the tensor's
-// last) into shared memory before the block's rows subtract it, so one launch
-// does the whole pass and nothing crosses blocks.
+// Passes (the plan, csrc/k1_plan.h, splits the lanes and sizes the scratch):
+//   1. resid_primal, one thread per row and set (the TZR row included): the
+//      chain without lanes. Every transcendental it meets (sine and cosine
+//      of an angle, in one sincos; log; square root; atan2; Kepler's E with
+//      sin E and cos E after the Newton steps) is stored in the row's tape,
+//      a scratch laid out (set, slot, row) so that a warp's rows read one
+//      slot coalesced; so are the row's phase (hi, lo). It writes f and
+//      f_bary.
+//   2. resid_tzr, one thread per set and kernel lane: the TZR row's tangent
+//      of each lane (its d frac before the subtraction).
+//   3. resid_lanes, one thread per row, set and group of K lanes: the chain
+//      again with its lanes, reading every transcendental back from the tape
+//      (no sine, log or Newton step runs twice for a row and set) and
+//      redoing the cheap primal arithmetic (adds, multiplies, divisions, the
+//      dd steps) in the same order; minus the TZR row's tangents; each lane
+//      to its column. It is a programmatic dependent launch of pass 2, so
+//      its chains run beside the TZR row's. The first group also forms the pulse number and
+//      fractional phase from the tape's phases, and the JUMP columns in
+//      closed form. With no kernel lane, resid_finalize does that alone.
+// Each lane's arithmetic reads only the primal values and its own seed, and
+// the build keeps every operation's rounding (--fmad=false, __d*_rn): so the
+// lanes' grouping into threads, and the primal values' source (recomputed or
+// read back), change no bit of any output.
 //
-// Bound: double-precision operations. Per row the dd Horner, the transcen-
-// dentals (cos, sin, log; the Kepler term ~40 more) and the K lanes cost several hundred float64
-// operations against 96 bytes of row input and (3 + 2K) doubles of output:
-// far above the ~10 flop/byte ridge of an H100 in float64.
+// The DMX lanes are one kernel lane (k1_plan.h): seeded 1 on every row, its
+// tangent g_i is what a lane seeded with onehot[i, j] = 1 gives, and the
+// lane of a row outside window j is zero throughout. The lane pass writes
+// window j's column as (onehot[i, j] ? g_i : 0) - (onehot[tzr, j] ? g_tzr : 0).
+// The JUMP lanes are F0 mask in closed form: (mask_i ? F0 : 0) - (mask_tzr ?
+// F0 : 0) on d frac and 0 on d f. Both need one-hot and mask entries of 0
+// and 1, as the models build them (exact comparisons and flag masks).
+//
+// Bound: double-precision operations. Per row and set the dd Horner, the
+// transcendentals (cos, sin, log; the Kepler term ~40 more) and the lanes
+// cost several hundred float64 operations against 96 bytes of row input and
+// (3 + 2k) doubles of output: far above the ~10 flop/byte ridge of an H100
+// in float64. The tape costs (n_slots) doubles a row and set, written once
+// and read once per lane group.
 #include "dd.cuh"
+#include "k1_plan.h"
 
 PINT_EXPORT_ERROR_STRING
+PINT_EXPORT_K1_PLAN
 
 namespace {
 
 using namespace pint;
 
-constexpr int KCHUNK = 8;  // lanes per block
-constexpr int LMAX = 128;  // lanes per launch
-constexpr int THREADS = 256;
+static_assert(k1::INVALID == static_cast<int>(cudaErrorInvalidValue), "the plan's refusal");
+constexpr int LMAX = k1::LMAX;
+constexpr int THREADS = 128;     // rows a block (primal, lane and finalize passes)
+constexpr int TZR_THREADS = 64;  // (set, lane) pairs a block of the TZR pass
 constexpr double TWO_PI = 6.283185307179586;  // 2.0 * math.pi
 constexpr int NEWTON_ITERS = 10;               // binaries/kepler.py
 constexpr int BIN_NONE = 0, BIN_ELL1 = 1, BIN_KEPLER = 2;
@@ -101,9 +127,10 @@ constexpr int KEPLER_BT = 0, KEPLER_DDGR = 2, KEPLER_DDK = 3;  // 1 is DD (and D
 constexpr int ELL1_H = 1, ELL1_K = 2;                            // 0 is ELL1
 constexpr int H_H3 = 0, H_H4 = 1, H_STIGMA = 2;  // Config::h_mode (ELL1H)
 constexpr int MAX_FB = 8;                        // FB0 .. FB7
-constexpr int MAX_NHARMS = 20;
 // the light-seconds per AU of pint_tpu's DDK parallax term (its literal)
 constexpr double DDK_AU_LS = 499.00478384;
+// tape slots before the chain's own: the row's phase (hi, lo)
+constexpr int PHASE_SLOTS = 2;
 
 // parameter row layout, shared with pint_tpu_torch/residuals.py _pack_params
 enum : int {
@@ -123,27 +150,28 @@ enum : int {
 };
 // DDGR's Jacobian rows (the derived values' order in P_JAC)
 constexpr int J_OMDOT = 0, J_GAMMA = 1, J_PBDOT = 2, J_SINI = 3, J_DR = 4, J_DTH = 5;
-// lane codes: residuals.py LANE_CODES holds the same list
+// lane codes: residuals.py LANE_CODES holds the same list; L_DMX is the
+// kernel lane of every DMX window (k1_plan.h)
 enum : int {
   L_RAJ = 0, L_DECJ = 1, L_PMRA = 2, L_PMDEC = 3, L_PX = 4,
   L_PB = 5, L_A1 = 6, L_TASC = 7, L_EPS1 = 8, L_EPS2 = 9, L_F0 = 16, L_DM0 = 32,
   L_T0 = 48, L_ECC, L_OM, L_OMDOT, L_EDOT, L_GAMMA, L_PBDOT, L_A1DOT, L_M2, L_SINI,
   L_SHAPMAX, L_DR, L_DTH, L_A0, L_B0,
-  L_FD0 = 64, L_JUMP0 = 80, L_DMX0 = 128,
-  L_FB0 = 256, L_H3 = L_FB0 + MAX_FB, L_H4, L_STIGMA, L_LNEDOT, L_KIN, L_KOM, L_MTOT, L_XOMDOT,
-  L_XPBDOT
+  L_FD0 = 64, L_JUMP0 = k1::L_JUMP0, L_DMX0 = k1::L_DMX0,
+  L_FB0 = k1::L_FB0, L_H3 = L_FB0 + MAX_FB, L_H4, L_STIGMA, L_LNEDOT, L_KIN, L_KOM, L_MTOT,
+  L_XOMDOT, L_XPBDOT, L_DMX = k1::L_DMX
 };
-constexpr int MAX_FD = 15;
 
 struct Config {
   int n_rows;   // tensor rows, the TZR row included
   int n_out;    // data rows written
+  int n_batch;  // parameter sets
   int has_tzr;  // AbsPhase: subtract the last row's phase
   int has_ast;  // astrometry (and with it the solar Shapiro delay)
   int nd;       // DM Taylor terms (0: no dispersion component)
   int nf;       // spin terms F0..F(nf-1)
   int n_par;    // parameter row length
-  int n_lane;   // lanes of this launch
+  int n_lane;   // the caller's lanes (rows of dfrac and df)
   int bin_model;  // the kind's model: KEPLER_* or ELL1_*
   int ecliptic;   // the astrometry angles are ecliptic (NG instances)
   int n_dmx, n_fd, n_jump;  // DMX windows, FD terms, JUMPs (NG instances)
@@ -151,7 +179,11 @@ struct Config {
   int h_mode, nharms;  // ELL1H: H_* and the harmonics of its Shapiro series
   int has_dpn;    // add the rows' pulse offsets (-padd, -phase) before the rint
   int has_track;  // TRACK -2: subtract the rows' pulse numbers, no rint
-  int lane[LMAX];
+  int n_klane, dmx_lane, n_slots;  // the plan's kernel lanes, L_DMX's index, tape slots
+  int code[LMAX];                  // the kernel lanes' codes (-1 past n_klane)
+  int pos[LMAX];                   // and their rows of dfrac and df
+  int dmx_pos[k1::MAX_DMX];        // window j's row, or -1
+  int jump_pos[k1::MAX_JUMP];      // the m-th JUMP's row, or -1
   double au_ls, dmconst, tsun, cos_obl, sin_obl;
 };
 
@@ -160,6 +192,10 @@ struct Rows {
   const double *t_hi, *t_lo, *freq, *pos, *vel, *sun;
   const double *dmx, *jump, *onehot, *masks;
   const double *dpn, *track;  // data rows' pulse offsets and tracked pulse numbers
+};
+
+struct Out {
+  double *pn, *frac, *f, *dfrac, *df, *fb;
 };
 
 template <int K>
@@ -177,13 +213,54 @@ __device__ __forceinline__ Dual<K> dconst(double v) {
   return r;
 }
 
-// the lane codes of one block's chunk, in registers
+// the lane codes of one thread's group, in registers
 template <int K>
 struct Lanes {
   int code[K > 0 ? K : 1];
 };
 
-// `v` seeded with 1 on the lane of this block's chunk that carries `code`
+// A row's tape: its expensive primal values, one slot each, `stride` (the
+// tensor's rows) apart. K = 0, the primal pass, computes each value and
+// stores it; K > 0, a lane pass, reads it back. Both meet the values in the
+// same order: the chain's control flow depends on primal values only.
+template <int K>
+struct Tape {
+  double *p;
+  int stride;
+  int slot;
+};
+
+// f() stored (K = 0) or read back (K > 0) through the read-only data path:
+// the tape is complete before a pass that reads it starts, so ptxas may
+// load a value again where it would otherwise hold or spill it
+template <int K, typename F>
+__device__ __forceinline__ double taped(Tape<K> &t, F f) {
+  double *q = t.p + (size_t)t.slot++ * t.stride;
+  if constexpr (K == 0) {
+    const double v = f();
+    *q = v;
+    return v;
+  } else {
+    return __ldg(q);
+  }
+}
+
+// sin x and cos x, two slots
+template <int K>
+__device__ __forceinline__ void taped_sincos(Tape<K> &t, double x, double &s, double &c) {
+  double *q = t.p + (size_t)t.slot * t.stride;
+  t.slot += 2;
+  if constexpr (K == 0) {
+    sincos(x, &s, &c);
+    q[0] = s;
+    q[t.stride] = c;
+  } else {
+    s = __ldg(q);
+    c = __ldg(q + t.stride);
+  }
+}
+
+// `v` seeded with 1 on the lane of this thread's group that carries `code`
 template <int K>
 __device__ __forceinline__ Dual<K> dseed(double v, const Lanes<K> &lane, int code) {
   Dual<K> r;
@@ -256,30 +333,39 @@ __device__ __forceinline__ Dual<K> dneg(const Dual<K> &a) {
   return r;
 }
 
+// sin a and cos a from one taped pair: tangents cos(a) a' and -sin(a) a'
 template <int K>
-__device__ __forceinline__ Dual<K> dcos(const Dual<K> &a) {
-  Dual<K> r;
-  r.v = cos(a.v);
-  const double s = -sin(a.v);
+__device__ __forceinline__ void dsincos(Tape<K> &t, const Dual<K> &a, Dual<K> &s, Dual<K> &c) {
+  double sv, cv;
+  taped_sincos(t, a.v, sv, cv);
+  s.v = sv;
+  c.v = cv;
+  const double msv = -sv;
 #pragma unroll
-  for (int j = 0; j < K; ++j) r.d[j] = s * a.d[j];
-  return r;
+  for (int j = 0; j < K; ++j) {
+    s.d[j] = cv * a.d[j];
+    c.d[j] = msv * a.d[j];
+  }
 }
 
 template <int K>
-__device__ __forceinline__ Dual<K> dsin(const Dual<K> &a) {
-  Dual<K> r;
-  r.v = sin(a.v);
-  const double cs = cos(a.v);
-#pragma unroll
-  for (int j = 0; j < K; ++j) r.d[j] = cs * a.d[j];
-  return r;
+__device__ __forceinline__ Dual<K> dcos(Tape<K> &t, const Dual<K> &a) {
+  Dual<K> s, c;
+  dsincos(t, a, s, c);
+  return c;
 }
 
 template <int K>
-__device__ __forceinline__ Dual<K> dsqrt(const Dual<K> &a) {
+__device__ __forceinline__ Dual<K> dsin(Tape<K> &t, const Dual<K> &a) {
+  Dual<K> s, c;
+  dsincos(t, a, s, c);
+  return s;
+}
+
+template <int K>
+__device__ __forceinline__ Dual<K> dsqrt(Tape<K> &t, const Dual<K> &a) {
   Dual<K> r;
-  r.v = __dsqrt_rn(a.v);
+  r.v = taped(t, [&] { return __dsqrt_rn(a.v); });
   const double two_r = __dmul_rn(2.0, r.v);
 #pragma unroll
   for (int j = 0; j < K; ++j) r.d[j] = a.d[j] / two_r;
@@ -288,9 +374,9 @@ __device__ __forceinline__ Dual<K> dsqrt(const Dual<K> &a) {
 
 // atan2(y, x), tangent y' x / (y^2 + x^2) - x' y / (y^2 + x^2)
 template <int K>
-__device__ __forceinline__ Dual<K> datan2(const Dual<K> &y, const Dual<K> &x) {
+__device__ __forceinline__ Dual<K> datan2(Tape<K> &t, const Dual<K> &y, const Dual<K> &x) {
   Dual<K> r;
-  r.v = atan2(y.v, x.v);
+  r.v = taped(t, [&] { return atan2(y.v, x.v); });
   const double den = __dadd_rn(__dmul_rn(y.v, y.v), __dmul_rn(x.v, x.v));
   const double gy = __ddiv_rn(x.v, den), gx = __ddiv_rn(-y.v, den);
 #pragma unroll
@@ -299,9 +385,9 @@ __device__ __forceinline__ Dual<K> datan2(const Dual<K> &y, const Dual<K> &x) {
 }
 
 template <int K>
-__device__ __forceinline__ Dual<K> dlog(const Dual<K> &a) {
+__device__ __forceinline__ Dual<K> dlog(Tape<K> &t, const Dual<K> &a) {
   Dual<K> r;
-  r.v = log(a.v);
+  r.v = taped(t, [&] { return log(a.v); });
 #pragma unroll
   for (int j = 0; j < K; ++j) r.d[j] = a.d[j] / a.v;
   return r;
@@ -376,20 +462,6 @@ struct RowPhase {
   Dual<K> f;
 };
 
-// a row column whose tangent on lane code `base + m` is tab(m)
-template <int K, typename Tab>
-__device__ __forceinline__ Dual<K> dcolumn(double v, const Lanes<K> &lane, int base, int count,
-                                           Tab tab) {
-  Dual<K> r;
-  r.v = v;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int m = lane.code[j] - base;
-    r.d[j] = (m >= 0 && m < count) ? tab(m) : 0.0;
-  }
-  return r;
-}
-
 __device__ __forceinline__ double inv_fact(int n) {
   double f = 1.0;
   for (int i = 1; i <= n; ++i) f = __dmul_rn(f, (double)i);
@@ -422,9 +494,10 @@ __device__ __forceinline__ Dual<K> t3(double a, const Dual<K> &x, const Dual<K> 
 }
 
 template <int K>
-__device__ Dual<K> ell1_dre(const Ell1Harmonics<K> &h, const Dual<K> &e1, const Dual<K> &e2,
-                            const Dual<K> &e1sq, const Dual<K> &e2sq, const Dual<K> &e1cu,
-                            const Dual<K> &e2cu) {
+__device__ __forceinline__ Dual<K> ell1_dre(const Ell1Harmonics<K> &h, const Dual<K> &e1,
+                                            const Dual<K> &e2, const Dual<K> &e1sq,
+                                            const Dual<K> &e2sq, const Dual<K> &e1cu,
+                                            const Dual<K> &e2cu) {
   Dual<K> a = dsub(dmul(e2, h.s2), dmul(e1, h.c2));
   Dual<K> b = dsub(t2(5.0, e2sq, h.s1), t2(3.0, e2sq, h.s3));
   b = dsub(b, t3(2.0, e2, e1, h.c1));
@@ -445,9 +518,10 @@ __device__ Dual<K> ell1_dre(const Ell1Harmonics<K> &h, const Dual<K> &e1, const 
 }
 
 template <int K>
-__device__ Dual<K> ell1_drep(const Ell1Harmonics<K> &h, const Dual<K> &e1, const Dual<K> &e2,
-                             const Dual<K> &e1sq, const Dual<K> &e2sq, const Dual<K> &e1cu,
-                             const Dual<K> &e2cu) {
+__device__ __forceinline__ Dual<K> ell1_drep(const Ell1Harmonics<K> &h, const Dual<K> &e1,
+                                             const Dual<K> &e2, const Dual<K> &e1sq,
+                                             const Dual<K> &e2sq, const Dual<K> &e1cu,
+                                             const Dual<K> &e2cu) {
   Dual<K> b = dsub(t2(5.0, e2sq, h.c1), t2(9.0, e2sq, h.c3));
   b = dadd(b, t3(2.0, e1, e2, h.s1));
   b = dsub(b, t3(18.0, e1, e2, h.s3));
@@ -467,9 +541,10 @@ __device__ Dual<K> ell1_drep(const Ell1Harmonics<K> &h, const Dual<K> &e1, const
 }
 
 template <int K>
-__device__ Dual<K> ell1_drepp(const Ell1Harmonics<K> &h, const Dual<K> &e1, const Dual<K> &e2,
-                              const Dual<K> &e1sq, const Dual<K> &e2sq, const Dual<K> &e1cu,
-                              const Dual<K> &e2cu) {
+__device__ __forceinline__ Dual<K> ell1_drepp(const Ell1Harmonics<K> &h, const Dual<K> &e1,
+                                              const Dual<K> &e2, const Dual<K> &e1sq,
+                                              const Dual<K> &e2sq, const Dual<K> &e1cu,
+                                              const Dual<K> &e2cu) {
   Dual<K> b = dadd(t2(-5.0, e2sq, h.s1), t2(27.0, e2sq, h.s3));
   b = dadd(b, t3(2.0, e1, e2, h.c1));
   b = dsub(b, t3(54.0, e1, e2, h.c3));
@@ -541,7 +616,7 @@ __device__ __forceinline__ Dual<K> ddiv_jax(const Dual<K> &a, const Dual<K> &b) 
 // x^y for an integer y >= 0 as jax's integer_pow: repeated squaring, the
 // result multiplied on the left (engines.py ipow); y = 0 is a constant 1
 template <int K>
-__device__ Dual<K> dipow(Dual<K> x, int y) {
+__device__ __forceinline__ Dual<K> dipow(Dual<K> x, int y) {
   if (y == 0) return dconst<K>(1.0);
   Dual<K> acc = x;
   bool have = false;
@@ -568,9 +643,9 @@ struct Orbit {
 };
 
 template <int K>
-__device__ Orbit<K> orbit(double t_hi, double t_lo, const Dual<K> &dsf,
-                          const double *__restrict__ P, const Lanes<K> &lane, int epoch_lane,
-                          int n_fb, const double *jac) {
+__device__ __forceinline__ Orbit<K> orbit(double t_hi, double t_lo, const Dual<K> &dsf,
+                                          const double *__restrict__ P, const Lanes<K> &lane,
+                                          int epoch_lane, int n_fb, const double *jac) {
   // dt = (t - epoch) - delay in dd; the epoch's lane enters with -1
   DDual<K> dtx;
   dtx.x = dd_add_fp(dd_sub(dd{t_hi, t_lo}, dd{P[P_EPOCH_HI], P[P_EPOCH_LO]}), -dsf.v);
@@ -641,15 +716,16 @@ __device__ __forceinline__ Dual<K> secular_a1(const Orbit<K> &o, const double *_
 // the exact log form in STIGMA, or the harmonic series k = 3..nharms with
 // stigma = H4 / H3 (h4) or 0 (h3), each sin(k phi) or cos(k phi) its own
 template <int K>
-__device__ Dual<K> ell1h_shapiro(const Dual<K> &phi, const Dual<K> &s1,
-                                 const double *__restrict__ P, const Lanes<K> &lane,
-                                 const Config &c) {
+__device__ __forceinline__ Dual<K> ell1h_shapiro(Tape<K> &t, const Dual<K> &phi,
+                                                 const Dual<K> &s1, const double *__restrict__ P,
+                                                 const Lanes<K> &lane, const Config &c) {
   const Dual<K> h3 = dseed<K>(P[P_H3], lane, L_H3);
   if (c.h_mode == H_STIGMA) {
     // -2 H3 / stigma^3 log(1 + stigma^2 - 2 stigma sin phi)
     const Dual<K> sg = dseed<K>(P[P_STIGMA], lane, L_STIGMA);
     const Dual<K> lognum = dsub(dadd(dconst<K>(1.0), dmul(sg, sg)), dmul(dmulc(sg, 2.0), s1));
-    return dmul(ddiv(dmulc(h3, -2.0), dmul(sg, dmul(sg, sg))), dlog(lognum));
+    const Dual<K> lg = dlog(t, lognum);
+    return dmul(ddiv(dmulc(h3, -2.0), dmul(sg, dmul(sg, sg))), lg);
   }
   Dual<K> sg = dconst<K>(0.0);
   if (c.h_mode == H_H4)
@@ -661,7 +737,9 @@ __device__ Dual<K> ell1h_shapiro(const Dual<K> &phi, const Dual<K> &s1,
     const int pwr = even ? (k + 2) / 2 : (k + 1) / 2;
     const double coef = ((pwr & 1) ? -1.0 : 1.0) * __ddiv_rn(2.0, (double)k);
     const Dual<K> kphi = dmulc(phi, (double)k);
-    const Dual<K> basis = even ? dcos(kphi) : dsin(kphi);
+    Dual<K> sk, ck;
+    dsincos(t, kphi, sk, ck);
+    const Dual<K> basis = even ? ck : sk;
     total = dadd(total, dmul(dmulc(dipow(sg, k - 3), coef), basis));
   }
   return dmul(dmulc(h3, -2.0), total);
@@ -670,8 +748,9 @@ __device__ Dual<K> ell1h_shapiro(const Dual<K> &phi, const Dual<K> &s1,
 // The ELL1 family (binaries/engines.py ell1_delay, ell1h_delay, ell1k_delay)
 // on the orbit `o`.
 template <int K>
-__device__ Dual<K> ell1_term(const Orbit<K> &o, const double *__restrict__ P,
-                             const Lanes<K> &lane, const Config &c) {
+__device__ __forceinline__ Dual<K> ell1_term(Tape<K> &t, const Orbit<K> &o,
+                                             const double *__restrict__ P, const Lanes<K> &lane,
+                                             const Config &c) {
   const Dual<K> &phi = o.phi, &dt = o.dt;
   // engine: secular A1 and the Roemer delay / a1 with its two phi derivatives
   const Dual<K> a1 = secular_a1(o, P, lane);
@@ -683,30 +762,29 @@ __device__ Dual<K> ell1_term(const Orbit<K> &o, const double *__restrict__ P,
     const Dual<K> lnedot = dseed<K>(P[P_LNEDOT], lane, L_LNEDOT);
     const Dual<K> e10 = dseed<K>(P[P_EPS1], lane, L_EPS1), e20 = dseed<K>(P[P_EPS2], lane, L_EPS2);
     const Dual<K> wdt = dmul(omdot, dt);
-    const Dual<K> cw = dcos(wdt), sw = dsin(wdt);
+    Dual<K> sw, cw;
+    dsincos(t, wdt, sw, cw);
     const Dual<K> growth = dadd(dconst<K>(1.0), dmul(lnedot, dt));
     const Dual<K> e1 = dmul(growth, dadd(dmul(e10, cw), dmul(e20, sw)));
     const Dual<K> e2 = dmul(growth, dsub(dmul(e20, cw), dmul(e10, sw)));
-    s1 = dsin(phi);
+    Dual<K> c1;
+    dsincos(t, phi, s1, c1);
     const Dual<K> p2 = dmulc(phi, 2.0);
-    const Dual<K> s2 = dsin(p2), c2 = dcos(p2);
+    Dual<K> s2, c2;
+    dsincos(t, p2, s2, c2);
     dre = dadd(s1, dmulc(dsub(dmul(e2, s2), dmul(e1, dadd(c2, dconst<K>(3.0)))), 0.5));
-    drep = dadd(dadd(dcos(phi), dmul(e2, c2)), dmul(e1, s2));
+    drep = dadd(dadd(c1, dmul(e2, c2)), dmul(e1, s2));
     drepp = dadd(dsub(dneg(s1), t2(2.0, e2, s2)), t2(2.0, e1, c2));
   } else {
     // secular EPS1, EPS2 and ELL1's third-order expansion
     const Dual<K> e1 = dadd(dseed<K>(P[P_EPS1], lane, L_EPS1), dmulc(dt, P[P_EPS1DOT]));
     const Dual<K> e2 = dadd(dseed<K>(P[P_EPS2], lane, L_EPS2), dmulc(dt, P[P_EPS2DOT]));
     Ell1Harmonics<K> h;
-    h.s1 = dsin(phi);
-    h.c1 = dcos(phi);
+    dsincos(t, phi, h.s1, h.c1);
     const Dual<K> p2 = dmulc(phi, 2.0), p3 = dmulc(phi, 3.0), p4 = dmulc(phi, 4.0);
-    h.s2 = dsin(p2);
-    h.c2 = dcos(p2);
-    h.s3 = dsin(p3);
-    h.c3 = dcos(p3);
-    h.s4 = dsin(p4);
-    h.c4 = dcos(p4);
+    dsincos(t, p2, h.s2, h.c2);
+    dsincos(t, p3, h.s3, h.c3);
+    dsincos(t, p4, h.s4, h.c4);
     const Dual<K> e1sq = dmul(e1, e1), e2sq = dmul(e2, e2);
     const Dual<K> e1cu = dmul(e1sq, e1), e2cu = dmul(e2sq, e2);
     dre = ell1_dre(h, e1, e2, e1sq, e2sq, e1cu, e2cu);
@@ -721,33 +799,45 @@ __device__ Dual<K> ell1_term(const Orbit<K> &o, const double *__restrict__ P,
   Dual<K> g = dadd(dsub(dconst<K>(1.0), x), dmul(x, x));
   g = dadd(g, dmul(dmul(dmulc(dmul(nhat, nhat), 0.5), Dre), Drepp));
   const Dual<K> delay_i = dmul(Dre, g);
-  if (c.bin_model == ELL1_H) return dadd(delay_i, ell1h_shapiro<K>(phi, s1, P, lane, c));
+  if (c.bin_model == ELL1_H) return dadd(delay_i, ell1h_shapiro<K>(t, phi, s1, P, lane, c));
   // Shapiro: -2 TSUN M2 log(1 - SINI sin phi)
   const Dual<K> tm2 = dmulc(dseed<K>(P[P_M2], lane, L_M2), c.tsun);
   const Dual<K> sini = dseed<K>(P[P_SINI], lane, L_SINI);
-  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), dlog(dsub(dconst<K>(1.0), dmul(sini, s1))));
+  const Dual<K> lg = dlog(t, dsub(dconst<K>(1.0), dmul(sini, s1)));
+  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), lg);
   return dadd(delay_i, delay_s);
 }
 
 // Kepler's equation E - e sin E = M (binaries/kepler.py kepler_E): Danby's
 // start and NEWTON_ITERS Newton steps on the primal doubles, in the twin's
-// order (sign(0) = 0, as jnp.sign), then one dual value from the implicit
-// rule dE = (dM + sin E de) / (1 - e cos E), so no lane rides the loop.
-// sin E and cos E come back as duals from the rule's own sine and cosine.
+// order (sign(0) = 0, as jnp.sign), in the primal pass alone; then one dual
+// value from the implicit rule dE = (dM + sin E de) / (1 - e cos E), so no
+// lane rides the loop. sin E and cos E come back as duals from the rule's
+// own sine and cosine. E, sin E and cos E are three slots of the tape.
 template <int K>
-__device__ Dual<K> kepler_E(const Dual<K> &M, const Dual<K> &e, Dual<K> &sinE, Dual<K> &cosE) {
-  const double m = M.v, ev = e.v;
-  const double sm = sin(m);
-  const double sg = sm > 0.0 ? 1.0 : sm < 0.0 ? -1.0 : sm;
-  double E = __dadd_rn(m, __dmul_rn(__dmul_rn(0.85, ev), sg));
-  for (int it = 0; it < NEWTON_ITERS; ++it) {
-    const double f = __dsub_rn(__dsub_rn(E, __dmul_rn(ev, sin(E))), m);
-    const double fp = __dsub_rn(1.0, __dmul_rn(ev, cos(E)));
-    E = __dsub_rn(E, __ddiv_rn(f, fp));
+__device__ __forceinline__ Dual<K> kepler_E(Tape<K> &t, const Dual<K> &M, const Dual<K> &e,
+                                            Dual<K> &sinE, Dual<K> &cosE) {
+  const double ev = e.v;
+  double E = 0.0, sE = 0.0, cE = 0.0;
+  if constexpr (K == 0) {
+    const double m = M.v;
+    const double sm = sin(m);
+    const double sg = sm > 0.0 ? 1.0 : sm < 0.0 ? -1.0 : sm;
+    E = __dadd_rn(m, __dmul_rn(__dmul_rn(0.85, ev), sg));
+    for (int it = 0; it < NEWTON_ITERS; ++it) {
+      double s, c;
+      sincos(E, &s, &c);
+      const double f = __dsub_rn(__dsub_rn(E, __dmul_rn(ev, s)), m);
+      const double fp = __dsub_rn(1.0, __dmul_rn(ev, c));
+      E = __dsub_rn(E, __ddiv_rn(f, fp));
+    }
+    sincos(E, &sE, &cE);
   }
+  E = taped(t, [&] { return E; });
+  sE = taped(t, [&] { return sE; });
+  cE = taped(t, [&] { return cE; });
   Dual<K> r;
   r.v = E;
-  const double sE = sin(E), cE = cos(E);
   const double denom = __dsub_rn(1.0, __dmul_rn(ev, cE));
 #pragma unroll
   for (int j = 0; j < K; ++j) r.d[j] = (M.d[j] + sE * e.d[j]) / denom;
@@ -767,14 +857,19 @@ __device__ Dual<K> kepler_E(const Dual<K> &M, const Dual<K> &e, Dual<K> &sinE, D
 // Ec = E - 2 pi rint(E / 2 pi), 2 atan2(sqrt(1+e) sin(Ec/2), sqrt(1-e) cos(Ec/2)),
 // re-attached
 template <int K>
-__device__ Dual<K> true_anomaly(const Dual<K> &E, const Dual<K> &e) {
+__device__ __forceinline__ Dual<K> true_anomaly(Tape<K> &t, const Dual<K> &E, const Dual<K> &e) {
   const double n = rint(__ddiv_rn(E.v, TWO_PI));
   const double two_pi_n = __dmul_rn(TWO_PI, n);
   const Dual<K> Ec = dsub(E, dconst<K>(two_pi_n));
   const Dual<K> half = dmulc(Ec, 0.5);
-  const Dual<K> y = dmul(dsqrt(dadd(dconst<K>(1.0), e)), dsin(half));
-  const Dual<K> x = dmul(dsqrt(dsub(dconst<K>(1.0), e)), dcos(half));
-  return dadd(dmulc(datan2(y, x), 2.0), dconst<K>(two_pi_n));
+  const Dual<K> rp = dsqrt(t, dadd(dconst<K>(1.0), e));
+  Dual<K> sh, ch;
+  dsincos(t, half, sh, ch);
+  const Dual<K> y = dmul(rp, sh);
+  const Dual<K> rm = dsqrt(t, dsub(dconst<K>(1.0), e));
+  const Dual<K> x = dmul(rm, ch);
+  const Dual<K> at = datan2(t, y, x);
+  return dadd(dmulc(at, 2.0), dconst<K>(two_pi_n));
 }
 
 // DDK's per-row A1, OM and SINI (engines.py ddk_corrections): the proper
@@ -784,24 +879,27 @@ __device__ Dual<K> true_anomaly(const Dual<K> &E, const Dual<K> &e) {
 // east = zhat x n / |zhat x n| and north = n x east (jnp.cross's order),
 // over pint_tpu's literal DDK_AU_LS. out: A1, OM, SINI.
 template <int K>
-__device__ void ddk_corrections(double t_hi, const Dual<K> *n, bool has_ast, const double *r,
-                                const double *__restrict__ P, const Lanes<K> &lane,
-                                Dual<K> *out) {
+__device__ __forceinline__ void ddk_corrections(Tape<K> &t, double t_hi, const Dual<K> *n,
+                                                bool has_ast, const double *r,
+                                                const double *__restrict__ P,
+                                                const Lanes<K> &lane, Dual<K> *out) {
   const Dual<K> kin0 = dseed<K>(P[P_KIN], lane, L_KIN), kom = dseed<K>(P[P_KOM], lane, L_KOM);
-  const Dual<K> skom = dsin(kom), ckom = dcos(kom);
+  Dual<K> skom, ckom;
+  dsincos(t, kom, skom, ckom);
   const Dual<K> dt =
       dsub(dconst<K>(t_hi), dseed<K>(__dadd_rn(P[P_EPOCH_HI], P[P_EPOCH_LO]), lane, L_T0));
   const Dual<K> pmra = dseed<K>(P[P_PMRA], lane, L_PMRA);
   const Dual<K> pmdec = dseed<K>(P[P_PMDEC], lane, L_PMDEC);
   Dual<K> d_kin = dmul(dadd(dmul(dneg(pmra), skom), dmul(pmdec, ckom)), dt);
-  const Dual<K> skin0 = dsin(kin0);
+  const Dual<K> skin0 = dsin(t, kin0);
   Dual<K> dom = ddiv(dmul(dadd(dmul(pmra, ckom), dmul(pmdec, skom)), dt), skin0);
   if (has_ast) {
     // east = zhat x n: (0 n2 - 1 n1, 1 n0 - 0 n2, 0 n1 - 0 n0), normalized
     Dual<K> e[3] = {dsub(dmulc(n[2], 0.0), dmulc(n[1], 1.0)),
                     dsub(dmulc(n[0], 1.0), dmulc(n[2], 0.0)),
                     dsub(dmulc(n[1], 0.0), dmulc(n[0], 0.0))};
-    const Dual<K> norm = dsqrt(dadd(dadd(dmul(e[0], e[0]), dmul(e[1], e[1])), dmul(e[2], e[2])));
+    const Dual<K> norm =
+        dsqrt(t, dadd(dadd(dmul(e[0], e[0]), dmul(e[1], e[1])), dmul(e[2], e[2])));
 #pragma unroll
     for (int k = 0; k < 3; ++k) e[k] = ddiv(e[k], norm);
     // north = n x east
@@ -814,7 +912,7 @@ __device__ void ddk_corrections(double t_hi, const Dual<K> *n, bool has_ast, con
     dom = dsub(dom, ddiv(dmul(inv_d, dadd(dmul(r_e, ckom), dmul(r_n, skom))), skin0));
   }
   const Dual<K> kin_t = dadd(kin0, d_kin);
-  const Dual<K> skin_t = dsin(kin_t);
+  const Dual<K> skin_t = dsin(t, kin_t);
   out[0] = ddiv_jax(dmul(dseed<K>(P[P_A1], lane, L_A1), skin_t), skin0);
   out[1] = dadd(dseed<K>(P[P_OM], lane, L_OM), dom);
   out[2] = skin_t;
@@ -825,9 +923,10 @@ __device__ void ddk_corrections(double t_hi, const Dual<K> *n, bool has_ast, con
 // DD with the host's derived values seeded by their Jacobian rows; DDK
 // (`kop` given) DD with its per-row A1, OM and SINI.
 template <int K>
-__device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
-                               const Lanes<K> &lane, int model, double tsun, const double *jac,
-                               const Dual<K> *kop) {
+__device__ __forceinline__ Dual<K> kepler_term(Tape<K> &t, const Orbit<K> &o,
+                                               const double *__restrict__ P,
+                                               const Lanes<K> &lane, int model, double tsun,
+                                               const double *jac, const Dual<K> *kop) {
   const Dual<K> one = dconst<K>(1.0);
   const Dual<K> e = dadd(dseed<K>(P[P_ECC], lane, L_ECC),
                          dmul(dseed<K>(P[P_EDOT], lane, L_EDOT), o.dt));
@@ -838,11 +937,12 @@ __device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
   const Dual<K> om = kop != nullptr ? kop[1] : dseed<K>(P[P_OM], lane, L_OM);
   const Dual<K> omdot = dpk<K>(P, P_OMDOT, lane, L_OMDOT, jac, J_OMDOT);
   Dual<K> sinE, cosE;
-  const Dual<K> E = kepler_E(o.phi, e, sinE, cosE);
+  const Dual<K> E = kepler_E(t, o.phi, e, sinE, cosE);
   if (model == KEPLER_BT) {
     const Dual<K> omega = dadd(om, dmul(omdot, o.dt));
-    const Dual<K> sw = dsin(omega), cw = dcos(omega);
-    const Dual<K> root = dsqrt(dsub(one, dmul(e, e)));
+    Dual<K> sw, cw;
+    dsincos(t, omega, sw, cw);
+    const Dual<K> root = dsqrt(t, dsub(one, dmul(e, e)));
     const Dual<K> a1sw = dmul(a1, sw), a1cwr = dmul(dmul(a1, cw), root);
     const Dual<K> L1 = dmul(a1sw, dsub(cosE, e));
     const Dual<K> L2 = dmul(dadd(a1cwr, gamma), sinE);
@@ -851,16 +951,18 @@ __device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
         dsub(one, ddiv(dmulc(num, TWO_PI), dmul(dsub(one, dmul(e, cosE)), o.pb)));
     return dmul(dadd(L1, L2), D);
   }
-  const Dual<K> nu = true_anomaly(E, e);
+  const Dual<K> nu = true_anomaly(t, E, e);
   const Dual<K> nu_full = dadd(nu, dconst<K>(__dmul_rn(TWO_PI, o.norb)));
   // omega = OM + k nu, k = OMDOT pb / 2 pi
   const Dual<K> k = ddivc(dmul(omdot, o.pb), TWO_PI);
   const Dual<K> omega = dadd(om, dmul(k, nu_full));
-  const Dual<K> sw = dsin(omega), cw = dcos(omega);
+  Dual<K> sw, cw;
+  dsincos(t, omega, sw, cw);
   const Dual<K> er = dmul(e, dadd(one, dpk<K>(P, P_DR, lane, L_DR, jac, J_DR)));
   const Dual<K> eth = dmul(e, dadd(one, dpk<K>(P, P_DTH, lane, L_DTH, jac, J_DTH)));
   const Dual<K> alpha = dmul(a1, sw);
-  const Dual<K> beta = dmul(dmul(a1, dsqrt(dsub(one, dmul(eth, eth)))), cw);
+  const Dual<K> reth = dsqrt(t, dsub(one, dmul(eth, eth)));
+  const Dual<K> beta = dmul(dmul(a1, reth), cw);
   const Dual<K> bg = dadd(beta, gamma);
   // Dre = Roemer + Einstein in proper time, and its two derivatives
   const Dual<K> Dre = dadd(dmul(alpha, dsub(cosE, er)), dmul(bg, sinE));
@@ -881,23 +983,27 @@ __device__ Dual<K> kepler_term(const Orbit<K> &o, const double *__restrict__ P,
   const Dual<K> sini = kop != nullptr ? kop[2]
                        : jac != nullptr ? djac<K>(P[P_SINI], lane, jac + 6 * J_SINI)
                                         : dseed2<K>(P[P_SINI], lane, L_SINI, L_SHAPMAX, P[P_DSINI]);
-  const Dual<K> orbit_s = dadd(dmul(sw, dsub(cosE, e)),
-                               dmul(dmul(dsqrt(dsub(one, dmul(e, e))), cw), sinE));
+  const Dual<K> re = dsqrt(t, dsub(one, dmul(e, e)));
+  const Dual<K> orbit_s = dadd(dmul(sw, dsub(cosE, e)), dmul(dmul(re, cw), sinE));
   const Dual<K> arg = dsub(one_m_ecosE, dmul(sini, orbit_s));
-  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), dlog(arg));
+  const Dual<K> lg = dlog(t, arg);
+  const Dual<K> delay_s = dmul(dmulc(tm2, -2.0), lg);
   // aberration: A0 (sin(w + nu) + e sin w) + B0 (cos(w + nu) + e cos w)
   const Dual<K> wpnu = dadd(omega, nu_full);
-  const Dual<K> delay_a =
-      dadd(dmul(dseed<K>(P[P_A0], lane, L_A0), dadd(dsin(wpnu), dmul(e, sw))),
-           dmul(dseed<K>(P[P_B0], lane, L_B0), dadd(dcos(wpnu), dmul(e, cw))));
+  Dual<K> swn, cwn;
+  dsincos(t, wpnu, swn, cwn);
+  const Dual<K> delay_a = dadd(dmul(dseed<K>(P[P_A0], lane, L_A0), dadd(swn, dmul(e, sw))),
+                               dmul(dseed<K>(P[P_B0], lane, L_B0), dadd(cwn, dmul(e, cw))));
   return dadd(dadd(delay_i, delay_s), delay_a);
 }
 
 // row i's phase and frequency; f_bary is stored to *fb_out when given (as
 // soon as it is known, so that it holds no register through the row)
 template <int K, int BIN, bool NG>
-__device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restrict__ P,
-                                const Config &c, const Lanes<K> &lane, double *fb_out) {
+__device__ __forceinline__ RowPhase<K> eval_row(int i, const Rows &rows,
+                                                const double *__restrict__ P, const Config &c,
+                                                const Lanes<K> &lane, Tape<K> &t,
+                                                double *fb_out) {
   const double t_hi = rows.t_hi[i], t_lo = rows.t_lo[i];
   Dual<K> total = dconst<K>(0.0);
   Dual<K> n[3];
@@ -905,13 +1011,15 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     // pulsar direction with proper motion (astrometry.py pulsar_direction)
     const double dt = __dadd_rn(__dsub_rn(t_hi, P[P_POSEPOCH]), t_lo);
     const Dual<K> dec0 = dseed<K>(P[P_DECJ], lane, L_DECJ);
+    const Dual<K> cdec0 = dcos(t, dec0);
     const Dual<K> ra = dadd(dseed<K>(P[P_RAJ], lane, L_RAJ),
-                            ddiv(dmulc(dseed<K>(P[P_PMRA], lane, L_PMRA), dt), dcos(dec0)));
+                            ddiv(dmulc(dseed<K>(P[P_PMRA], lane, L_PMRA), dt), cdec0));
     const Dual<K> dec = dadd(dec0, dmulc(dseed<K>(P[P_PMDEC], lane, L_PMDEC), dt));
-    const Dual<K> cl = dcos(dec);
-    n[0] = dmul(cl, dcos(ra));
-    n[1] = dmul(cl, dsin(ra));
-    n[2] = dsin(dec);
+    Dual<K> sra, cra, cl;
+    dsincos(t, ra, sra, cra);
+    dsincos(t, dec, n[2], cl);
+    n[0] = dmul(cl, cra);
+    n[1] = dmul(cl, sra);
     if constexpr (NG) {
       if (c.ecliptic) {  // ecliptic of J2000 -> ICRS (astrometry.py ecliptic_to_icrs)
         const Dual<K> y = n[1], z = n[2];
@@ -929,10 +1037,10 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
     total = dadd(total, dadd(dneg(rn), px_delay));
     // solar Shapiro delay
     const double *s = rows.sun + 3 * i;
-    const double rs = __dsqrt_rn(dot3c(s, s));
+    const double rs = taped(t, [&] { return __dsqrt_rn(dot3c(s, s)); });
     const Dual<K> rcos = ddot3(s, n);
-    const Dual<K> shap =
-        dmulc(dlog(ddivc(dsub(dconst<K>(rs), rcos), c.au_ls)), -2.0 * c.tsun);
+    const Dual<K> lg = dlog(t, ddivc(dsub(dconst<K>(rs), rcos), c.au_ls));
+    const Dual<K> shap = dmulc(lg, -2.0 * c.tsun);
     total = dadd(total, shap);
   }
   // f_bary = f (1 - v.n) (dispersion.py barycentric_radio_freq)
@@ -963,10 +1071,8 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
   }
   if constexpr (NG) {
     if (c.n_dmx > 0) {
-      // DMX: this set's window DM of the row; lane 128 + j seeds onehot[i, j]
-      const double *oh = rows.onehot + (size_t)i * c.n_dmx;
-      const Dual<K> dmx = dcolumn<K>(rows.dmx[i], lane, L_DMX0, c.n_dmx,
-                                     [&](int m) { return oh[m]; });
+      // DMX: this set's window DM of the row, on the one lane of every window
+      const Dual<K> dmx = dseed<K>(rows.dmx[i], lane, L_DMX);
       Dual<K> dmd = dconst<K>(0.0);
       if (isfinite(fb.v)) dmd = ddiv(dmulc(dmx, c.dmconst), dmul(fb, fb));
       total = dadd(total, dmd);
@@ -976,7 +1082,7 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
       // is not finite and positive
       const Dual<K> fg = ddivc(fb, 1e3);
       const bool finite = isfinite(fg.v) && fg.v > 0.0;
-      const Dual<K> lf = finite ? dlog(fg) : dconst<K>(0.0);
+      const Dual<K> lf = finite ? dlog(t, fg) : dconst<K>(0.0);
       const int fd_base = P_DM0 + c.nd + 2 * c.nf;
       Dual<K> fd = dconst<K>(0.0);
       for (int k = c.n_fd; k >= 1; --k)
@@ -986,16 +1092,16 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
   }
   if constexpr (BIN == BIN_ELL1) {
     const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_TASC, c.n_fb, nullptr);
-    total = dadd(total, ell1_term<K>(o, P, lane, c));
+    total = dadd(total, ell1_term<K>(t, o, P, lane, c));
   } else if constexpr (BIN == BIN_KEPLER) {
     const double *jac = c.bin_model == KEPLER_DDGR ? P + P_JAC : nullptr;
     const Orbit<K> o = orbit<K>(t_hi, t_lo, total, P, lane, L_T0, c.n_fb, jac);
     if (c.bin_model == KEPLER_DDK) {
       Dual<K> kop[3];
-      ddk_corrections<K>(t_hi, n, c.has_ast, rows.pos + 3 * i, P, lane, kop);
-      total = dadd(total, kepler_term<K>(o, P, lane, c.bin_model, c.tsun, nullptr, kop));
+      ddk_corrections<K>(t, t_hi, n, c.has_ast, rows.pos + 3 * i, P, lane, kop);
+      total = dadd(total, kepler_term<K>(t, o, P, lane, c.bin_model, c.tsun, nullptr, kop));
     } else {
-      total = dadd(total, kepler_term<K>(o, P, lane, c.bin_model, c.tsun, jac, nullptr));
+      total = dadd(total, kepler_term<K>(t, o, P, lane, c.bin_model, c.tsun, jac, nullptr));
     }
   }
   // spindown (spindown.py): dt = (t - delay) - PEPOCH in dd
@@ -1033,8 +1139,9 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
   out.ph = ddadd(zero, acc);                  // phase components: Spindown ...
   if constexpr (NG) {
     if (c.n_jump > 0) {  // ... PhaseJump: F0 * jump seconds, a dd with lo = 0 ...
-      const Dual<K> jp = dcolumn<K>(rows.jump[i], lane, L_JUMP0, c.n_jump,
-                                    [&](int m) { return rows.masks[(size_t)m * c.n_rows + i]; });
+      // no kernel lane is a JUMP's: their columns are the closed form of
+      // `finalize`
+      const Dual<K> jp = dconst<K>(rows.jump[i]);
       const Dual<K> f0 = dseed<K>(__dadd_rn(P[f_base], P[f_base + 1]), lane, L_F0);
       const Dual<K> jph = dmul(jp, f0);
       DDual<K> x;
@@ -1059,163 +1166,275 @@ __device__ RowPhase<K> eval_row(int i, const Rows &rows, const double *__restric
   return out;
 }
 
-// grid: (row blocks, parameter sets, lane chunks of K)
-template <int K, int BIN, bool NG>
-__global__ void __launch_bounds__(THREADS)
-resid_tangent_kernel(Rows rows, const double *__restrict__ params, Config c,
-                     double *__restrict__ pn, double *__restrict__ frac,
-                     double *__restrict__ freq_out, double *__restrict__ dfrac,
-                     double *__restrict__ dfreq, double *__restrict__ fb_out) {
-  const int b = blockIdx.y;
-  if constexpr (NG) {  // this set's row columns
-    if (c.n_dmx > 0) rows.dmx += (size_t)b * c.n_rows;
-    if (c.n_jump > 0) rows.jump += (size_t)b * c.n_rows;
+// this set's row columns (the DMX DM and the jump seconds)
+__device__ __forceinline__ Rows set_rows(Rows rows, int b, const Config &c) {
+  if (c.n_dmx > 0) rows.dmx += (size_t)b * c.n_rows;
+  if (c.n_jump > 0) rows.jump += (size_t)b * c.n_rows;
+  return rows;
+}
+
+// set b's tape: slot s of row i at tape[s * n_rows + i]
+__device__ __forceinline__ double *tape_of(double *scratch, int b, const Config &c) {
+  return scratch + (size_t)b * c.n_slots * c.n_rows;
+}
+
+// data row i of set b: the pulse number and fractional phase from the tape's
+// phases (pint_tpu's phase_residual_frac: the TZR row's phase subtracted,
+// the offsets added (xp.add_f), then the tracked pulse numbers subtracted,
+// or the nearest pulse taken), and the JUMP columns in closed form
+__device__ __forceinline__ void finalize(int i, int b, const Rows &rows,
+                                         const double *__restrict__ P, const Config &c,
+                                         const double *tape, const Out &o) {
+  const int z = c.n_rows - 1;
+  dd x{tape[i], tape[c.n_rows + i]};
+  if (c.has_tzr) x = dd_add(x, dd_neg(dd{tape[z], tape[c.n_rows + z]}));
+  if (c.has_dpn) x = dd_add_fp(x, rows.dpn[i]);
+  double k;
+  dd rem;
+  if (c.has_track) {
+    k = rows.track[i];
+    rem = dd_add_fp(x, -k);
+  } else {
+    rem = dd_rint(x, k);
   }
-  const int lb = blockIdx.z * K;  // first lane of this block's chunk
-  const int slots = gridDim.z * K;
+  const size_t oi = (size_t)b * c.n_out + i;
+  o.pn[oi] = k;
+  o.frac[oi] = dd_to_float(rem);
+  if (c.n_jump > 0) {
+    const int f_base = P_DM0 + c.nd;
+    const double f0 = __dadd_rn(P[f_base], P[f_base + 1]);
+    for (int m = 0; m < c.n_jump; ++m) {
+      const int p = c.jump_pos[m];
+      if (p < 0) continue;
+      const double *mask = rows.masks + (size_t)m * c.n_rows;
+      double v = mask[i] != 0.0 ? f0 : 0.0;
+      if (c.has_tzr) v = v - (mask[z] != 0.0 ? f0 : 0.0);
+      const size_t oj = ((size_t)b * c.n_lane + p) * c.n_out + i;
+      o.dfrac[oj] = v;
+      o.df[oj] = 0.0;
+    }
+  }
+}
+
+// every DMX window's column at data row i of set b from the one DMX lane:
+// g and gf its d frac and d f at the row, g_tzr its d frac at the TZR row
+__device__ __forceinline__ void scatter_dmx(int i, int b, const Rows &rows, const Config &c,
+                                            double g, double g_tzr, double gf, const Out &o) {
+  const double *oh = rows.onehot + (size_t)i * c.n_dmx;
+  const double *oz = rows.onehot + (size_t)(c.n_rows - 1) * c.n_dmx;
+  for (int j = 0; j < c.n_dmx; ++j) {
+    const int p = c.dmx_pos[j];
+    if (p < 0) continue;
+    const bool in = oh[j] != 0.0;
+    double v = in ? g : 0.0;
+    if (c.has_tzr) v = v - (oz[j] != 0.0 ? g_tzr : 0.0);
+    const size_t oj = ((size_t)b * c.n_lane + p) * c.n_out + i;
+    o.dfrac[oj] = v;
+    o.df[oj] = in ? gf : 0.0;
+  }
+}
+
+// pass 1: grid (row blocks, sets); every row, the TZR row included
+template <int BIN, bool NG>
+__global__ void __launch_bounds__(THREADS)
+resid_primal(Rows rows, const double *__restrict__ params, Config c, double *__restrict__ f_out,
+             double *__restrict__ fb_out, double *__restrict__ scratch) {
+  const int b = blockIdx.y, i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_rows) return;
+  rows = set_rows(rows, b, c);
+  double *tape = tape_of(scratch, b, c) + i;
+  Tape<0> t{tape + (size_t)PHASE_SLOTS * c.n_rows, c.n_rows, 0};
+  const Lanes<0> lane{};
+  const RowPhase<0> r = eval_row<0, BIN, NG>(i, rows, params + (size_t)b * c.n_par, c, lane, t,
+                                             fb_out + (size_t)b * c.n_rows + i);
+  // k1_plan.h's tape_slots must count every value the chain stores: a chain
+  // that stored more has written past its row's tape, and the call fails
+  if (PHASE_SLOTS + t.slot > c.n_slots) __trap();
+  tape[0] = r.ph.x.hi;
+  tape[c.n_rows] = r.ph.x.lo;
+  if (i < c.n_out) f_out[(size_t)b * c.n_out + i] = r.f.v;
+}
+
+// Programmatic dependent launch (Hopper): the lane pass, launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization, starts once every block
+// of the TZR pass has called `let_dependents_start`, runs its rows' chains
+// beside the TZR pass, and waits for it (`wait_for_primary`: its completion
+// and its writes) only before it reads the TZR row's tangents. The tape it
+// reads is the primal pass's, complete before the TZR pass started.
+__device__ __forceinline__ void let_dependents_start() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.launch_dependents;");
+#endif
+}
+
+__device__ __forceinline__ void wait_for_primary() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+// pass 2: one thread per (set, kernel lane): the TZR row's d frac
+template <int BIN, bool NG>
+__global__ void __launch_bounds__(TZR_THREADS)
+resid_tzr(Rows rows, const double *__restrict__ params, Config c, double *__restrict__ scratch,
+          double *__restrict__ tz) {
+  let_dependents_start();
+  const int id = blockIdx.x * blockDim.x + threadIdx.x;
+  if (id >= c.n_batch * c.n_klane) return;
+  const int b = id / c.n_klane, l = id % c.n_klane, z = c.n_rows - 1;
+  rows = set_rows(rows, b, c);
+  Tape<1> t{tape_of(scratch, b, c) + (size_t)PHASE_SLOTS * c.n_rows + z, c.n_rows, 0};
+  const Lanes<1> lane{{c.code[l]}};
+  tz[id] = eval_row<1, BIN, NG>(z, rows, params + (size_t)b * c.n_par, c, lane, t, nullptr)
+               .ph.d[0];
+}
+
+// registers a thread of the lane pass may hold: 4 blocks of THREADS (16
+// warps) an SM
+constexpr int LANE_MIN_BLOCKS = 4;
+
+// pass 3: grid (row blocks, sets, lane groups of K)
+template <int K, int BIN, bool NG>
+__global__ void __launch_bounds__(THREADS, LANE_MIN_BLOCKS)
+resid_lanes(Rows rows, const double *__restrict__ params, Config c, Out o,
+            double *__restrict__ scratch, const double *__restrict__ tz) {
+  const int b = blockIdx.y, g = blockIdx.z, i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_out) return;
+  rows = set_rows(rows, b, c);
+  const double *P = params + (size_t)b * c.n_par;
+  double *tape = tape_of(scratch, b, c);
+  if (g == 0) finalize(i, b, rows, P, c, tape, o);
+  const int lb = g * K;
   Lanes<K> lane;
 #pragma unroll
-  for (int j = 0; j < K; ++j) lane.code[j] = c.lane[lb + j];
-  const double *P = params + (size_t)b * c.n_par;
-  __shared__ double tz_hi, tz_lo;
-  __shared__ double tz_d[K > 0 ? K : 1];
-  if (c.has_tzr && threadIdx.x == 0) {
-    const bool first = blockIdx.x == 0 && blockIdx.z == 0;
-    double *tz_fb = first ? fb_out + (size_t)b * c.n_rows + c.n_rows - 1 : nullptr;
-    const RowPhase<K> tz = eval_row<K, BIN, NG>(c.n_rows - 1, rows, P, c, lane, tz_fb);
-    tz_hi = tz.ph.x.hi;
-    tz_lo = tz.ph.x.lo;
-#pragma unroll
-    for (int j = 0; j < K; ++j) tz_d[j] = tz.ph.d[j];
-  }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  RowPhase<K> r;
-  if (i < c.n_out)
-    r = eval_row<K, BIN, NG>(i, rows, P, c, lane,
-                             blockIdx.z == 0 ? fb_out + (size_t)b * c.n_rows + i : nullptr);
-  __syncthreads();
-  if (i >= c.n_out) return;
-  DDual<K> ph = r.ph;
-  if (c.has_tzr) {
-    ph.x = dd_add(ph.x, dd_neg(dd{tz_hi, tz_lo}));
-#pragma unroll
-    for (int j = 0; j < K; ++j) ph.d[j] = ph.d[j] - tz_d[j];
-  }
-  if (blockIdx.z == 0) {
-    // pint_tpu's phase_residual_frac: the offsets added (xp.add_f), then
-    // the tracked pulse numbers subtracted, or the nearest pulse taken
-    const dd x = c.has_dpn ? dd_add_fp(ph.x, rows.dpn[i]) : ph.x;
-    double k;
-    dd rem;
-    if (c.has_track) {
-      k = rows.track[i];
-      rem = dd_add_fp(x, -k);
-    } else {
-      rem = dd_rint(x, k);
-    }
-    const size_t o = (size_t)b * c.n_out + i;
-    pn[o] = k;
-    frac[o] = dd_to_float(rem);
-    freq_out[o] = r.f.v;
-  }
+  for (int j = 0; j < K; ++j) lane.code[j] = c.code[lb + j];
+  Tape<K> t{tape + (size_t)PHASE_SLOTS * c.n_rows + i, c.n_rows, 0};
+  const RowPhase<K> r = eval_row<K, BIN, NG>(i, rows, P, c, lane, t, nullptr);
+  wait_for_primary();
+  const double *tzb = tz + (size_t)b * c.n_klane;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const size_t oj = ((size_t)b * slots + lb + j) * c.n_out + i;
-    dfrac[oj] = ph.d[j];
-    dfreq[oj] = r.f.d[j];
+    const int l = lb + j;
+    if (l >= c.n_klane) break;
+    if (l == c.dmx_lane) {
+      scatter_dmx(i, b, rows, c, r.ph.d[j], c.has_tzr ? tzb[l] : 0.0, r.f.d[j], o);
+      continue;
+    }
+    const size_t oj = ((size_t)b * c.n_lane + c.pos[l]) * c.n_out + i;
+    o.dfrac[oj] = c.has_tzr ? r.ph.d[j] - tzb[l] : r.ph.d[j];
+    o.df[oj] = r.f.d[j];
   }
 }
 
-struct Out {
-  double *pn, *frac, *f, *dfrac, *df, *fb;
-};
-
-template <int K, int BIN, bool NG>
-cudaError_t launch(const Rows &rows, const double *params, const Config &c, int n_batch,
-                   const Out &o, cudaStream_t stream) {
-  const int chunks = K > 0 ? (c.n_lane + K - 1) / K : 1;
-  const dim3 grid((c.n_out + THREADS - 1) / THREADS, n_batch, chunks);
-  resid_tangent_kernel<K, BIN, NG><<<grid, THREADS, 0, stream>>>(rows, params, c, o.pn, o.frac,
-                                                                 o.f, o.dfrac, o.df, o.fb);
-  return cudaGetLastError();
+// pass 3 without kernel lanes: grid (row blocks, sets)
+__global__ void __launch_bounds__(THREADS)
+resid_finalize(Rows rows, const double *__restrict__ params, Config c, Out o,
+               double *__restrict__ scratch) {
+  const int b = blockIdx.y, i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= c.n_out) return;
+  rows = set_rows(rows, b, c);
+  finalize(i, b, rows, params + (size_t)b * c.n_par, c, tape_of(scratch, b, c), o);
 }
 
-// the narrowest instance that holds k lanes (a chunk of KCHUNK past 4)
 template <int BIN, bool NG>
-cudaError_t launch_lanes(int k, const Rows &rows, const double *params, const Config &c,
-                         int n_batch, const Out &o, cudaStream_t s) {
-  if (k == 0) return launch<0, BIN, NG>(rows, params, c, n_batch, o, s);
-  if (k <= 2) return launch<2, BIN, NG>(rows, params, c, n_batch, o, s);
-  if (k <= 4) return launch<4, BIN, NG>(rows, params, c, n_batch, o, s);
-  return launch<KCHUNK, BIN, NG>(rows, params, c, n_batch, o, s);
+cudaError_t launch(const Rows &rows, const double *params, const Config &c, const k1::Plan &plan,
+                   const Out &o, double *scratch, cudaStream_t s) {
+  const dim3 primal((c.n_rows + THREADS - 1) / THREADS, c.n_batch);
+  resid_primal<BIN, NG><<<primal, THREADS, 0, s>>>(rows, params, c, o.f, o.fb, scratch);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 data((c.n_out + THREADS - 1) / THREADS, c.n_batch, plan.groups);
+  if (c.n_klane == 0) {
+    resid_finalize<<<data, THREADS, 0, s>>>(rows, params, c, o, scratch);
+    return cudaGetLastError();
+  }
+  const double *tz = scratch + (size_t)c.n_batch * c.n_slots * c.n_rows;
+  if (c.has_tzr) {
+    const int n = c.n_batch * c.n_klane;
+    resid_tzr<BIN, NG><<<(n + TZR_THREADS - 1) / TZR_THREADS, TZR_THREADS, 0, s>>>(
+        rows, params, c, scratch, scratch + (size_t)c.n_batch * c.n_slots * c.n_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  // after the TZR pass, a programmatic dependent of it
+  cudaLaunchAttribute after_tzr;
+  after_tzr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  after_tzr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = data;
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = s;
+  cfg.attrs = &after_tzr;
+  cfg.numAttrs = c.has_tzr ? 1 : 0;
+  if (plan.width == 1)
+    return cudaLaunchKernelEx(&cfg, resid_lanes<1, BIN, NG>, rows, params, c, o, scratch, tz);
+  return cudaLaunchKernelEx(&cfg, resid_lanes<k1::DEFAULT_WIDTH, BIN, NG>, rows, params, c, o,
+                            scratch, tz);
 }
 
 template <int BIN>
-cudaError_t launch_kind(bool ng, int k, const Rows &rows, const double *params, const Config &c,
-                        int n_batch, const Out &o, cudaStream_t s) {
-  return ng ? launch_lanes<BIN, true>(k, rows, params, c, n_batch, o, s)
-            : launch_lanes<BIN, false>(k, rows, params, c, n_batch, o, s);
+cudaError_t launch_kind(bool ng, const Rows &rows, const double *params, const Config &c,
+                        const k1::Plan &plan, const Out &o, double *scratch, cudaStream_t s) {
+  return ng ? launch<BIN, true>(rows, params, c, plan, o, scratch, s)
+            : launch<BIN, false>(rows, params, c, plan, o, scratch, s);
 }
 
 }  // namespace
 
-// ints: n_rows n_out has_tzr has_ast nd nf n_par k bin_kind bin_model ecliptic
-// n_dmx n_fd n_jump n_fb h_mode nharms lane[0..LMAX) has_dpn has_track
-// (bin_kind: 0 none, 1 ELL1, 2 Kepler; bin_model: ELL1_* or KEPLER_*; n_fb: 0
-// for the PB form)
+// ints (k1_plan.h I_*): n_rows n_out has_tzr has_ast nd nf n_par k bin_kind
+// bin_model ecliptic n_dmx n_fd n_jump n_fb h_mode nharms lane[0..LMAX)
+// has_dpn has_track (bin_kind: 0 none, 1 ELL1, 2 Kepler; bin_model: ELL1_*
+// or KEPLER_*; n_fb: 0 for the PB form)
 // consts: au_ls dmconst tsun cos_obl sin_obl
 // dmx, jump (n_batch, n_rows): each set's DMX DM and jump seconds per row;
-// onehot (n_rows, n_dmx), masks (n_jump, n_rows): the DMX and JUMP lanes'
-// seeds (each a single zero when its term is absent); dpn, track (n_out,):
-// the data rows' pulse offsets and TRACK -2 pulse numbers (read only when
-// has_dpn, has_track)
-// dfrac, df: (n_batch, slots, n_out) with slots = k rounded up to whole
-// chunks of the lane width (2 for k <= 2, 4 for k <= 4, else 8); fb (n_batch,
-// n_rows)
+// onehot (n_rows, n_dmx), masks (n_jump, n_rows): the DMX windows and the
+// JUMP masks, entries 0 or 1 (each a single zero when its term is absent);
+// dpn, track (n_out,): the data rows' pulse offsets and TRACK -2 pulse
+// numbers (read only when has_dpn, has_track)
+// dfrac, df: (n_batch, k, n_out), the lanes in the caller's order; fb
+// (n_batch, n_rows); scratch: resid_tangent_plan's `scratch` doubles
 extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const double *freq,
                              const double *pos, const double *vel, const double *sun,
                              const double *dmx, const double *jump, const double *onehot,
                              const double *masks, const double *dpn, const double *track,
                              const double *params, int n_batch,
                              const int *ints, const double *consts, double *pn, double *frac,
-                             double *f, double *dfrac, double *df, double *fb, void *stream) {
+                             double *f, double *dfrac, double *df, double *fb, double *scratch,
+                             void *stream) {
+  k1::Plan plan;
+  if (k1::plan_of(ints, n_batch, plan) != 0) return static_cast<int>(cudaErrorInvalidValue);
   Config c;
-  c.n_rows = ints[0];
-  c.n_out = ints[1];
-  c.has_tzr = ints[2];
-  c.has_ast = ints[3];
-  c.nd = ints[4];
-  c.nf = ints[5];
-  c.n_par = ints[6];
-  const int k = ints[7];
-  c.n_lane = k;
-  const int bin_kind = ints[8];
-  c.bin_model = ints[9];
-  c.ecliptic = ints[10];
-  c.n_dmx = ints[11];
-  c.n_fd = ints[12];
-  c.n_jump = ints[13];
-  c.n_fb = ints[14];
-  c.h_mode = ints[15];
-  c.nharms = ints[16];
-  const int n_models = bin_kind == BIN_ELL1 ? 3 : bin_kind == BIN_KEPLER ? 4 : 1;
-  if (k < 0 || k > LMAX || c.nf < 1 || c.nd < 0 || c.nd > 16 || c.n_out < 0 ||
-      n_batch < 1 || n_batch > 65535 || c.n_fd < 0 || c.n_fd > MAX_FD || c.n_dmx < 0 ||
-      c.n_jump < 0 || c.n_par != P_DM0 + c.nd + 2 * c.nf + c.n_fd ||
-      bin_kind < BIN_NONE || bin_kind > BIN_KEPLER || c.bin_model < 0 ||
-      c.bin_model >= n_models || c.n_fb < 0 || c.n_fb > MAX_FB || c.h_mode < H_H3 ||
-      c.h_mode > H_STIGMA || c.nharms < 0 || c.nharms > MAX_NHARMS ||
-      (c.bin_model == KEPLER_DDK && bin_kind == BIN_KEPLER && c.ecliptic))
+  c.n_rows = ints[k1::I_ROWS];
+  c.n_out = ints[k1::I_OUT];
+  c.n_batch = n_batch;
+  c.has_tzr = ints[k1::I_TZR];
+  c.has_ast = ints[k1::I_AST];
+  c.nd = ints[k1::I_ND];
+  c.nf = ints[k1::I_NF];
+  c.n_par = ints[k1::I_NPAR];
+  c.n_lane = ints[k1::I_K];
+  const int bin_kind = ints[k1::I_BIN_KIND];
+  c.bin_model = ints[k1::I_BIN_MODEL];
+  c.ecliptic = ints[k1::I_ECLIPTIC];
+  c.n_dmx = ints[k1::I_DMX];
+  c.n_fd = ints[k1::I_FD];
+  c.n_jump = ints[k1::I_JUMP];
+  c.n_fb = ints[k1::I_FB];
+  c.h_mode = ints[k1::I_HMODE];
+  c.nharms = ints[k1::I_NHARMS];
+  if (c.n_par != P_DM0 + c.nd + 2 * c.nf + c.n_fd || (c.has_tzr && c.n_rows != c.n_out + 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int j = 0; j < LMAX; ++j) c.lane[j] = j < k ? ints[17 + j] : -1;
-  c.has_dpn = ints[17 + LMAX];
-  c.has_track = ints[18 + LMAX];
-  for (int j = 0; j < k; ++j) {  // a DMX or JUMP lane names an existing column
-    const int m = c.lane[j];
-    if ((m >= L_DMX0 && m < L_FB0 && m - L_DMX0 >= c.n_dmx) ||
-        (m >= L_JUMP0 && m < L_DMX0 && m - L_JUMP0 >= c.n_jump))
-      return static_cast<int>(cudaErrorInvalidValue);
+  c.has_dpn = ints[k1::I_DPN];
+  c.has_track = ints[k1::I_TRACK];
+  c.n_klane = plan.n_klane;
+  c.dmx_lane = plan.dmx_lane;
+  c.n_slots = plan.n_slots;
+  for (int l = 0; l < LMAX; ++l) {
+    c.code[l] = plan.code[l];
+    c.pos[l] = plan.pos[l];
   }
+  for (int j = 0; j < k1::MAX_DMX; ++j) c.dmx_pos[j] = plan.dmx_pos[j];
+  for (int m = 0; m < k1::MAX_JUMP; ++m) c.jump_pos[m] = plan.jump_pos[m];
   c.au_ls = consts[0];
   c.dmconst = consts[1];
   c.tsun = consts[2];
@@ -1228,10 +1447,10 @@ extern "C" int resid_tangent(const double *t_hi, const double *t_lo, const doubl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (bin_kind == BIN_ELL1)
-    e = launch_kind<BIN_ELL1>(ng, k, rows, params, c, n_batch, o, s);
+    e = launch_kind<BIN_ELL1>(ng, rows, params, c, plan, o, scratch, s);
   else if (bin_kind == BIN_KEPLER)
-    e = launch_kind<BIN_KEPLER>(ng, k, rows, params, c, n_batch, o, s);
+    e = launch_kind<BIN_KEPLER>(ng, rows, params, c, plan, o, scratch, s);
   else
-    e = launch_kind<BIN_NONE>(ng, k, rows, params, c, n_batch, o, s);
+    e = launch_kind<BIN_NONE>(ng, rows, params, c, plan, o, scratch, s);
   return static_cast<int>(e);
 }

@@ -6,7 +6,8 @@ takes seconds. The libraries go under ``build/pint_tpu_torch/<key>/`` beside
 the package, where ``<key>`` hashes the sources, the headers and the flags:
 an edited source builds anew, an unchanged one is reused. All sources build
 in parallel, one nvcc process each (``build_all`` does it up front and
-reports the seconds); a library missing at its first use is built alone.
+reports the seconds, each source's in ``NVCC_SECONDS``); a library missing
+at its first use is built alone.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that no multiply and add are
 contracted into an FMA behind the double-double library's back (the header
@@ -39,6 +40,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: seconds from the start of `build_all` to each library's nvcc finishing
+NVCC_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -84,13 +87,19 @@ def build_all(names=SOURCES) -> float:
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{n}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
-    for n, (proc, tmp, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, _lib_path(n))
-        else:
-            failed.append(n)
+    while procs:
+        for n, (proc, tmp, log) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[n]
+            log.close()
+            if proc.returncode == 0:
+                os.replace(tmp, _lib_path(n))
+                NVCC_SECONDS[n] = time.perf_counter() - t0
+            else:
+                failed.append(n)
+        if procs:
+            time.sleep(0.05)
     if failed:
         logs = "\n".join(f"--- {n} ---\n{(out / f'{n}.log').read_text()}" for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")

@@ -7,12 +7,15 @@ FD, an ELL1-family binary (ELL1, ELL1H, ELL1K) or a Kepler-orbit one (BT,
 DD, DDS, DDGR, DDK), with PB or the FB orbital-frequency form, spindown,
 phase JUMPs): pulse number, fractional phase, spin frequency and the barycentric
 radio frequency (which kernel K8 reads), plus forward-mode tangents of the
-fractional phase and the frequency for up to `MAX_LANES` free parameters,
-eight lanes per block (more lanes are more blocks in the same launch, each
-recomputing the primal). It replaces the TPU's `resid` program and the
-jax.linearize design columns of the fit and grid steps. Its plain-torch twin
-`resid_tangent_plain` runs ``TimingModel.phase_and_freq`` and takes the
-tangents with torch.func.jvp, as the JAX package does with jax.linearize.
+fractional phase and the frequency for up to `MAX_LANES` free parameters.
+Its passes evaluate the chain once per row without lanes, storing the
+transcendentals in a scratch tape, then the TZR row's tangents, then each
+row's lanes from the tape, a few lanes a thread; all the DMX lanes ride one
+kernel lane and the JUMP lanes none (csrc/k1_plan.h). It replaces the TPU's
+`resid` program and the jax.linearize design columns of the fit and grid
+steps. Its plain-torch twin `resid_tangent_plain` runs
+``TimingModel.phase_and_freq`` and takes the tangents with torch.func.jvp, as
+the JAX package does with jax.linearize.
 
 `resid_tangent` launches the kernel for CUDA tensors and takes the twin only
 for CPU tensors. Fitters and grids reach it through `phase_resid_tangents`
@@ -22,6 +25,7 @@ in this module.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -50,8 +54,6 @@ MAX_FD, MAX_JUMP, MAX_DMX, MAX_FB = 15, 48, 128, 8
 #: the most orthometric harmonics K1 evaluates (ELL1H's NHARMS)
 MAX_NHARMS = 20
 MAX_LANES = 128
-#: lanes one block carries (resid_tangent.cu KCHUNK)
-LANE_CHUNK = 8
 
 
 def _lane(name: str, model=None) -> int | None:
@@ -311,83 +313,178 @@ def _binary_values(model: TimingModel, params: dict, B: int) -> dict:
     return vals
 
 
+#: the parameter row's columns before the DM and F terms (resid_tangent.cu
+#: P_DM0)
+P_ROW_LEN = 84
+#: read-only zeros by (device, shape): the absent columns and arguments
+_ZEROS: dict = {}
+
+
+def _zeros(device, shape: tuple) -> torch.Tensor:
+    key = (torch.device(device), shape)
+    z = _ZEROS.get(key)
+    if z is None:
+        z = _ZEROS[key] = torch.zeros(shape, dtype=torch.float64, device=key[0])
+    return z
+
+
 def _pack_params(model: TimingModel, params: dict, B: int, st: Structure,
                  device) -> torch.Tensor:
-    """(B, n_par) float64 parameter rows in the layout of resid_tangent.cu."""
-    def col(v):
-        v = torch.as_tensor(v, dtype=torch.float64, device=device)
-        return torch.broadcast_to(v, (B,))
-
-    zero = col(0.0)
+    """(B, n_par) float64 parameter rows in the layout of resid_tangent.cu:
+    the leaves in row order (absent ones a shared zero) broadcast together
+    and stacked in one copy."""
+    zero = _zeros(device, ())
     posep = params.get("POSEPOCH", params.get("PEPOCH"))
     ast = ("ELONG", "ELAT", "PMELONG", "PMELAT") if st.ecliptic else ("RAJ", "DECJ", "PMRA",
                                                                       "PMDEC")
-    cols = [
-        *(col(params[n]) if n in params else zero for n in ast),
-        col(params["PX"]) if "PX" in params else zero,
-        col(leaf_to_f64(posep)) if posep is not None else zero,
-        col(leaf_to_f64(params["DMEPOCH"])) if "DMEPOCH" in params else zero,
-        col(params["PEPOCH"].hi), col(params["PEPOCH"].lo),
-    ]
+    leaves = [*(params.get(n, zero) for n in ast), params.get("PX", zero),
+              zero if posep is None else leaf_to_f64(posep),
+              leaf_to_f64(params["DMEPOCH"]) if "DMEPOCH" in params else zero,
+              params["PEPOCH"].hi, params["PEPOCH"].lo]
     vals = _binary_values(model, params, B) if st.bin_kind else {}
-    for n in ("PB", "EPOCH"):
-        v = vals.get(n, DD(zero, zero))
-        cols += [col(v.hi), col(v.lo)]
-    cols += [col(vals[n]) if n in vals else zero for n in _BIN_F64]
-    fb0 = vals.get("FB0", DD(zero, zero))
-    cols += [col(fb0.hi), col(fb0.lo)]
-    cols += [col(vals[f"FB{k}"]) if f"FB{k}" in vals else zero for k in range(1, MAX_FB)]
-    cols += [col(vals[n]) if n in vals else zero for n in _BIN_EXT]
-    jac = vals.get("JAC")
-    cols += [jac[:, j] if jac is not None else zero for j in range(36)]
-    for k in range(st.nd):
-        cols.append(col(leaf_to_f64(params[f"DM{k}" if k else "DM"])))
+    for n in ("PB", "EPOCH", None, "FB0"):
+        if n is None:  # between the dd pairs: the float64 block
+            leaves += [vals.get(m, zero) for m in _BIN_F64]
+            continue
+        v = vals.get(n)
+        leaves += [zero, zero] if v is None else [v.hi, v.lo]
+    leaves += [vals.get(f"FB{k}", zero) for k in range(1, MAX_FB)]
+    leaves += [vals.get(n, zero) for n in _BIN_EXT]
+    leaves += list(vals["JAC"].unbind(1)) if "JAC" in vals else [zero] * 36
+    leaves += [leaf_to_f64(params[f"DM{k}" if k else "DM"]) for k in range(st.nd)]
     for k in range(st.nf):
         v = params[f"F{k}"]
-        if isinstance(v, DD):
-            cols += [col(v.hi), col(v.lo)]
-        else:
-            cols += [col(v), zero]
-    for k in range(1, st.n_fd + 1):
-        cols.append(col(leaf_to_f64(params.get(f"FD{k}", 0.0))))
-    return torch.stack(cols, dim=1).contiguous()
+        leaves += [v.hi, v.lo] if isinstance(v, DD) else [v, zero]
+    leaves += [leaf_to_f64(params[f"FD{k}"]) if f"FD{k}" in params else zero
+               for k in range(1, st.n_fd + 1)]
+    P = torch.stack(torch.broadcast_tensors(*leaves), dim=-1)
+    return P.expand(B, P.shape[-1]).contiguous()
 
 
-def _nanograv_columns(model: TimingModel, params: dict, tensor: dict, B: int, st: Structure):
+def _nanograv_columns(model: TimingModel, params: dict, tensor: dict, B: int, st: Structure,
+                      setup: "_K1Setup"):
     """The row columns of K1's NANOGrav terms: each row's DMX DM per set (the
     one-hot product, as DispersionDMX.dmx_dm) and its jump seconds per set
     (PhaseJump.jump_seconds), both (B, N_rows); and the one-hot (N_rows,
-    n_dmx) and jump masks (n_jump, N_rows) that seed the DMX and JUMP lanes.
-    An absent term is one zero."""
+    n_dmx) and jump masks (n_jump, N_rows) from which the kernel writes the
+    DMX and JUMP columns (`setup.masks_of`). An absent term is one zero."""
     n_rows = tensor["t_hi"].shape[0]
     dev = tensor["t_hi"].device
-    empty = torch.zeros(1, dtype=torch.float64, device=dev)
-    dmx = jump = onehot = masks = empty
+    empty = _zeros(dev, (1,))
+    dmx = jump = empty
+    onehot, masks = setup.masks_of(model, tensor, empty)
     if st.n_dmx:
-        comp = model["DispersionDMX"]
-        vals = torch.broadcast_to(comp.dmx_values(params), (B, st.n_dmx))
-        onehot = tensor["dmx_onehot"].contiguous()
+        vals = torch.broadcast_to(model["DispersionDMX"].dmx_values(params), (B, st.n_dmx))
         dmx = (onehot @ vals.T).T.contiguous()
     if st.n_jump:
-        comp = model["PhaseJump"]
         jump = torch.zeros((B, n_rows), dtype=torch.float64, device=dev)
-        for mp in comp.mask_params:
+        for mp in model["PhaseJump"].mask_params:
             v = torch.broadcast_to(leaf_to_f64(params[mp.name]), (B,))
             jump = jump + tensor[f"mask_{mp.name}"] * v[:, None]
-        masks = torch.stack([tensor[f"mask_{mp.name}"] for mp in comp.mask_params]).contiguous()
     return dmx, jump, onehot, masks
 
 
-def _lane_width(k: int) -> int:
-    """Lanes one block carries (resid_tangent.cu launch<K>): 0, 2, 4, or 8
-    per chunk, ceil(k / 8) chunks."""
-    return 0 if k == 0 else 2 if k <= 2 else 4 if k <= 4 else LANE_CHUNK
+# the integer arguments of resid_tangent() (csrc/k1_plan.h I_*): 17 scalars,
+# the lane codes, has_dpn and has_track
+_I_LANE = 17
+_I_COUNT = _I_LANE + MAX_LANES + 2
 
 
-def _lane_slots(k: int) -> int:
-    """Tangent rows the kernel writes: whole chunks."""
-    kw = _lane_width(k)
-    return kw * -(-k // kw) if kw else 0
+class K1Plan(ctypes.Structure):
+    """csrc/k1_plan.h's Plan: the kernel lanes (dense ones in the caller's
+    order, then the one DMX lane), each lane's row of the outputs, the lane
+    width and groups, and the scratch in doubles."""
+
+    _fields_ = [("n_klane", ctypes.c_int), ("width", ctypes.c_int), ("groups", ctypes.c_int),
+                ("dmx_lane", ctypes.c_int), ("n_slots", ctypes.c_int),
+                ("code", ctypes.c_int * MAX_LANES), ("pos", ctypes.c_int * MAX_LANES),
+                ("dmx_pos", ctypes.c_int * MAX_DMX), ("jump_pos", ctypes.c_int * MAX_JUMP),
+                ("scratch", ctypes.c_longlong)]
+
+
+def _k1_ints(st: Structure, codes, n_rows: int, n_out: int, has_tzr: bool, has_dpn: bool,
+             has_track: bool):
+    """resid_tangent()'s integer arguments."""
+    n_par = P_ROW_LEN + st.nd + 2 * st.nf + st.n_fd
+    return (ctypes.c_int * _I_COUNT)(
+        n_rows, n_out, int(has_tzr), int(st.has_ast), st.nd, st.nf, n_par, len(codes),
+        st.bin_kind, st.bin_model, int(st.ecliptic), st.n_dmx, st.n_fd, st.n_jump,
+        st.n_fb, st.h_mode, st.nharms, *codes, *([-1] * (MAX_LANES - len(codes))),
+        int(has_dpn), int(has_track))
+
+
+def k1_plan(lib, ints, n_batch: int) -> K1Plan:
+    """The plan of a call (the library's ``resid_tangent_plan``); a refused
+    call raises ValueError."""
+    plan = K1Plan()
+    if lib.resid_tangent_plan(ints, n_batch, ctypes.byref(plan)):
+        raise ValueError("kernel K1 refuses these arguments (csrc/k1_plan.h plan_of)")
+    return plan
+
+
+class _K1Setup:
+    """What K1's launches keep between calls with one model and one lane
+    tuple: the model's Structure, the lane codes, and per tensor shape the
+    integer arguments and the plan. Parameter values are read anew on every
+    call. The stacked JUMP masks and the checked one-hot are kept with the
+    tensor columns they came from and made anew for other ones."""
+
+    def __init__(self, model: TimingModel, lanes: tuple):
+        if len(lanes) > MAX_LANES:
+            raise ValueError(f"kernel K1 carries at most {MAX_LANES} tangent lanes; "
+                             f"got {len(lanes)}")
+        self.st = _structure(model)
+        self.codes = [lane_code(n, model) for n in lanes]
+        once = [c for c in self.codes if L_JUMP0 <= c < L_FB0]
+        if len(set(once)) != len(once):
+            raise ValueError("kernel K1 takes each DMX window's and JUMP's lane once")
+        self._calls: dict = {}
+        self._masks = None
+
+    def call(self, lib, n_rows: int, n_out: int, has_tzr: bool, has_dpn: bool,
+             has_track: bool, B: int):
+        """(ints, plan) of one call's shape."""
+        key = (n_rows, n_out, has_tzr, has_dpn, has_track, B)
+        got = self._calls.get(key)
+        if got is None:
+            ints = _k1_ints(self.st, self.codes, n_rows, n_out, has_tzr, has_dpn, has_track)
+            got = self._calls[key] = (ints, k1_plan(lib, ints, B))
+        return got
+
+    def masks_of(self, model: TimingModel, tensor: dict, empty: torch.Tensor):
+        """(onehot, masks) of `tensor`: its DMX one-hot and its JUMP masks
+        stacked (n_jump, N_rows), each `empty` when the model lacks the term.
+        The kernel writes the DMX and JUMP columns as the lanes seeded with
+        these entries would give them only for entries 0 and 1, which the
+        models build (window comparisons, flag masks): checked once per
+        column."""
+        st = self.st
+        jumps = model["PhaseJump"].mask_params if st.n_jump else ()
+        src = (tensor["dmx_onehot"] if st.n_dmx else None,
+               *(tensor[f"mask_{mp.name}"] for mp in jumps))
+        if self._masks is not None and len(src) == len(self._masks[0]) and all(
+                a is b for a, b in zip(src, self._masks[0])):
+            return self._masks[1]
+        onehot = src[0].contiguous() if st.n_dmx else empty
+        masks = torch.stack(src[1:]).contiguous() if st.n_jump else empty
+        for name, t in (("DMX one-hot", onehot), ("JUMP masks", masks)):
+            if not bool(torch.all((t == 0.0) | (t == 1.0))):
+                raise ValueError(f"kernel K1 takes a {name} of zeros and ones")
+        self._masks = (src, (onehot, masks))
+        return onehot, masks
+
+
+#: K1's setups by model, then by lane tuple (and the model's components)
+_K1_SETUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _k1_setup(model: TimingModel, lanes: tuple) -> _K1Setup:
+    per_model = _K1_SETUPS.setdefault(model, {})
+    key = (lanes, tuple(map(id, model.components)))
+    setup = per_model.get(key)
+    if setup is None:
+        setup = per_model[key] = _K1Setup(model, lanes)
+    return setup
 
 
 def resid_tangent(model: TimingModel, params: dict, tensor: dict,
@@ -404,15 +501,15 @@ def resid_tangent(model: TimingModel, params: dict, tensor: dict,
 
 
 def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> ResidTangent:
-    """One launch of K1 on the tensors' device (shapes checked here)."""
+    """One call of K1 (its passes) on the tensors' device (shapes checked
+    here)."""
     from pint_tpu_torch.models.astrometry import COS_OBL, SIN_OBL
+    from pint_tpu_torch.ops import build
 
     dev = tensor["t_hi"].device
     k = len(lanes)
-    if k > MAX_LANES:
-        raise ValueError(f"kernel K1 carries at most {MAX_LANES} tangent lanes; got {k}")
-    codes = [lane_code(n, model) for n in lanes]
-    st = _structure(model)
+    setup = _k1_setup(model, tuple(lanes))
+    st = setup.st
     rows = [tensor[key].contiguous() for key in _ROW_KEYS]
     n_rows = rows[0].shape[0]
     for t, key in zip(rows, _ROW_KEYS):
@@ -422,35 +519,31 @@ def _launch_k1(model: TimingModel, params: dict, tensor: dict, lanes: tuple) -> 
     n_out = n_rows - int(has_tzr)
     B = batch_size(params)
     P = _pack_params(model, params, B, st, dev)
-    ng = _nanograv_columns(model, params, tensor, B, st)
+    if P.shape[1] != P_ROW_LEN + st.nd + 2 * st.nf + st.n_fd:
+        raise ValueError(f"K1's parameter row has {P.shape[1]} columns")
+    ng = _nanograv_columns(model, params, tensor, B, st, setup)
     for t in ng:
         if t.dtype != torch.float64 or t.device != dev:
             raise ValueError(f"kernel K1's DMX and JUMP columns must be float64 on {dev}")
     dpn, track = pulse_columns(model, tensor)
-    none = torch.zeros(1, dtype=torch.float64, device=dev)
-    pulse = [none if t is None else t.contiguous() for t in (dpn, track)]
+    pulse = [_zeros(dev, (1,)) if t is None else t.contiguous() for t in (dpn, track)]
     for t in pulse:
         if t.dtype != torch.float64 or t.device != dev:
             raise ValueError(f"the pulse-number columns must be float64 on {dev}")
-    slots = _lane_slots(k)
-    out = [torch.empty((B, n_out), dtype=torch.float64, device=dev) for _ in range(3)]
-    tan = [torch.empty((B, slots, n_out), dtype=torch.float64, device=dev) for _ in range(2)]
-    fb = torch.empty((B, n_rows), dtype=torch.float64, device=dev)
-    ints = (ctypes.c_int * (19 + MAX_LANES))(
-        n_rows, n_out, int(has_tzr), int(st.has_ast), st.nd, st.nf, P.shape[1], k,
-        st.bin_kind, st.bin_model, int(st.ecliptic), st.n_dmx, st.n_fd, st.n_jump,
-        st.n_fb, st.h_mode, st.nharms, *(codes + [-1] * (MAX_LANES - k)),
-        int(dpn is not None), int(track is not None))
-    consts = (ctypes.c_double * 5)(AU_LS, DMCONST, TSUN_S, COS_OBL, SIN_OBL)
-    from pint_tpu_torch.ops import build
-
     lib = build.library("resid_tangent", _declare_k1)
+    ints, plan = setup.call(lib, n_rows, n_out, has_tzr, dpn is not None, track is not None, B)
+    # the outputs in one allocation: pn, frac, f (B, N), dfrac, df (B, k, N), fb (B, N_rows)
+    buf = torch.empty(B * ((3 + 2 * k) * n_out + n_rows), dtype=torch.float64, device=dev)
+    sizes = [B * n_out] * 3 + [B * k * n_out] * 2 + [B * n_rows]
+    shapes = [(B, n_out)] * 3 + [(B, k, n_out)] * 2 + [(B, n_rows)]
+    out = [x.view(shape) for x, shape in zip(torch.split(buf, sizes), shapes)]
+    scratch = torch.empty(max(plan.scratch, 1), dtype=torch.float64, device=dev)
+    consts = (ctypes.c_double * 5)(AU_LS, DMCONST, TSUN_S, COS_OBL, SIN_OBL)
     build.check(lib, lib.resid_tangent(
         *[t.data_ptr() for t in rows], *[t.data_ptr() for t in ng],
         *[t.data_ptr() for t in pulse], P.data_ptr(), B, ints,
-        consts, *[o.data_ptr() for o in out], *[t.data_ptr() for t in tan], fb.data_ptr(),
-        build.stream_of(P)))
-    return ResidTangent(*out, tan[0][:, :k], tan[1][:, :k], fb)
+        consts, *[o.data_ptr() for o in out], scratch.data_ptr(), build.stream_of(P)))
+    return ResidTangent(*out)
 
 
 resid_tangent.launches = 0
@@ -460,8 +553,11 @@ def _declare_k1(lib) -> None:
     p = ctypes.c_void_p
     lib.resid_tangent.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, ctypes.c_int,
                                   ctypes.POINTER(ctypes.c_int),
-                                  ctypes.POINTER(ctypes.c_double), p, p, p, p, p, p, p]
+                                  ctypes.POINTER(ctypes.c_double), p, p, p, p, p, p, p, p]
     lib.resid_tangent.restype = ctypes.c_int
+    lib.resid_tangent_plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                       ctypes.POINTER(K1Plan)]
+    lib.resid_tangent_plan.restype = ctypes.c_int
 
 
 # --- residuals -----------------------------------------------------------------
